@@ -25,6 +25,10 @@ def pytest_configure(config):
         "markers",
         "multidevice: needs the full 8-device host platform "
         "(skipped automatically when fewer devices are configured)")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the PyTorch port's kernels against their "
+        "plain versions); skipped where none is present")
 
 
 def pytest_collection_modifyitems(config, items):
