@@ -1,0 +1,427 @@
+"""Explicit tensor-parallel engine of the port, on virtual ranks.
+
+Counterpart of the TP half of ``repro.core.parallel_exec``: the paper's
+hand-placed collective schedule (Section III-A) —
+
+  * a vocab-parallel embedding all-reduce (the "+1"),
+  * per layer one all-reduce after the attention output projection and
+    one after the MLP down-projection (2L),
+  * an all-gather of the vocab-sharded logits (the paper's Gather; the
+    JAX package all-gathers, ``commodel`` gather_mode="allgather").
+
+The t ranks are virtual: their shards sit on one device and every
+collective goes through a ``core.comm.VirtualGroup``, which logs it.  So
+one card (or the CPU) runs t > 1, and a run's log compares with
+``commodel.comm_ops_for``.  The rank loop:
+
+  * each rank runs its own shard's projections and attention (kernels B2,
+    B3 and B4 at Hq/t query and Hkv/t KV heads) and contributes a partial
+    sum; the layer keeps the list of the t partials;
+  * work whose result is the same on every rank runs once on the group:
+    the norms (B1), the residual adds, the embedding after its all-reduce
+    and the dequantize after the gather;
+  * ``quantized_psum`` (``quant`` = "int8" | "fp8" | "int4") replaces each
+    per-layer all-reduce of a contiguous decode step by the quantized
+    two-step (kernels B5–B9).  Prefill, the paged passes, the embedding
+    all-reduce and the logits gather stay full-width, as in the JAX
+    package.
+
+Parameters of a TP model are a list of t per-rank dicts (``shard_params``);
+caches are a list of t per-rank dicts {k, v: [L, B, W, Hkv/t, D]} (ring
+cache) or {k, v: [L, P, ps, Hkv/t, D]} (KV pages under one block table).
+Like the JAX engine this covers the dense llama family with untied,
+unscaled embeddings (the JAX ``_head`` and ``_embed_tokens`` ignore
+``tie_embeddings`` and ``scale_embedding``); other configs raise.
+"""
+from __future__ import annotations
+
+import types
+from typing import List
+
+import torch
+
+from repro_torch.config.base import ModelConfig
+from repro_torch.core.comm import VirtualGroup
+from repro_torch.core.commodel import DEFAULT_QUANT_CHUNK
+from repro_torch.kernels.quant_collective import ref as qref
+from repro_torch.kernels.quant_collective.ops import (QUANT_DTYPES,
+                                                      chunk_amax,
+                                                      chunk_dequantize,
+                                                      chunk_quantize,
+                                                      collective_qmax,
+                                                      nibble_pack,
+                                                      nibble_unpack,
+                                                      scales_from_amax)
+from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
+from repro_torch.models.blocks import attention_apply
+from repro_torch.models.layers import (decode_positions, mlp_apply,
+                                       rms_norm, torch_dtype)
+from repro_torch.models.transformer import (Model, greedy_decode_loop,
+                                            resolve_device)
+
+# ---------------------------------------------------------------------------
+# parameter sharding (the slicing counterpart of tp_param_specs)
+# ---------------------------------------------------------------------------
+
+# axis each parameter is split on (None: replicated on every rank).
+# Column-parallel wq/wk/wv/w1/w3 split their output axis, row-parallel
+# wo/w2 their input axis, the vocab-parallel embed/lm_head the vocab axis.
+BLOCK_SHARD_AXES = {"wq": 2, "wk": 2, "wv": 2, "w1": 2, "w3": 2,
+                    "wo": 1, "w2": 1, "ln1": None, "ln2": None}
+TOP_SHARD_AXES = {"embed": 0, "lm_head": 1, "final_norm": None}
+
+
+def check_tp_config(cfg: ModelConfig, t: int) -> None:
+    """Raise unless the TP engine covers ``cfg`` at degree ``t``."""
+    if cfg.family != "dense":
+        raise ValueError(f"the explicit TP engine covers the dense family; "
+                         f"{cfg.name} is {cfg.family}")
+    if cfg.tie_embeddings or cfg.scale_embedding:
+        raise ValueError(
+            f"{cfg.name} sets tie_embeddings={cfg.tie_embeddings} "
+            f"scale_embedding={cfg.scale_embedding}: the TP engine, like "
+            "the JAX package's (its _head and _embed_tokens ignore both), "
+            "covers untied, unscaled embeddings only")
+    if t < 1:
+        raise ValueError(f"t must be >= 1, got {t}")
+    for what, n in (("num_heads", cfg.num_heads),
+                    ("num_kv_heads", cfg.num_kv_heads),
+                    ("d_ff", cfg.d_ff), ("padded_vocab", cfg.padded_vocab)):
+        if n % t:
+            raise ValueError(f"{cfg.name}: {what}={n} does not divide over "
+                             f"t={t} ranks")
+
+
+def shard_params(cfg: ModelConfig, params: dict, t: int) -> List[dict]:
+    """Rank r's slice of every parameter, as a contiguous copy of its own:
+    what ``NamedSharding(mesh, tp_param_specs(cfg))`` places on device r.
+    Replicated parameters are copied to every rank too."""
+    check_tp_config(cfg, t)
+
+    def piece(w, axis, r):
+        if axis is not None:
+            n = w.shape[axis] // t
+            w = w.narrow(axis, r * n, n)
+        return w.clone(memory_format=torch.contiguous_format)
+
+    return [dict({name: piece(params[name], axis, r)
+                  for name, axis in TOP_SHARD_AXES.items()},
+                 blocks={name: piece(w, BLOCK_SHARD_AXES[name], r)
+                         for name, w in params["blocks"].items()})
+            for r in range(t)]
+
+
+# ---------------------------------------------------------------------------
+# collectives of the schedule
+# ---------------------------------------------------------------------------
+
+
+def _vocab_parallel_embed(embeds, tokens, group: VirtualGroup):
+    """Vocab-sharded embedding lookup + all-reduce (the paper's '+1'): rank
+    r looks up the tokens of its vocab block and zeros the others."""
+    vshard = embeds[0].shape[0]
+    tokens = tokens.long()
+    parts = []
+    for r, table in enumerate(embeds):
+        local = tokens - r * vshard
+        valid = (local >= 0) & (local < vshard)
+        x = table[local.clamp(0, vshard - 1)]
+        parts.append(torch.where(valid[..., None], x, torch.zeros_like(x)))
+    return group.all_reduce(parts)
+
+
+_KERNEL_OPS = types.SimpleNamespace(
+    amax=chunk_amax, quantize=chunk_quantize, dequantize=chunk_dequantize,
+    pack=nibble_pack, unpack=nibble_unpack)
+_PLAIN_OPS = types.SimpleNamespace(
+    amax=qref.chunk_amax_ref,
+    quantize=lambda x, s, chunk, quant: qref.chunk_quantize_ref(
+        x, s, chunk, QUANT_DTYPES[quant]),
+    dequantize=qref.chunk_dequantize_ref,
+    pack=qref.nibble_pack_ref, unpack=qref.nibble_unpack_ref)
+
+
+def _check_quant(quant):
+    if quant is not None and quant not in QUANT_DTYPES:
+        raise ValueError(f"unknown quant_collectives mode {quant!r}; "
+                         f"expected None or one of {sorted(QUANT_DTYPES)}")
+    return quant
+
+
+def quantized_psum(xs, group: VirtualGroup, quant: str = "int8",
+                   chunk: int = DEFAULT_QUANT_CHUNK, plain: bool = False):
+    """Quantized two-step all-reduce of the t rank tensors xs [..., h].
+
+      1. per-chunk abs-max on every rank (B5), all-reduced with max — the
+         shared scales, with ``collective_qmax`` headroom;
+      2. quantize on every rank (B6) onto the shared scales;
+      3. int8 / fp8: reduce-scatter of the 1-byte payload (the int8 sum is
+         exact by the headroom), all-gather of the reduced blocks;
+         int4: pack on every rank (B7), all-to-all of the nibbles, unpack
+         on every rank (B8), an exact int32 sum of the t copies of the
+         rank's block, requantize by t (plain torch, as in JAX), pack
+         again (B7), all-gather; unpack once (B8);
+      4. dequantize once (B9) with the shared scales (times t for int4),
+         back to the inputs' dtype.
+
+    ``quant=None`` or a group of one rank is the plain all-reduce.
+    ``plain=True`` runs the plain versions of B5–B9 in place of the
+    kernels.  Returns the one tensor every rank holds.
+    """
+    t = group.t
+    if quant is None or t <= 1:
+        return group.all_reduce(xs)
+    h = xs[0].shape[-1]
+    if h % t:
+        raise ValueError(f"quantized_psum scatters the hidden axis over "
+                         f"t={t}: h={h} must divide")
+    ops = _PLAIN_OPS if plain else _KERNEL_OPS
+    amax = group.all_reduce([ops.amax(x, chunk) for x in xs], op="max")
+    scales = scales_from_amax(amax, collective_qmax(quant, t))
+    qs = [ops.quantize(x, scales, chunk, quant) for x in xs]
+    if quant == "int4":
+        if h % (2 * t):
+            raise ValueError(f"int4 packs two values per byte and ships "
+                             f"h/t-element blocks: h={h} must divide 2t="
+                             f"{2 * t}")
+        lead = xs[0].shape[:-1]
+        received = group.all_to_all([ops.pack(q) for q in qs],
+                                    values_per_item=2)
+        reduced = []
+        for packed in received:          # t source copies of the rank's block
+            r = ops.unpack(packed).to(torch.int32).reshape(
+                *lead, t, h // t).sum(dim=-2)            # exact: |r| <= 7t
+            rq = torch.clamp(torch.round(r.float() / t), -7, 7)
+            reduced.append(ops.pack(rq.to(torch.int8)))
+        gathered = group.all_gather(reduced, values_per_item=2)
+        return ops.dequantize(ops.unpack(gathered), scales * t, chunk,
+                              xs[0].dtype)
+    gathered = group.all_gather(group.reduce_scatter(qs))
+    return ops.dequantize(gathered, scales, chunk, xs[0].dtype)
+
+
+def _mask_pad_vocab(logits, vocab: int):
+    """Mask pad-vocab columns to the logits' own dtype minimum."""
+    if vocab >= logits.shape[-1]:
+        return logits
+    col = torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where(col < vocab, logits, torch.finfo(logits.dtype).min)
+
+
+def _logits_allgather(params, x_last, group: VirtualGroup, vocab: int,
+                      eps: float, norm):
+    """Final norm once, vocab-sharded logits per rank, all-gather."""
+    xn = norm(x_last.contiguous(), params[0]["final_norm"], eps)
+    logits = group.all_gather([xn @ p["lm_head"] for p in params])
+    return _mask_pad_vocab(logits, vocab)
+
+
+def _layer_slice(blocks, l):
+    return {k: v[l] for k, v in blocks.items()}
+
+
+# ---------------------------------------------------------------------------
+# the TP model
+# ---------------------------------------------------------------------------
+
+
+class TPModel:
+    """The dense model of ``cfg`` over t virtual TP ranks, with the
+    interface of ``models.transformer.Model`` on per-rank parameters and
+    caches.  ``quant`` lowers the per-layer all-reduces of the contiguous
+    decode step to ``quantized_psum``; ``plain=True`` runs the plain
+    attention, RMSNorm and quantization in place of the kernels.  The
+    collectives are logged on ``self.group``."""
+
+    def __init__(self, cfg: ModelConfig, t: int, quant: str = None,
+                 quant_chunk: int = DEFAULT_QUANT_CHUNK, plain: bool = False):
+        check_tp_config(cfg, t)
+        self.cfg = cfg
+        self.t = int(t)
+        self.quant = _check_quant(quant)
+        self.quant_chunk = int(quant_chunk)
+        self.plain = bool(plain)
+        self.heads_t = cfg.num_heads // t
+        self.kv_t = cfg.num_kv_heads // t
+        self.group = VirtualGroup(t)
+        self._norm = rms_norm_ref if plain else rms_norm
+        self._dense = Model(cfg, plain)
+
+    # ------------------------------------------------------------- params
+    def init(self, seed: int = 0, device=None) -> List[dict]:
+        """Seeded random weights (``Model.init``), sharded over the ranks."""
+        return shard_params(self.cfg, self._dense.init(seed, device), self.t)
+
+    def cache_width(self, max_len: int) -> int:
+        return self._dense.cache_width(max_len)
+
+    def init_cache(self, batch: int, max_len: int, device=None):
+        return self._rank_caches((self.cfg.num_layers, batch,
+                                  self.cache_width(max_len)), device)
+
+    def init_paged_cache(self, num_pages: int, page_size: int, device=None):
+        """Per-rank [L, P, ps, Hkv/t, D] K/V page pools (page 0 is the
+        scratch page — runtime/kvpool.py)."""
+        if self.cfg.sliding_window:
+            raise ValueError(
+                "paged KV cache keeps every position (pages, no ring wrap); "
+                f"{self.cfg.name} uses a sliding window — serve it "
+                "contiguous")
+        return self._rank_caches((self.cfg.num_layers, num_pages, page_size),
+                                 device)
+
+    def _rank_caches(self, lead, device):
+        device = resolve_device(device)
+        shape = (*lead, self.kv_t, self.cfg.head_dim)
+        return [{key: torch.zeros(shape, dtype=torch_dtype(self.cfg.dtype),
+                                  device=device)
+                 for key in ("k", "v")} for _ in range(self.t)]
+
+    # ------------------------------------------------------ layer variants
+    def _tp_layer_qkv(self, pls, xn, positions, caches=None, **attn_kw):
+        """Every rank's projection head and attention: RoPE'd q/k/v of the
+        rank's heads and the attention kernel over them
+        (``blocks.attention_apply`` at Hq/t and Hkv/t heads).  Returns the
+        per-rank outputs [B, S, Hq/t*D] and caches."""
+        outs, new = [], []
+        for r, p in enumerate(pls):
+            out, cache = attention_apply(
+                self.cfg, p, xn, positions,
+                cache=None if caches is None else caches[r],
+                plain=self.plain, num_heads=self.heads_t,
+                num_kv_heads=self.kv_t, **attn_kw)
+            outs.append(out)
+            new.append(cache)
+        return outs, new
+
+    def _tp_layer_out(self, pls, x, attns, quant: str = None):
+        """The attention-output and MLP residual tail: the layer's two
+        all-reduces (``quantized_psum`` when ``quant`` is set)."""
+        cfg = self.cfg
+        x = x + quantized_psum([a @ p["wo"] for a, p in zip(attns, pls)],
+                               self.group, quant, self.quant_chunk,
+                               self.plain)                      # AR (attn out)
+        xn2 = self._norm(x, pls[0]["ln2"], cfg.norm_eps)
+        return x + quantized_psum(
+            [mlp_apply(p, xn2, cfg.activation) for p in pls], self.group,
+            quant, self.quant_chunk, self.plain)                # AR (mlp down)
+
+    def _tp_layer_full(self, pls, x, positions, cache_w=None):
+        """One layer over a full sequence (the prefill); with ``cache_w``
+        each rank's ring cache of width cache_w is built from its K/V."""
+        xn = self._norm(x, pls[0]["ln1"], self.cfg.norm_eps)
+        attns, caches = self._tp_layer_qkv(pls, xn, positions,
+                                           build_cache_w=cache_w)
+        return self._tp_layer_out(pls, x, attns), caches
+
+    def _tp_layer_step(self, pls, x, positions, pos, caches):
+        """One decode step against the per-rank ring caches (in place);
+        the two all-reduces quantized when the model has ``quant``."""
+        xn = self._norm(x, pls[0]["ln1"], self.cfg.norm_eps)
+        attns, caches = self._tp_layer_qkv(pls, xn, positions, caches=caches,
+                                           pos=pos)
+        return self._tp_layer_out(pls, x, attns, self.quant), caches
+
+    def _tp_layer_paged(self, pls, x, positions, pos, caches, block_table):
+        """One layer of a paged pass (a prefill chunk or a decode token):
+        each rank's K/V rows go into its own page pool at the pages the
+        shared block table names.  Paging is data movement, not
+        communication: the collectives are the contiguous layer's."""
+        xn = self._norm(x, pls[0]["ln1"], self.cfg.norm_eps)
+        attns, caches = self._tp_layer_qkv(pls, xn, positions, caches=caches,
+                                           pos=pos, block_table=block_table)
+        return self._tp_layer_out(pls, x, attns), caches
+
+    def _embed_tokens(self, params, tokens):
+        return _vocab_parallel_embed([p["embed"] for p in params], tokens,
+                                     self.group)
+
+    def _head(self, params, x_last):
+        return _logits_allgather(params, x_last, self.group,
+                                 self.cfg.vocab_size, self.cfg.norm_eps,
+                                 self._norm)
+
+    @staticmethod
+    def _layer_caches(cache, l):
+        return [{key: c[key][l] for key in ("k", "v")} for c in cache]
+
+    # ---------------------------------------------------------- interface
+    def tp_prefill(self, params, tokens, cache_w: int = None):
+        """tokens [B, S] -> (last-position logits [B, v], per-rank ring
+        caches of width ``cache_w``, or None).  Collectives: (2L+1)
+        all-reduce + 1 all-gather (Eq. 1, Table III)."""
+        cfg = self.cfg
+        with self.group.phase("prefill"):
+            x = self._embed_tokens(params, tokens)
+            B, S = x.shape[:2]
+            positions = torch.arange(S, device=x.device).expand(B, S)
+            cache = None
+            if cache_w is not None:
+                cache = [{key: x.new_zeros((cfg.num_layers, B, cache_w,
+                                            self.kv_t, cfg.head_dim))
+                          for key in ("k", "v")} for _ in range(self.t)]
+            for l in range(cfg.num_layers):
+                pls = [_layer_slice(p["blocks"], l) for p in params]
+                x, built = self._tp_layer_full(pls, x, positions, cache_w)
+                if cache is not None:
+                    for c, b in zip(cache, built):
+                        c["k"][l] = b["k"]
+                        c["v"][l] = b["v"]
+            logits = self._head(params, x[:, -1])
+        return logits, cache
+
+    def tp_decode_step(self, params, cache, tokens, pos):
+        """One decode step: tokens [B]; ``pos`` a scalar or [B] positions.
+        Returns (logits [B, v], cache), the caches updated in place.
+        Collectives: (2L+1) all-reduce + 1 all-gather; with ``quant`` each
+        of the 2L layer all-reduces is the quantized two-step."""
+        with self.group.phase("decode"):
+            x = self._embed_tokens(params, tokens[:, None])
+            pos = torch.as_tensor(pos, device=x.device)
+            positions = decode_positions(pos, x.shape[0], device=x.device)
+            for l in range(self.cfg.num_layers):
+                pls = [_layer_slice(p["blocks"], l) for p in params]
+                x, _ = self._tp_layer_step(pls, x, positions, pos,
+                                           self._layer_caches(cache, l))
+            logits = self._head(params, x[:, 0])
+        return logits, cache
+
+    def tp_generate(self, params, cache, tokens, pos, num_tokens: int):
+        """Greedy multi-token decode: (tokens [B, num_tokens], cache)."""
+        return greedy_decode_loop(
+            lambda c, tok, p: self.tp_decode_step(params, c, tok, p),
+            tokens, cache, pos, num_tokens)
+
+    def tp_paged_step(self, params, cache, tokens, pos, block_table):
+        """One paged pass over the per-rank page pools: a prefill chunk
+        (S > 1, logged as prefill) or a decode step (S == 1, logged as
+        decode).  tokens [B, S]; pos [B] start positions; block_table
+        [B, n].  Returns (last-position logits [B, v], cache).  Runs
+        full-width: the JAX package quantizes only the contiguous step."""
+        phase = "decode" if tokens.shape[1] == 1 else "prefill"
+        with self.group.phase(phase):
+            x = self._embed_tokens(params, tokens)
+            S = x.shape[1]
+            pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+            block_table = torch.as_tensor(block_table, dtype=torch.int32,
+                                          device=x.device)
+            positions = pos[:, None].long() + torch.arange(S,
+                                                           device=x.device)
+            for l in range(self.cfg.num_layers):
+                pls = [_layer_slice(p["blocks"], l) for p in params]
+                x, _ = self._tp_layer_paged(pls, x, positions, pos,
+                                            self._layer_caches(cache, l),
+                                            block_table)
+            logits = self._head(params, x[:, -1])
+        return logits, cache
+
+    # the single-device Model's names
+    def prefill(self, params, tokens, max_len: int):
+        """(logits [B, v], per-rank ring caches, S), as ``Model.prefill``."""
+        logits, cache = self.tp_prefill(params, tokens,
+                                        self.cache_width(max_len))
+        return logits, cache, tokens.shape[1]
+
+    decode_step = tp_decode_step
+    decode_steps = tp_generate
+    paged_step = tp_paged_step

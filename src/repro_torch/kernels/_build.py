@@ -34,7 +34,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 # dtype codes of the C entry points (kernels/csrc/common.cuh)
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.uint8: 3, torch.float8_e4m3fn: 4}
+FLOAT_TYPES = (torch.float32, torch.bfloat16)
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
@@ -48,11 +50,18 @@ SIGNATURES = {
     "repro_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                      _I, _I, _I, _I, _LL, _LL, _LL, _F, _I,
                                      _P],
+    "repro_chunk_amax": [_P, _P, _LL, _I, _I, _I, _P],
+    "repro_chunk_quantize": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "repro_chunk_dequantize": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "repro_nibble_pack": [_P, _P, _LL, _P],
+    "repro_nibble_unpack": [_P, _P, _LL, _P],
 }
 
 LAUNCHES: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
                             "decode_attention": 0,
-                            "paged_decode_attention": 0}
+                            "paged_decode_attention": 0, "chunk_amax": 0,
+                            "chunk_quantize": 0, "nibble_pack": 0,
+                            "nibble_unpack": 0, "chunk_dequantize": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -143,9 +152,11 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
 
 
-def dtype_code(dtype) -> int:
-    if dtype not in DTYPE_CODES:
-        raise TypeError(f"kernels take float32 or bfloat16, got {dtype}")
+def dtype_code(dtype, allowed=FLOAT_TYPES) -> int:
+    """The C code of ``dtype``; raises unless the kernel takes it."""
+    if dtype not in allowed:
+        names = " or ".join(str(d).replace("torch.", "") for d in allowed)
+        raise TypeError(f"this kernel takes {names}, got {dtype}")
     return DTYPE_CODES[dtype]
 
 

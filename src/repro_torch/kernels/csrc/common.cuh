@@ -1,7 +1,7 @@
 // Helpers shared by the port's hand-written Hopper kernels.
 //
-// Every kernel is templated over float and __nv_bfloat16, accumulates in
-// f32, and is launched from a plain C entry point that returns
+// Every floating-point kernel is templated over float and __nv_bfloat16,
+// computes in f32, and is launched from a plain C entry point that returns
 // cudaGetLastError() so the ctypes wrapper can raise on a refused launch.
 #pragma once
 
@@ -22,6 +22,9 @@ constexpr float kMinDenom = 1e-30f;
 // dtype codes shared with kernels/_build.py
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
+constexpr int kInt8 = 2;
+constexpr int kUInt8 = 3;
+constexpr int kFloat8E4M3 = 4;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {

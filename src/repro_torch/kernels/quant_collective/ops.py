@@ -1,0 +1,250 @@
+"""Dispatch and numerics contract of the quantized collectives.
+
+``chunk_amax`` (B5), ``chunk_quantize`` (B6), ``nibble_pack`` (B7),
+``nibble_unpack`` (B8) and ``chunk_dequantize`` (B9) launch their CUDA
+kernel on a CUDA tensor and run the plain version on a CPU tensor; a
+``*_cuda`` wrapper raises on anything its kernel does not take.
+
+The numerics contract is a copy of ``repro.kernels.quant_collective.ops``
+with torch dtypes (the port imports nothing of the JAX package):
+
+* ``QUANT_DTYPES``     wire modes and their payload dtypes,
+* ``collective_qmax``  the per-rank quant ceiling with summation headroom
+  (``floor(127/t)`` for int8, ``448/t`` for fp8-e4m3, the full +-7 for
+  int4), so the t-way sum cannot overflow the wire dtype,
+* ``scales_from_amax`` the shared scale from the all-reduced abs-max, 1.0
+  where a chunk is all zeros,
+* ``QUANT_TOLERANCE``  the accuracy contract per mode: greedy token match
+  against the unquantized path >= ``token_match_floor`` and max logit
+  drift <= ``logit_drift_ceiling``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.quant_collective.ref import (chunk_amax_ref,
+                                                      chunk_dequantize_ref,
+                                                      chunk_quantize_ref,
+                                                      nibble_pack_ref,
+                                                      nibble_unpack_ref)
+
+# int4 has no torch dtype: values live in int8 storage (|q| <= 7) and
+# ``nibble_pack``/``nibble_unpack`` convert to and from the two-per-byte
+# uint8 wire form the packed all-to-all ships.
+QUANT_DTYPES = {
+    "int8": torch.int8,
+    "fp8": torch.float8_e4m3fn,
+    "int4": torch.int8,
+}
+
+DEFAULT_CHUNK = 128
+
+# The tested accuracy contract per wire mode, measured teacher-forced
+# against the unquantized path (the JAX package's numbers, unchanged).
+# Calibrated on reduced configs with random weights (near-worst-case logit
+# margins; drift compounds through 32 steps of quantized KV-cache
+# history): worst observed int8 row token_match 0.9375 / drift 0.172 at
+# t=4, fp8 0.906 / 0.145 at t=2, so the ceilings carry ~1.5-2x headroom.
+# int8 with summation headroom keeps per-element relative error ~2^-7;
+# fp8-e4m3 carries ~2^-3 mantissa steps, hence the looser row.
+QUANT_TOLERANCE = {
+    "int8": {"token_match_floor": 0.90, "logit_drift_ceiling": 0.25},
+    "fp8": {"token_match_floor": 0.75, "logit_drift_ceiling": 0.30},
+    # int4 keeps the full +-7 grid (the packed all-to-all sums exactly in
+    # int32) but requantizes the reduced row back onto the 4-bit grid
+    # before the gather, so per-all-reduce error is bounded by t * amax/7
+    # and grows with the TP degree.  The contract only pins that the
+    # 4-bit wire does not silently get worse.
+    "int4": {"token_match_floor": 0.25, "logit_drift_ceiling": 2.0},
+}
+
+
+def collective_qmax(quant: str, t: int) -> float:
+    """Per-rank quant ceiling with headroom for an exact t-way sum.
+
+    Each rank quantizes with the shared (all-reduced) per-chunk abs-max,
+    so every |q| <= qmax; capping qmax at ``range/t`` bounds the
+    reduce-scatter's partial sum by the wire dtype's max.  int4 keeps the
+    full +-7 (``floor(7/t)`` would collapse the grid at t >= 4): its
+    all-to-all ships every rank's nibbles unsummed, every rank sums its
+    block exactly in int32, and only the requantize-by-t rounds.
+    """
+    if quant not in QUANT_DTYPES:
+        raise ValueError(f"unknown quant mode {quant!r}; "
+                         f"expected one of {sorted(QUANT_DTYPES)}")
+    if t < 1:
+        raise ValueError(f"t must be >= 1, got {t}")
+    if quant == "int8":
+        return float(127 // t)
+    if quant == "int4":
+        return 7.0
+    return 448.0 / t
+
+
+def scales_from_amax(amax, qmax: float):
+    """Per-chunk scale from the shared abs-max, 1.0 for all-zero chunks.
+
+    The JAX package writes ``amax / qmax``; XLA compiles a division by a
+    constant as a multiply by its f32 reciprocal, which can land one f32
+    ulp away.  The port computes what the compiled engine computes,
+    ``amax * f32(1 / qmax)``, so its shared scales are bitwise the
+    engine's."""
+    amax = amax.float()
+    inv = torch.tensor(1.0) / torch.tensor(float(qmax))   # f32 reciprocal
+    return torch.where(amax > 0.0, amax * inv.item(), torch.ones_like(amax))
+
+
+# ---------------------------------------------------------------------------
+# dispatch: the plain version on a CPU tensor, the kernel on a CUDA tensor
+# ---------------------------------------------------------------------------
+
+
+def chunk_amax(x, chunk: int = DEFAULT_CHUNK):
+    if x.device.type == "cpu":
+        return chunk_amax_ref(x, chunk)
+    return chunk_amax_cuda(x, chunk)
+
+
+def chunk_quantize(x, scales, chunk: int = DEFAULT_CHUNK,
+                   quant: str = "int8"):
+    qdtype = QUANT_DTYPES[quant]
+    if x.device.type == "cpu":
+        return chunk_quantize_ref(x, scales, chunk, qdtype)
+    return chunk_quantize_cuda(x, scales, chunk, qdtype)
+
+
+def chunk_dequantize(q, scales, chunk: int = DEFAULT_CHUNK,
+                     out_dtype=torch.float32):
+    if q.device.type == "cpu":
+        return chunk_dequantize_ref(q, scales, chunk, out_dtype)
+    return chunk_dequantize_cuda(q, scales, chunk, out_dtype)
+
+
+def nibble_pack(q):
+    """int4 values (int8 storage, |q| <= 7) -> two-per-byte uint8."""
+    if q.device.type == "cpu":
+        return nibble_pack_ref(q)
+    return nibble_pack_cuda(q)
+
+
+def nibble_unpack(b):
+    """Two-per-byte uint8 -> sign-extended int8 values."""
+    if b.device.type == "cpu":
+        return nibble_unpack_ref(b)
+    return nibble_unpack_cuda(b)
+
+
+# ---------------------------------------------------------------------------
+# the kernels
+# ---------------------------------------------------------------------------
+
+FLOAT_TYPES = _build.FLOAT_TYPES
+WIRE_TYPES = (torch.int8, torch.float8_e4m3fn)
+
+
+def _check_input(name, x, dtypes):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: x on {x.device}, expected a CUDA device")
+    _build.require(name, "x", x, x.device, x.dtype)
+    if x.numel() == 0:
+        raise ValueError(f"{name}: x is empty")
+    return _build.dtype_code(x.dtype, dtypes)
+
+
+def _check_scales(name, x, scales, chunk):
+    if chunk < 1:
+        raise ValueError(f"{name}: chunk must be >= 1, got {chunk}")
+    k = -(-x.shape[-1] // chunk)
+    _build.require(name, "scales", scales, x.device, torch.float32,
+                   (*x.shape[:-1], k))
+
+
+def chunk_amax_cuda(x, chunk: int = DEFAULT_CHUNK):
+    """Launch B5 on x [..., h] (float32 or bfloat16): f32 [..., K]."""
+    name = "chunk_amax_cuda"
+    code = _check_input(name, x, FLOAT_TYPES)
+    if chunk < 1:
+        raise ValueError(f"{name}: chunk must be >= 1, got {chunk}")
+    h = x.shape[-1]
+    out = torch.empty((*x.shape[:-1], -(-h // chunk)), dtype=torch.float32,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _build.lib().repro_chunk_amax(
+            x.data_ptr(), out.data_ptr(), x.numel() // h, h, chunk, code,
+            _build.stream_ptr(x.device))
+    _build.check(rc, name)
+    _build.count("chunk_amax")
+    return out
+
+
+def chunk_quantize_cuda(x, scales, chunk: int = DEFAULT_CHUNK,
+                        qdtype=torch.int8):
+    """Launch B6: x [..., h] (float32 or bfloat16) and f32 scales
+    [..., K] -> ``qdtype`` (int8 or float8_e4m3fn) [..., h]."""
+    name = "chunk_quantize_cuda"
+    code = _check_input(name, x, FLOAT_TYPES)
+    _check_scales(name, x, scales, chunk)
+    qcode = _build.dtype_code(qdtype, WIRE_TYPES)
+    out = torch.empty(x.shape, dtype=qdtype, device=x.device)
+    h = x.shape[-1]
+    with torch.cuda.device(x.device):
+        rc = _build.lib().repro_chunk_quantize(
+            x.data_ptr(), scales.data_ptr(), out.data_ptr(), x.numel() // h,
+            h, chunk, code, qcode, _build.stream_ptr(x.device))
+    _build.check(rc, name)
+    _build.count("chunk_quantize")
+    return out
+
+
+def chunk_dequantize_cuda(q, scales, chunk: int = DEFAULT_CHUNK,
+                          out_dtype=torch.float32):
+    """Launch B9: q [..., h] (int8 or float8_e4m3fn) and f32 scales
+    [..., K] -> ``out_dtype`` (float32 or bfloat16) [..., h]."""
+    name = "chunk_dequantize_cuda"
+    qcode = _check_input(name, q, WIRE_TYPES)
+    _check_scales(name, q, scales, chunk)
+    code = _build.dtype_code(out_dtype, FLOAT_TYPES)
+    out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
+    h = q.shape[-1]
+    with torch.cuda.device(q.device):
+        rc = _build.lib().repro_chunk_dequantize(
+            q.data_ptr(), scales.data_ptr(), out.data_ptr(), q.numel() // h,
+            h, chunk, qcode, code, _build.stream_ptr(q.device))
+    _build.check(rc, name)
+    _build.count("chunk_dequantize")
+    return out
+
+
+def nibble_pack_cuda(q):
+    """Launch B7: int8 [..., h], h even -> uint8 [..., h // 2]."""
+    name = "nibble_pack_cuda"
+    _check_input(name, q, (torch.int8,))
+    h = q.shape[-1]
+    if h % 2:
+        raise ValueError(f"{name}: nibble packing needs an even last axis, "
+                         f"got {h}")
+    out = torch.empty((*q.shape[:-1], h // 2), dtype=torch.uint8,
+                      device=q.device)
+    with torch.cuda.device(q.device):
+        rc = _build.lib().repro_nibble_pack(
+            q.data_ptr(), out.data_ptr(), out.numel(),
+            _build.stream_ptr(q.device))
+    _build.check(rc, name)
+    _build.count("nibble_pack")
+    return out
+
+
+def nibble_unpack_cuda(b):
+    """Launch B8: uint8 [..., m] -> int8 [..., 2m]."""
+    name = "nibble_unpack_cuda"
+    _check_input(name, b, (torch.uint8,))
+    out = torch.empty((*b.shape[:-1], 2 * b.shape[-1]), dtype=torch.int8,
+                      device=b.device)
+    with torch.cuda.device(b.device):
+        rc = _build.lib().repro_nibble_unpack(
+            b.data_ptr(), out.data_ptr(), b.numel(),
+            _build.stream_ptr(b.device))
+    _build.check(rc, name)
+    _build.count("nibble_unpack")
+    return out

@@ -1,0 +1,91 @@
+"""Plain PyTorch versions of the per-chunk collective quantization ops:
+the reference kernels B5–B9 are held to.
+
+Counterpart of ``repro.kernels.quant_collective.ref``.  The quantized
+two-step all-reduce (``core.parallel_exec.quantized_psum``) needs five
+dense ops on the activation row entering a TP all-reduce:
+
+* ``chunk_amax_ref``       (B5) abs-max over each ``chunk``-wide block,
+* ``chunk_quantize_ref``   (B6) symmetric round-to-nearest-even onto the grid,
+* ``nibble_pack_ref``      (B7) two int4 values per byte,
+* ``nibble_unpack_ref``    (B8) the inverse, sign-extending each nibble,
+* ``chunk_dequantize_ref`` (B9) back to the working dtype.
+
+The hidden axis is zero-padded to a whole number of chunks and sliced
+back, so ``h % chunk != 0`` is exact: the padding can neither raise an
+abs-max nor leak into the output.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+FP8_MAX = 448.0            # finfo(float8_e4m3fn).max
+
+
+def _pad_to_chunks(x, chunk: int):
+    h = x.shape[-1]
+    k = -(-h // chunk)
+    pad = k * chunk - h
+    if pad:
+        x = F.pad(x, (0, pad))
+    return x, k
+
+
+def chunk_amax_ref(x, chunk: int):
+    """Per-chunk abs-max of the last axis: [..., h] -> [..., K] float32.
+    A NaN in a chunk gives NaN (``torch.amax`` propagates it, as
+    ``jnp.max`` does)."""
+    xp, k = _pad_to_chunks(x.float().abs(), chunk)
+    return xp.reshape(*x.shape[:-1], k, chunk).amax(dim=-1)
+
+
+def chunk_quantize_ref(x, scales, chunk: int, qdtype):
+    """Symmetric quantize, q = x / scale per chunk: round half to even and
+    clip to [-127, 127] for int8, clip to +-448 then round to e4m3 for
+    ``torch.float8_e4m3fn``.  ``scales`` is [..., K] float32.
+
+    Every zero scale is taken as 1, as the JAX package's Pallas kernel does
+    (``quant_kernel.chunk_quantize_pallas``; its jnp reference divides by
+    the zero).  ``ops.scales_from_amax`` never yields a zero scale."""
+    h = x.shape[-1]
+    xp, k = _pad_to_chunks(x.float(), chunk)
+    s = torch.where(scales == 0, torch.ones_like(scales), scales)
+    xc = xp.reshape(*x.shape[:-1], k, chunk) / s[..., None]
+    if qdtype == torch.int8:
+        xc = torch.clamp(torch.round(xc), -127.0, 127.0)
+    elif qdtype == torch.float8_e4m3fn:
+        xc = torch.clamp(xc, -FP8_MAX, FP8_MAX)
+    else:
+        raise TypeError(f"quantize targets int8 or float8_e4m3fn, got "
+                        f"{qdtype}")
+    return xc.reshape(*x.shape[:-1], k * chunk)[..., :h].to(qdtype)
+
+
+def chunk_dequantize_ref(q, scales, chunk: int, out_dtype):
+    """Dequantize, x = q * scale per chunk in f32, cast to ``out_dtype``."""
+    h = q.shape[-1]
+    qp, k = _pad_to_chunks(q.float(), chunk)
+    xc = qp.reshape(*q.shape[:-1], k, chunk) * scales[..., None]
+    return xc.reshape(*q.shape[:-1], k * chunk)[..., :h].to(out_dtype)
+
+
+def nibble_pack_ref(q):
+    """Pack int4 values (int8 storage, |q| <= 7) two per byte: [..., h] ->
+    [..., h // 2] uint8.  Even positions land in the low nibble, odd ones in
+    the high nibble (two's complement truncated to 4 bits)."""
+    h = q.shape[-1]
+    if h % 2:
+        raise ValueError(f"nibble packing needs an even last axis, got {h}")
+    u = q.to(torch.uint8)
+    pairs = u.reshape(*q.shape[:-1], h // 2, 2)
+    return (pairs[..., 0] & 0xF) | ((pairs[..., 1] & 0xF) << 4)
+
+
+def nibble_unpack_ref(b):
+    """Unpack two nibbles per byte back to int8: [..., m] -> [..., 2m],
+    sign-extending each 4-bit field as ((n ^ 8) - 8)."""
+    lo = (b & 0xF).to(torch.int8)
+    hi = ((b >> 4) & 0xF).to(torch.int8)
+    pairs = torch.stack([(lo ^ 8) - 8, (hi ^ 8) - 8], dim=-1)
+    return pairs.reshape(*b.shape[:-1], b.shape[-1] * 2)

@@ -57,11 +57,16 @@ def _i32(x, batch, device):
 
 def attention_apply(cfg: ModelConfig, p, xn, positions, cache=None,
                     pos=None, build_cache_w=None, block_table=None,
-                    plain: bool = False):
+                    plain: bool = False, num_heads: int = None,
+                    num_kv_heads: int = None):
     """Self-attention over a normalised input xn [B, S, h].  Returns
-    (attn_out [B, S, Hq*D], cache_out); ``cache`` is updated in place."""
+    (attn_out [B, S, Hq*D], cache_out); ``cache`` is updated in place.
+    ``num_heads``/``num_kv_heads`` are the head counts of the weights in
+    ``p`` — a TP rank's shard (Hq/t, Hkv/t) — and default to the config's."""
     B, S, _ = xn.shape
-    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    Hq = cfg.num_heads if num_heads is None else num_heads
+    Hkv = cfg.num_kv_heads if num_kv_heads is None else num_kv_heads
+    D = cfg.head_dim
     dev = xn.device
     q = (xn @ p["wq"]).reshape(B, S, Hq, D)
     k = (xn @ p["wk"]).reshape(B, S, Hkv, D)

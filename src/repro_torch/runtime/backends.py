@@ -1,8 +1,10 @@
 """DecodeBackend: the slot-based decode protocol the scheduler drives.
 
-Counterpart of ``repro.runtime.backends`` for the single-device engine
-(``make_backend("gspmd", ...)`` -> ``ModelBackend``).  The explicit TP and
-PP backends are ROADMAP items A3/A4 and A5.
+Counterpart of ``repro.runtime.backends``: the single-device engine
+(``make_backend("gspmd", ...)`` -> ``ModelBackend``) and the explicit
+tensor-parallel engine on virtual ranks (``make_backend("tp", ...)`` ->
+``TPBackend``, core/parallel_exec.py).  Context parallelism and the PP
+backends are ROADMAP items A7 and A5.
 
 The protocol:
 
@@ -29,8 +31,9 @@ import numpy as np
 import torch
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.core.commodel import CommOp, chunked_prefill_ops, \
-    comm_ops_for
+from repro_torch.core.commodel import DEFAULT_QUANT_CHUNK, CommOp, \
+    chunked_prefill_ops, comm_ops_for
+from repro_torch.core.parallel_exec import TPModel, shard_params
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.transformer import get_model, resolve_device
 from repro_torch.runtime.engine import check_params_device
@@ -65,14 +68,27 @@ class DecodeBackend(Protocol):
 
 
 class _BackendBase:
-    """Slot and page bookkeeping + predicted per-step communication."""
+    """Slot and page bookkeeping, predicted per-step communication, and
+    the device side every backend shares: one ``self.model`` pass per
+    decode step or paged chunk (``Model`` or ``TPModel``), caches on
+    ``self.device`` updated in place.  A subclass sets ``device``,
+    ``model``, ``params`` and the cache, and writes a prefill into a slot
+    (``_write_slot``)."""
 
     def __init__(self, cfg: ModelConfig, num_slots: int, max_len: int,
                  t: int, p: int, paged: bool = False, page_size: int = 16,
-                 num_pages: Optional[int] = None):
+                 num_pages: Optional[int] = None,
+                 quant_collectives: Optional[str] = None,
+                 quant_chunk: int = DEFAULT_QUANT_CHUNK):
         if not cfg.is_decoder:
             raise ValueError(f"{cfg.name} is encoder-only: no decode")
+        if quant_collectives is not None and paged:
+            raise ValueError(
+                "quantized collectives cover the contiguous decode step; "
+                "the paged engines run full-width")
         self.cfg = cfg
+        self.quant = quant_collectives
+        self.quant_chunk = int(quant_chunk)
         self.num_slots = int(num_slots)
         self.max_len = int(max_len)
         self.t, self.c, self.p = int(t), 1, int(p)
@@ -176,10 +192,6 @@ class _BackendBase:
             np.asarray(pos, np.int32), bt)
         return np.asarray(np.argmax(logits, -1), np.int32)
 
-    def _paged_call(self, tokens, pos, bt) -> np.ndarray:
-        """(logits [B, v]) of one paged pass; updates the cache in place."""
-        raise NotImplementedError
-
     # -- predicted communication --------------------------------------------
     def _itemsize(self) -> int:
         return torch_dtype(self.cfg.dtype).itemsize
@@ -193,10 +205,13 @@ class _BackendBase:
 
     def decode_comm_ops(self, batch: int = 1) -> List[CommOp]:
         """Predicted collectives of ONE decode step over ``batch`` rows: the
-        decode rows of ``comm_ops_for`` at s_d = 2."""
+        decode rows of ``comm_ops_for`` at s_d = 2 — with quantized
+        collectives, the decomposed rows (an f32 abs-max all-reduce and the
+        narrow payload hops per layer all-reduce)."""
         ops = comm_ops_for(self.cfg, 1, 2, self.t, self.p, c=self.c,
                            batch=batch, b=self._itemsize(),
-                           gather_mode="allgather")
+                           gather_mode="allgather", quant=self.quant,
+                           quant_chunk=self.quant_chunk)
         return [o for o in ops if o.phase == "decode"]
 
     def drain_transfers(self) -> dict:
@@ -233,8 +248,44 @@ class _BackendBase:
                 first[i] = self._prefill_slot(prompt, slot)
         return first
 
-    def _prefill_slot(self, prompt, slot: int) -> int:
+    # -- the device side: one self.model pass per step or chunk ---------------
+    def _init_device_cache(self) -> None:
+        if self.paged:
+            self.cache = self.model.init_paged_cache(
+                self.pool.num_pages, self.page_size, self.device)
+        else:
+            self.cache = self.model.init_cache(self.num_slots, self.max_len,
+                                               self.device)
+
+    def _tensor(self, a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
+
+    def _write_slot(self, small, slot: int) -> None:
+        """Copy a batch-1 prefill cache into the slot's cache row."""
         raise NotImplementedError
+
+    @torch.inference_mode()
+    def _prefill_slot(self, prompt, slot: int) -> int:
+        logits, small, _ = self.model.prefill(
+            self.params, self._tensor(prompt)[None, :], self.max_len)
+        self._write_slot(small, slot)
+        return int(torch.argmax(logits[0]))
+
+    @torch.inference_mode()
+    def _paged_call(self, tokens, pos, bt) -> np.ndarray:
+        """(logits [B, v]) of one paged pass; updates the cache in place."""
+        logits, self.cache = self.model.paged_step(
+            self.params, self.cache, self._tensor(tokens), self._tensor(pos),
+            self._tensor(bt))
+        return logits.float().cpu().numpy()
+
+    @torch.inference_mode()
+    def decode_step(self, tokens, pos) -> np.ndarray:
+        if self.paged:
+            return self._paged_decode(tokens, pos)
+        logits, self.cache = self.model.decode_step(
+            self.params, self.cache, self._tensor(tokens), self._tensor(pos))
+        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
 
 
 class ModelBackend(_BackendBase):
@@ -252,58 +303,83 @@ class ModelBackend(_BackendBase):
         check_params_device(params, self.device)
         self.model = get_model(cfg)
         self.params = params
-        if self.paged:
-            self.cache = self.model.init_paged_cache(
-                self.pool.num_pages, self.page_size, self.device)
-        else:
-            self.cache = self.model.init_cache(num_slots, max_len,
-                                               self.device)
+        self._init_device_cache()
 
-    def _tensor(self, a):
-        return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
-
-    @torch.inference_mode()
-    def _prefill_slot(self, prompt, slot: int) -> int:
-        logits, small, _ = self.model.prefill(
-            self.params, self._tensor(prompt)[None, :], self.max_len)
+    def _write_slot(self, small, slot: int) -> None:
         for key in ("k", "v"):
             self.cache[key][:, slot] = small[key][:, 0]
-        return int(torch.argmax(logits[0]))
 
-    @torch.inference_mode()
-    def _paged_call(self, tokens, pos, bt) -> np.ndarray:
-        logits, self.cache = self.model.paged_step(
-            self.params, self.cache, self._tensor(tokens), self._tensor(pos),
-            self._tensor(bt))
-        return logits.float().cpu().numpy()
 
-    @torch.inference_mode()
-    def decode_step(self, tokens, pos) -> np.ndarray:
-        if self.paged:
-            return self._paged_decode(tokens, pos)
-        logits, self.cache = self.model.decode_step(
-            self.params, self.cache, self._tensor(tokens), self._tensor(pos))
-        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+class TPBackend(_BackendBase):
+    """The explicit TP engine (``core.parallel_exec.TPModel``, t virtual
+    ranks on one device) behind the protocol: (2L+1) all-reduces + 1 logits
+    all-gather per decode step whatever the slot count, each logged on
+    ``self.model.group``.  ``params`` are the single-device weights; the
+    backend keeps their per-rank shards.  Each rank has its own cache
+    [L, num_slots, W, Hkv/t, D], or, paged, its own page pool
+    [L, P, ps, Hkv/t, D] under the one shared ``KVPool`` and block table.
+    ``quant_collectives`` ("int8" | "fp8" | "int4") quantizes the
+    contiguous decode step's layer all-reduces.  ``device`` defaults to the
+    CUDA card."""
+
+    def __init__(self, cfg: ModelConfig, params, num_slots: int,
+                 max_len: int = 256, t: int = 2, paged: bool = False,
+                 page_size: int = 16, num_pages: Optional[int] = None,
+                 quant_collectives: Optional[str] = None,
+                 quant_chunk: int = DEFAULT_QUANT_CHUNK, device=None):
+        self.device = resolve_device(device)
+        super().__init__(cfg, num_slots, max_len, t=t, p=1, paged=paged,
+                         page_size=page_size, num_pages=num_pages,
+                         quant_collectives=quant_collectives,
+                         quant_chunk=quant_chunk)
+        check_params_device(params, self.device)
+        self.model = TPModel(cfg, t, quant=self.quant,
+                             quant_chunk=self.quant_chunk)
+        self.params = shard_params(cfg, params, t)
+        self._init_device_cache()
+
+    def _write_slot(self, small, slot: int) -> None:
+        for rank, part in zip(self.cache, small):
+            for key in ("k", "v"):
+                rank[key][:, slot] = part[key][:, 0]
 
 
 def make_backend(kind: str, cfg: ModelConfig, params, num_slots: int,
                  max_len: int = 256, t: int = 1, p: int = 1,
                  paged: bool = False, page_size: int = 16,
-                 num_pages: Optional[int] = None,
+                 num_pages: Optional[int] = None, c: int = 1,
+                 quant_collectives: Optional[str] = None,
+                 quant_chunk: int = DEFAULT_QUANT_CHUNK,
                  device=None) -> DecodeBackend:
-    """Backend factory keyed by engine kind.  "gspmd" is the single-device
-    engine (t = p = 1); "tp" and "pp" wait for the explicit engines."""
+    """Backend factory keyed by engine kind: "gspmd" is the single-device
+    engine (t = p = 1), "tp" the explicit TP engine on t >= 2 virtual
+    ranks; "pp" and context parallelism (c > 1) wait for ROADMAP items A5
+    and A7.  ``quant_collectives`` needs the explicit engine's hand-placed
+    all-reduces; the single-device engine rejects it."""
+    kw = dict(paged=paged, page_size=page_size, num_pages=num_pages,
+              device=device)
     if kind == "gspmd":
         if t != 1 or p != 1:
             raise ValueError(f"the gspmd backend is one device: got t={t} "
                              f"p={p}")
-        return ModelBackend(cfg, params, num_slots, max_len, paged=paged,
-                            page_size=page_size, num_pages=num_pages,
-                            device=device)
+        if c > 1:
+            raise ValueError(
+                "context parallelism needs the explicit engines — use the "
+                "tp (single-stage) or pp backend with c > 1")
+        if quant_collectives is not None:
+            raise ValueError(
+                "quantized collectives need the explicit engines' "
+                "hand-placed all-reduces; use the tp backend")
+        return ModelBackend(cfg, params, num_slots, max_len, **kw)
     if kind == "tp":
-        raise NotImplementedError(
-            "the explicit TP engine and its backends are ROADMAP items "
-            "A3/A4")
+        if c > 1:
+            raise NotImplementedError(
+                "context parallelism (c > 1) is ROADMAP item A7")
+        if t < 2:
+            raise ValueError(f"tp backend needs t >= 2, got t={t}")
+        return TPBackend(cfg, params, num_slots, max_len, t=t,
+                         quant_collectives=quant_collectives,
+                         quant_chunk=quant_chunk, **kw)
     if kind == "pp":
         raise NotImplementedError(
             "the pipeline engine and its backends are ROADMAP item A5")

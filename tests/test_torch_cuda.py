@@ -8,9 +8,12 @@ JAX nor the JAX package, so it runs on a machine with only PyTorch:
 
 Tolerances: bf16 rounds the output once on each side, so the two may land
 one bf16 ulp apart (2^-8 relative); f32 differs only in summation order.
-The shapes are small and ragged on purpose (odd lengths, partial tiles, a
-hidden width with no 16-byte vector path); ``chip_smoke.py`` checks the
-full model's shapes.
+The quantization kernels B5–B9 have no tolerance: integer, byte and fp8
+outputs, B5's f32 abs-max and B9's single rounding must be bitwise equal
+to the plain versions.  The shapes are small and ragged on purpose (odd
+lengths, partial tiles, a hidden width with no 16-byte vector path, a
+last chunk shorter than the rest); ``chip_smoke.py`` checks the full
+model's shapes.
 """
 import pytest
 
@@ -20,6 +23,8 @@ from repro_torch.kernels.decode_attention import ops as dops  # noqa: E402
 from repro_torch.kernels.decode_attention import ref as dref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fref  # noqa: E402
+from repro_torch.kernels.quant_collective import ops as qops  # noqa: E402
+from repro_torch.kernels.quant_collective import ref as qref  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as rref  # noqa: E402
 
@@ -98,6 +103,60 @@ def test_paged_decode_kernel(cuda, dtype, tol, ps):
            dref.paged_decode_attention_ref(q, kp, vp, bt, lens), tol)
 
 
+def _bits(t):
+    return t.contiguous().view(torch.uint8) if t.element_size() == 1 \
+        else t.contiguous().view(torch.int32 if t.element_size() == 4
+                                 else torch.int16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,chunk", [((4, 3072), 128), ((3, 160), 64),
+                                         ((2, 5, 257), 128), ((1, 8), 8)])
+def test_quant_kernels_bitwise(cuda, dtype, shape, chunk):
+    """B5, B6 (int8 and fp8) and B9 against their plain versions, bit for
+    bit; the scales are tight enough that both clips bind, and one chunk
+    has a zero scale (taken as 1)."""
+    x = 3.0 * _rand(cuda, dtype, seed=shape[-1])(*shape)
+    amax = qops.chunk_amax_cuda(x, chunk)
+    assert torch.equal(_bits(amax), _bits(qref.chunk_amax_ref(x, chunk)))
+    scales = qops.scales_from_amax(amax, 31.0).contiguous()
+    scales.view(-1)[0] = 0.0
+    for qdtype in (torch.int8, torch.float8_e4m3fn):
+        q = qops.chunk_quantize_cuda(x, scales, chunk, qdtype)
+        want = qref.chunk_quantize_ref(x, scales, chunk, qdtype)
+        assert torch.equal(_bits(q), _bits(want))
+        for out in (torch.float32, torch.bfloat16):
+            assert torch.equal(
+                _bits(qops.chunk_dequantize_cuda(q, scales, chunk, out)),
+                _bits(qref.chunk_dequantize_ref(q, scales, chunk, out)))
+
+
+@pytest.mark.gpu
+def test_chunk_amax_kernel_propagates_nan(cuda):
+    x = torch.ones(2, 300, device=cuda)
+    x[1, 257] = float("nan")
+    got = qops.chunk_amax_cuda(x, 128)
+    assert got[1, 2].isnan() and not got[0].isnan().any()
+    assert torch.equal(got[:, :2], qref.chunk_amax_ref(x, 128)[:, :2])
+
+
+@pytest.mark.gpu
+def test_nibble_kernels_bitwise(cuda):
+    """Every int4 pair packs (B7) as the plain version packs it, and every
+    byte unpacks (B8) to its two sign-extended nibbles."""
+    v = torch.arange(-8, 8, dtype=torch.int8, device=cuda)
+    pairs = torch.stack(torch.meshgrid(v, v, indexing="ij"), -1)
+    q = pairs.reshape(2, -1).contiguous()
+    packed = qops.nibble_pack_cuda(q)
+    assert torch.equal(packed, qref.nibble_pack_ref(q))
+    assert torch.equal(qops.nibble_unpack_cuda(packed), q)
+    b = torch.arange(256, dtype=torch.int32, device=cuda).to(torch.uint8)
+    assert torch.equal(qops.nibble_unpack_cuda(b[None]),
+                       qref.nibble_unpack_ref(b[None]))
+
+
 @pytest.mark.gpu
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     rnd = _rand(cuda, torch.float32)
@@ -112,6 +171,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="KV heads"):
         dops.decode_attention_cuda(rnd(1, 18, 32), rnd(1, 8, 2, 32),
                                    rnd(1, 8, 2, 32), _i32(cuda, [8]))
+    with pytest.raises(TypeError):
+        qops.chunk_amax_cuda(x.half())
+    with pytest.raises(ValueError, match="scales"):
+        qops.chunk_quantize_cuda(x, torch.ones(4, 3, device=cuda), 32)
+    with pytest.raises(ValueError, match="even"):
+        qops.nibble_pack_cuda(torch.zeros(2, 7, dtype=torch.int8,
+                                          device=cuda))
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -131,3 +197,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         dops.paged_decode_attention_cuda(q[:, 0], q, q,
                                          torch.zeros(1, 1, dtype=torch.int32),
                                          torch.ones(1, dtype=torch.int32))
+    s = torch.ones(2, 1)
+    for call in (lambda: qops.chunk_amax_cuda(x),
+                 lambda: qops.chunk_quantize_cuda(x, s, 8),
+                 lambda: qops.chunk_dequantize_cuda(x.to(torch.int8), s, 8),
+                 lambda: qops.nibble_pack_cuda(x.to(torch.int8)),
+                 lambda: qops.nibble_unpack_cuda(x.to(torch.uint8))):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
