@@ -7,11 +7,12 @@ Phases:
   1. the card's name and power limit, and the kernels' build time;
   2. each hand-written kernel (B1 RMSNorm, B2 flash prefill, B3 contiguous
      and B4 paged flash-decode, B5–B9 the quantized all-reduce's amax,
-     quantize, nibble pack/unpack and dequantize) against its plain PyTorch
-     version at the main path's shapes, in bf16 and f32 — B1–B4 within the
-     tolerance stated, B5–B9 bit for bit; times of the kernel, the plain
-     version and one library call computing the same function (where one
-     exists), beside the card's bound for the work;
+     quantize, nibble pack/unpack and dequantize, B10 the RWKV-6 WKV
+     recurrence) against its plain PyTorch version at the main paths'
+     shapes, in bf16 and f32 — B1–B4 and B10 within the tolerance stated,
+     B5–B9 bit for bit; times of the kernel, the plain version and one
+     library call computing the same function (where one exists), beside
+     the card's bound for the work;
   3. the serving path at the full width of llama32-3b (random weights from
      a seed, made on the card): InferenceEngine.generate, the contiguous
      Scheduler and the paged Scheduler with chunked prefill, and one
@@ -29,7 +30,14 @@ Phases:
      (run before (c)),
      (e) every run's launches equal their formula; one TP decode step's
      time breakdown (int8 and unquantized);
-  6. one JSON line with the kernel table, then the ok line.
+  6. the RWKV-6 path at the full width of rwkv6-7b (random weights from a
+     seed, made on the card after llama32-3b's are freed): (a) the engine,
+     (b) the contiguous Scheduler over the trace, every logit finite,
+     (c) launches equal their formula (B1 2L+1 and B10 L per pass, no
+     B2–B9), (d) the kernel path against the plain path on the whole
+     model (bf16 teacher-forced; f32 greedy tokens at L = 4), (e) one
+     decode step's time breakdown;
+  7. one JSON line with the kernel table, then the ok line.
 
 It imports nothing of JAX, exits non-zero with no ok line when there is no
 card or when it is not inside a checkout of the repository, and lets every
@@ -61,6 +69,14 @@ TOLERANCE = {
     "bfloat16": (1e-2, 1e-2),
     # f32: only the order of the f32 sums differs
     "float32": (1e-4, 1e-4),
+    # B10 over up to 512 sequential steps (y and the final state): nvcc
+    # contracts the f32 state update to an FMA, one rounding fewer per step
+    # than the plain version, and y sums over i in another order; the
+    # difference accumulates at about one f32 ulp of the state per step
+    # (512 · 2^-24 ≈ 3e-5 of its scale, here O(10)).  bf16 rounds y once
+    # more on each side (2^-8 relative).
+    "wkv6 bfloat16": (2e-2, 1e-2),
+    "wkv6 float32": (1e-3, 1e-3),
 }
 
 
@@ -139,9 +155,10 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
                                        else "operations")
 
 
-def compare(name, got, want, dtype: str) -> float:
-    """Max abs error of got vs want; raises past the stated tolerance."""
-    atol, rtol = TOLERANCE[dtype]
+def compare(name, got, want, dtype: str, kind: str = "") -> float:
+    """Max abs error of got vs want; raises past the stated tolerance
+    (``TOLERANCE[kind + " " + dtype]`` when ``kind`` is given)."""
+    atol, rtol = TOLERANCE[f"{kind} {dtype}" if kind else dtype]
     g, w = got.float(), want.float()
     err = (g - w).abs()
     worst = float((err / (atol + rtol * w.abs())).max())
@@ -442,6 +459,76 @@ def quant_kernel_phase(dev, iters: int):
     return rows, out
 
 
+# B10 at rwkv6-7b's widths (64 heads of 64): a full-width prefill and a
+# decode step at 4 slots, and a ragged shape of the JAX package's sweep
+# (hs 32, S not a multiple of 128 — the TPU kernel refuses it, ROADMAP C7)
+WKV_SHAPES = {"prefill": (1, 512, 64, 64), "decode": (4, 1, 64, 64),
+              "ragged": (2, 200, 3, 32)}
+
+
+def wkv6_inputs(g, dev, dt, shape):
+    """r, k, v [B,S,H,hs] ~ 0.5 N(0,1), w ~ U(0.8, 0.999) (the JAX sweep's
+    ranges), in ``dt``; u [H,hs] f32; a non-zero f32 initial state."""
+    B, S, H, hs = shape
+    r, k, v = ((0.5 * torch.randn(shape, generator=g, device=dev)).to(dt)
+               for _ in range(3))
+    w = (0.8 + 0.199 * torch.rand(shape, generator=g, device=dev)).to(dt)
+    u = 0.3 * torch.randn((H, hs), generator=g, device=dev)
+    st = 0.1 * torch.randn((B, H, hs, hs), generator=g, device=dev)
+    return r, k, v, w, u, st
+
+
+def wkv6_kernel_phase(dev, iters: int):
+    """B10 against wkv6_ref (y and the final state) at WKV_SHAPES in bf16
+    and f32, from a non-zero state; times at the prefill and decode
+    shapes.  The prefill row is the kernel table's."""
+    from repro_torch.kernels.rwkv6_scan.ops import wkv6_cuda
+    from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    rows, out = {}, {}
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).replace("torch.", "")
+        log(f"[kernels] B10 {dname}")
+        err, timed = 0.0, {}
+        for what, shape in WKV_SHAPES.items():
+            args = wkv6_inputs(g, dev, dt, shape)
+            y, st = wkv6_cuda(*args)
+            want_y, want_st = wkv6_ref(*args)
+            for name, got, want in (("y", y, want_y), ("state", st, want_st)):
+                err = max(err, compare(f"B10 wkv6 {what} {list(shape)} {name}",
+                                       got, want, dname, "wkv6"))
+            timed[what] = args
+        torch.cuda.synchronize()
+        B, S, H, hs = WKV_SHAPES["prefill"]
+        rows.setdefault("wkv6", {})[dname] = dict(
+            err=err, shape=f"r/k/v/w[{B},{S},{H},{hs}], state[{B},{H},{hs},"
+                           f"{hs}] f32")
+        esz = torch.empty((), dtype=dt).element_size()
+        for what in ("prefill", "decode"):
+            args = timed[what]
+            B, S, H, hs = WKV_SHAPES[what]
+            n = B * S * H * hs
+            # r, k, v, w read and y written once; u read; state read, written
+            nbytes = 5 * n * esz + 4 * H * hs + 2 * 4 * B * H * hs * hs
+            sets = copies(args, nbytes)
+            t = dict(kernel=bench(wkv6_cuda, sets, iters),
+                     plain=bench(wkv6_ref, sets, max(3, iters // 10)),
+                     library=None)
+            # the f32 operations the function needs: 5 per (b, t, h, i, j)
+            # (r·S, an FMA; k·v; w·S + kv, an FMA) and 5 per (b, t, h, j)
+            # for the u term, one scalar per step: v_j · sum_i r_i·u_i·k_i
+            t["bound"], t["by"] = bound_ms(nbytes, 5.0 * n * hs + 5.0 * n,
+                                           "float32")
+            if what == "prefill":
+                out.setdefault("wkv6", {})[dname] = t
+            log(f"  time wkv6 {what:<19s} {dname:8s} kernel "
+                f"{t['kernel']:.4f} ms  plain {t['plain']:.4f} ms  library "
+                f"none (no one call)  bound {t['bound']:.6f} ms ({t['by']})  "
+                f"[{list(WKV_SHAPES[what])}]")
+    return rows, out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the serving path at full width
 # ---------------------------------------------------------------------------
@@ -486,15 +573,26 @@ class FiniteLogits:
         return len(self.flags)
 
 
+def require_all_finished(what, trace, report):
+    """Raise unless every request produced its full token count."""
+    for req, m in zip(trace, report.metrics):
+        if m.num_generated != req.max_new_tokens or \
+                m.finish_reason != "length":
+            raise AssertionError(
+                f"{what}: request {m.rid} produced {m.num_generated} of "
+                f"{req.max_new_tokens} tokens ({m.finish_reason})")
+
+
 def expect_launches(what, counts, L, passes, flash, decode, paged, t=1,
-                    quant=None, quant_steps=0):
+                    quant=None, quant_steps=0, scan=0):
     """The launches of one run: (2L+1) norms per forward pass (run once on
     the TP group at any t), one B2 per layer and rank of every prefill
-    pass, one B3/B4 per layer and rank of every decode step.  Each of the
-    2L layer all-reduces of a quantized decode step adds one B5 and one B6
-    per rank and one B9; int4 adds two B7 per rank (pack before the
-    all-to-all and after the requantize) and t + 1 B8 (one per rank after
-    the all-to-all, one after the gather)."""
+    pass, one B3/B4 per layer and rank of every decode step, one B10 per
+    layer of every RWKV-6 pass (``scan`` passes).  Each of the 2L layer
+    all-reduces of a quantized decode step adds one B5 and one B6 per rank
+    and one B9; int4 adds two B7 per rank (pack before the all-to-all and
+    after the requantize) and t + 1 B8 (one per rank after the all-to-all,
+    one after the gather)."""
     ar = 2 * L * quant_steps if quant else 0
     int4 = quant == "int4"
     want = {"rmsnorm": (2 * L + 1) * passes, "flash_attention": L * t * flash,
@@ -503,10 +601,26 @@ def expect_launches(what, counts, L, passes, flash, decode, paged, t=1,
             "chunk_amax": ar * t, "chunk_quantize": ar * t,
             "nibble_pack": 2 * ar * t if int4 else 0,
             "nibble_unpack": ar * (t + 1) if int4 else 0,
-            "chunk_dequantize": ar}
+            "chunk_dequantize": ar, "wkv6": L * scan}
     log(f"  launches {what}: {counts}")
     if counts != want:
         raise AssertionError(f"{what}: launches {counts} != expected {want}")
+
+
+def drive_counted(what, fn, totals, L, **expect):
+    """Run one path with the launch counts set to 0 just before and read
+    just after; hold them to their formula (``expect_launches``) and add
+    them to ``totals``."""
+    from repro_torch.kernels import _build
+    _build.reset_launches()
+    with torch.inference_mode():
+        out = fn()
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    expect_launches(what, counts, L, **expect)
+    for k in totals:
+        totals[k] += counts[k]
+    return out
 
 
 def serving_phase(dev, smi):
@@ -561,12 +675,7 @@ def serving_phase(dev, smi):
         report = Scheduler(backend, chunk_size=chunk).run(trace)
         torch.cuda.synchronize()
         counts = dict(_build.LAUNCHES)
-        for req, m in zip(trace, report.metrics):
-            if m.num_generated != req.max_new_tokens or \
-                    m.finish_reason != "length":
-                raise AssertionError(
-                    f"{mode}: request {m.rid} produced {m.num_generated} of "
-                    f"{req.max_new_tokens} tokens ({m.finish_reason})")
+        require_all_finished(mode, trace, report)
         n_dec = sum(1 for r in report.steps if r.phase == "decode")
         n_chunks = sum(1 for r in report.steps if r.phase == "prefill")
         log(f"[serve {mode}] {len(report.metrics)} requests, "
@@ -691,12 +800,17 @@ def teacher_forced(model, params, prompt, paged: bool):
     return torch.cat(rows).float()
 
 
+def agreement(got, ref):
+    """(top-1 match, max logit drift) of ``got`` against ``ref``."""
+    return (float((got.argmax(-1) == ref.argmax(-1)).float().mean()),
+            float((got - ref).abs().max()))
+
+
 def within(what, got, ref, floor: float, ceiling: float) -> bool:
     """Log the top-1 match and max logit drift of ``got`` against ``ref``;
     True when the match is at least ``floor``, the drift at most
     ``ceiling`` and every logit finite."""
-    match = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
-    drift = float((got - ref).abs().max())
+    match, drift = agreement(got, ref)
     ok = (match >= floor and drift <= ceiling
           and bool(torch.isfinite(got).all()))
     log(f"[compare] {what}, {ref.shape[0]} teacher-forced positions: top-1 "
@@ -805,17 +919,7 @@ def tp_phase(dev, smi, params, prompt, kernel_rows):
     totals = {name: 0 for name in _build.LAUNCHES}
 
     def drive(what, fn, **expect):
-        """Run one path with the counts set to 0 just before, read just
-        after; hold them to their formula and add them to the totals."""
-        _build.reset_launches()
-        with torch.inference_mode():
-            out = fn()
-        torch.cuda.synchronize()
-        counts = dict(_build.LAUNCHES)
-        expect_launches(what, counts, L, **expect)
-        for k in totals:
-            totals[k] += counts[k]
-        return out
+        return drive_counted(what, fn, totals, L, **expect)
 
     t0 = time.perf_counter()
     shards = shard_params(cfg, params, TP)
@@ -871,12 +975,7 @@ def tp_phase(dev, smi, params, prompt, kernel_rows):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(_build.LAUNCHES)
-        for req, m in zip(trace, report.metrics):
-            if m.num_generated != req.max_new_tokens or \
-                    m.finish_reason != "length":
-                raise AssertionError(
-                    f"tp {mode}: request {m.rid} produced {m.num_generated} "
-                    f"of {req.max_new_tokens} tokens ({m.finish_reason})")
+        require_all_finished(f"tp {mode}", trace, report)
         n_dec = sum(1 for r in report.steps if r.phase == "decode")
         n_chunks = sum(1 for r in report.steps if r.phase == "prefill")
         if chunk:
@@ -960,6 +1059,150 @@ def tp_phase(dev, smi, params, prompt, kernel_rows):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the RWKV-6 path at full width
+# ---------------------------------------------------------------------------
+
+RWKV_ARCH = "rwkv6-7b"
+# bf16 kernel path vs plain path, teacher-forced (phase 6d).  B10 and the
+# plain recurrence both keep the state in f32 and differ in its last bits
+# (FMA, summation order), so about 1.5e-4 of the bf16 y values round one
+# ulp apart; with random weights the model amplifies that over 32 layers
+# and 129 positions.  The yardstick is the plain path with an exact (f64)
+# recurrence, which moves it as far: the kernel path is held to land no
+# further from the plain path than the yardstick does, within RWKV_MARGIN
+# in top-1 match and in max drift.  Measured on the card (chip_smoke.py,
+# NVIDIA H100 80GB HBM3, 700.00 W, seed 0): kernel path vs plain 0.8372 /
+# 0.3994, exact recurrence vs plain 0.8605 / 0.4118 (top-1 match / max
+# drift).
+RWKV_MARGIN = 0.05
+
+
+def wkv6_exact(r, k, v, w, u, state):
+    """The WKV recurrence in f64, rounded once at the end: the yardstick
+    of how far any f32 recurrence moves the bf16 model."""
+    rf, kf, vf, wf = (t.double() for t in (r, k, v, w))
+    uf = u.double()[None, :, :, None]
+    s = state.double()
+    ys = []
+    for t in range(r.shape[1]):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        ys.append(torch.einsum("bhi,bhij->bhj", rf[:, t], s + uf * kv))
+        s = wf[:, t, :, :, None] * s + kv
+    return torch.stack(ys, dim=1).to(r.dtype), s.float()
+
+
+def rwkv_phase(dev, smi):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import Model, get_model
+    from repro_torch.runtime.backends import make_backend
+    from repro_torch.runtime.engine import InferenceEngine
+    from repro_torch.runtime.scheduler import Scheduler
+
+    cfg = get_config(RWKV_ARCH)
+    L = cfg.num_layers
+    totals = {name: 0 for name in _build.LAUNCHES}
+
+    def drive(what, fn, passes):
+        """B1 (2L+1) and B10 (L) per pass, no B2–B9."""
+        return drive_counted(what, fn, totals, L, passes=passes, flash=0,
+                             decode=0, paged=0, scan=passes)
+
+    t0 = time.perf_counter()
+    params = get_model(cfg).init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in params["blocks"].values()) + sum(
+        params[k].numel() for k in ("embed", "lm_head", "final_norm"))
+    log(f"[rwkv] {RWKV_ARCH} full width: L={L} d={cfg.d_model} heads="
+        f"{cfg.num_heads}x{cfg.ssm.head_size} d_ff={cfg.d_ff} vocab="
+        f"{cfg.vocab_size} {cfg.dtype}, {n_params / 1e9:.3f} B parameters, "
+        f"init {time.perf_counter() - t0:.1f} s")
+    finite = FiniteLogits(get_model(cfg))
+
+    # (a) the engine: 2 prompts x 128 tokens, 32 new tokens each
+    prompts = torch.randint(2, cfg.vocab_size, (2, 128),
+                            generator=torch.Generator().manual_seed(1))
+    t0 = time.perf_counter()
+    out = drive("rwkv engine", lambda: InferenceEngine(
+        cfg, params, max_len=1024, decode_chunk=8, device=dev).generate(
+        prompts, max_new_tokens=32), passes=32)
+    wall = time.perf_counter() - t0
+    if tuple(out.shape) != (2, 32) or int(out.min()) < 0 or \
+            int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"engine output {tuple(out.shape)} out of range")
+    log(f"[rwkv engine] generate 2x128 -> 2x32 tokens in {wall:.3f} s ({smi})")
+
+    # (b) the contiguous Scheduler over the trace, 4 slots
+    trace = smoke_trace(cfg)
+    backend = make_backend("gspmd", cfg, params, num_slots=4, max_len=1024,
+                           device=dev)
+    scheduler = Scheduler(backend)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    report = scheduler.run(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    require_all_finished("rwkv contiguous", trace, report)
+    n_dec = sum(1 for r in report.steps if r.phase == "decode")
+    expect_launches("rwkv contiguous", counts, L, passes=len(trace) + n_dec,
+                    flash=0, decode=0, paged=0, scan=len(trace) + n_dec)
+    for k in totals:
+        totals[k] += counts[k]
+    n = finite.assert_all("rwkv serving")
+    log(f"[rwkv serve contiguous] {len(report.metrics)} requests, "
+        f"{report.total_tokens} tokens, {n_dec} decode steps in {wall:.2f} "
+        f"s, {n} logit batches all finite ({smi})")
+    log(f"[rwkv serve contiguous] summary {json.dumps(report.summary())}")
+    del backend, scheduler
+
+    # (d) the kernel path against the plain path on the whole model
+    prompt = torch.randint(2, cfg.vocab_size, (1, FORCED),
+                           generator=torch.Generator().manual_seed(2)).to(dev)
+    plain = get_model(cfg, plain=True)
+    ref = teacher_forced(plain, params, prompt, False)
+    got = drive("rwkv teacher-forced",
+                lambda: teacher_forced(get_model(cfg), params, prompt, False),
+                passes=1 + FORCED - SPLIT)
+
+    class ExactScan(Model):
+        """The plain path with ``wkv6_exact`` as its recurrence."""
+
+        def _block(self, p_l, x, positions, **kw):
+            return super()._block(p_l, x, positions, scan=wkv6_exact, **kw)
+
+    exact = teacher_forced(ExactScan(cfg, plain=True), params, prompt, False)
+    match, drift = agreement(exact, ref)
+    log(f"[compare] bf16 rwkv6-7b plain path with an exact (f64) recurrence "
+        f"vs plain (the yardstick): top-1 match {match:.4f}, max logit "
+        f"drift {drift:.4f}")
+    hold("bf16 rwkv6-7b kernel path (B1 + B10) vs plain, held to the "
+         f"yardstick's {match:.4f} / {drift:.4f} within {RWKV_MARGIN}", got,
+         ref, match - RWKV_MARGIN, drift + RWKV_MARGIN)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, num_layers=4, dtype="float32")
+    p32 = get_model(cfg32).init(seed=3, device=dev)
+    prompts = torch.randint(2, cfg.vocab_size, (2, 128),
+                            generator=torch.Generator().manual_seed(4))
+    a = InferenceEngine(cfg32, p32, max_len=256, device=dev).generate(
+        prompts, max_new_tokens=32)
+    b = InferenceEngine(cfg32, p32, max_len=256, device=dev,
+                        plain=True).generate(prompts, max_new_tokens=32)
+    same = bool(torch.equal(a, b))
+    log(f"[compare f32] rwkv6-7b L=4 full width, greedy 2x32 tokens kernel "
+        f"path == plain path: {same}")
+    if not same:
+        raise AssertionError("rwkv f32 greedy tokens differ between the "
+                             "kernel and the plain path")
+    del p32
+
+    # (e) one decode step's breakdown at 4 slots
+    decode_breakdown(dev, get_model(cfg), params, smi, RWKV_ARCH)
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -982,6 +1225,8 @@ REPLACES = {
        for name, line in (("chunk_amax", 44), ("chunk_quantize", 75),
                           ("nibble_pack", 113), ("nibble_unpack", 141),
                           ("chunk_dequantize", 167))},
+    "wkv6": ("src/repro_torch/kernels/rwkv6_scan/csrc/wkv6.cu",
+             "src/repro/kernels/rwkv6_scan/wkv6_kernel.py:55"),
 }
 
 
@@ -1017,16 +1262,19 @@ def main(argv=None) -> int:
         f"(nvcc {_build.last_build_seconds} s)")
 
     rows, times = kernel_phase(dev, args.iters)
-    qrows, qtimes = quant_kernel_phase(dev, args.iters)
-    rows.update(qrows)
-    times.update(qtimes)
+    for phase in (quant_kernel_phase, wkv6_kernel_phase):
+        more_rows, more_times = phase(dev, args.iters)
+        rows.update(more_rows)
+        times.update(more_times)
     if args.kernels_only:
         return 0
     params, launches = serving_phase(dev, smi)
     prompt, kernel_rows = model_compare_phase(dev, params)
     for name, n in tp_phase(dev, smi, params, prompt, kernel_rows).items():
         launches[name] += n
-    del params
+    del params, prompt, kernel_rows
+    for name, n in rwkv_phase(dev, smi).items():
+        launches[name] += n
 
     table = []
     for name, (source, replaces) in REPLACES.items():

@@ -5,8 +5,10 @@ Model.init`` after conversion to numpy arrays (the caller converts it; this
 module never imports JAX) and returns the port's parameter dict on a
 device.  Both packages keep one layout — ``blocks`` stacked on a leading
 [L, ...] axis, ``embed``, ``lm_head``, ``final_norm`` — so the bridge only
-checks shapes and moves the arrays.  ``params_to_numpy`` is the inverse;
-a round trip is bitwise, bfloat16 included.
+checks shapes and types and moves the arrays.  Every leaf keeps the type
+the JAX pytree gives it: the model's type, or f32 for the ssm family's
+``w0`` and ``u``.  ``params_to_numpy`` is the inverse; a round trip is
+bitwise, bfloat16 included.
 """
 from __future__ import annotations
 
@@ -14,28 +16,55 @@ import numpy as np
 import torch
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.transformer import resolve_device
 
 
+def _ssm_block_shapes(cfg: ModelConfig) -> dict:
+    """The 22 block parameters of ``ssm.init_ssm_blocks``."""
+    h, L, ff = cfg.d_model, cfg.num_layers, cfg.d_ff
+    shapes = {name: (L, h) for name in (
+        "ln1", "ln2", "mx_r", "mx_k", "mx_v", "mx_w", "mx_g", "w0", "ln_x",
+        "cmx_k", "cmx_r")}
+    shapes.update({name: (L, h, h)
+                   for name in ("wr", "wk", "wv", "wg", "wo", "cwr")})
+    shapes.update(wa=(L, h, ssm_lib.DECAY_LORA), wb=(L, ssm_lib.DECAY_LORA, h),
+                  u=(L, cfg.num_heads, cfg.ssm.head_size), cwk=(L, h, ff),
+                  cwv=(L, ff, h))
+    return shapes
+
+
 def expected_shapes(cfg: ModelConfig) -> dict:
-    """Parameter name -> shape of a dense model of ``cfg``."""
+    """Parameter name -> shape of a model of ``cfg`` (dense or ssm)."""
     h, L, d = cfg.d_model, cfg.num_layers, cfg.head_dim
     pv = cfg.padded_vocab
-    blocks = {
-        "wq": (L, h, cfg.num_heads * d), "wk": (L, h, cfg.num_kv_heads * d),
-        "wv": (L, h, cfg.num_kv_heads * d), "wo": (L, cfg.num_heads * d, h),
-        "w1": (L, h, cfg.d_ff), "w2": (L, cfg.d_ff, h),
-        "ln1": (L, h), "ln2": (L, h)}
-    if cfg.activation in ("swiglu", "geglu"):
-        blocks["w3"] = (L, h, cfg.d_ff)
+    if cfg.family == "ssm":
+        blocks = _ssm_block_shapes(cfg)
+    else:
+        blocks = {
+            "wq": (L, h, cfg.num_heads * d),
+            "wk": (L, h, cfg.num_kv_heads * d),
+            "wv": (L, h, cfg.num_kv_heads * d),
+            "wo": (L, cfg.num_heads * d, h),
+            "w1": (L, h, cfg.d_ff), "w2": (L, cfg.d_ff, h),
+            "ln1": (L, h), "ln2": (L, h)}
+        if cfg.activation in ("swiglu", "geglu"):
+            blocks["w3"] = (L, h, cfg.d_ff)
     shapes = {"blocks": blocks, "final_norm": (h,), "embed": (pv, h)}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (h, pv)
     return shapes
 
 
-def _to_torch(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+def expected_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
+    """The type of block parameter (or top-level leaf) ``name``."""
+    if cfg.family == "ssm" and name in ssm_lib.F32_PARAMS:
+        return torch.float32
+    return torch_dtype(cfg.dtype)
+
+
+def _to_torch(a: np.ndarray) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         # numpy has no native bfloat16: move the bits and reinterpret
@@ -43,7 +72,7 @@ def _to_torch(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
         t = t.view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a))
-    return t.to(device=device, dtype=dtype)
+    return t
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -57,7 +86,6 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 def params_from_jax(np_params: dict, cfg: ModelConfig, device=None) -> dict:
     """Port parameters from a numpy copy of the JAX ``Model.init`` pytree."""
     device = resolve_device(device)
-    dtype = torch_dtype(cfg.dtype)
     shapes = expected_shapes(cfg)
     if set(np_params) != set(shapes):
         raise ValueError(f"parameter keys {sorted(np_params)} != "
@@ -69,7 +97,11 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, device=None) -> dict:
     def convert(a, shape, name):
         if tuple(np.shape(a)) != shape:
             raise ValueError(f"{name}: shape {np.shape(a)} != {shape}")
-        return _to_torch(a, dtype, device)
+        t = _to_torch(a)
+        if t.dtype != expected_dtype(cfg, name):
+            raise ValueError(f"{name}: {t.dtype} != "
+                             f"{expected_dtype(cfg, name)}")
+        return t.to(device)
 
     out = {key: convert(np_params[key], shape, key)
            for key, shape in shapes.items() if key != "blocks"}

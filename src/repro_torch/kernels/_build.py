@@ -55,13 +55,15 @@ SIGNATURES = {
     "repro_chunk_dequantize": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
     "repro_nibble_pack": [_P, _P, _LL, _P],
     "repro_nibble_unpack": [_P, _P, _LL, _P],
+    "repro_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 LAUNCHES: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
                             "decode_attention": 0,
                             "paged_decode_attention": 0, "chunk_amax": 0,
                             "chunk_quantize": 0, "nibble_pack": 0,
-                            "nibble_unpack": 0, "chunk_dequantize": 0}
+                            "nibble_unpack": 0, "chunk_dequantize": 0,
+                            "wkv6": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()

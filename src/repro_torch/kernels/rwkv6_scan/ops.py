@@ -1,0 +1,58 @@
+"""Dispatch for the WKV6 recurrence: kernel B10 on a CUDA tensor, the plain
+version on a CPU tensor."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
+
+HEAD_SIZES = (16, 32, 64)
+
+
+def wkv6(r, k, v, w, u, state, state_out=None):
+    """(y, final state) of the recurrence (see ``ref.wkv6_ref``).  The
+    final state is written into ``state_out`` when one is given (it may be
+    ``state`` itself: the decode step updates its cache in place)."""
+    if r.device.type == "cpu":
+        y, s = wkv6_ref(r, k, v, w, u, state)
+        if state_out is None:
+            return y, s
+        return y, state_out.copy_(s)
+    return wkv6_cuda(r, k, v, w, u, state, state_out)
+
+
+def wkv6_cuda(r, k, v, w, u, state, state_out=None):
+    """Launch B10.  r, k, v, w [B,S,H,hs] contiguous, one type (f32 or
+    bf16); u [H,hs] f32; state [B,H,hs,hs] f32; hs in HEAD_SIZES,
+    any S >= 1.  ``state_out`` (f32, the shape of ``state``; may be
+    ``state``) receives the final state, else a new tensor does."""
+    name = "wkv6_cuda"
+    if r.device.type != "cuda":
+        raise ValueError(f"{name}: r on {r.device}, expected a CUDA device")
+    if r.dim() != 4:
+        raise ValueError(f"{name}: r must be [B,S,H,hs], got {tuple(r.shape)}")
+    B, S, H, hs = r.shape
+    if hs not in HEAD_SIZES or S < 1:
+        raise ValueError(f"{name}: head size {hs} not in {HEAD_SIZES}, or "
+                         f"S={S} < 1")
+    dev, dt = r.device, r.dtype
+    code = _build.dtype_code(dt)
+    for what, t in (("r", r), ("k", k), ("v", v), ("w", w)):
+        _build.require(name, what, t, dev, dt, (B, S, H, hs))
+    _build.require(name, "u", u, dev, torch.float32, (H, hs))
+    _build.require(name, "state", state, dev, torch.float32, (B, H, hs, hs))
+    if state_out is None:
+        state_out = torch.empty_like(state)
+    _build.require(name, "state_out", state_out, dev, torch.float32,
+                   (B, H, hs, hs))
+    y = torch.empty_like(r)
+    with torch.cuda.device(dev):
+        rc = _build.lib().repro_wkv6(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), state.data_ptr(), y.data_ptr(),
+            state_out.data_ptr(), B, S, H, hs, code,
+            _build.stream_ptr(dev))
+    _build.check(rc, name)
+    _build.count("wkv6")
+    return y, state_out

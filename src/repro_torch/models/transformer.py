@@ -1,21 +1,23 @@
-"""Model trunk of the port: embedding, a loop over stacked dense blocks,
-final norm and head.
+"""Model trunk of the port: embedding, a loop over stacked blocks, final
+norm and head.
 
-Counterpart of ``repro.models.transformer`` for the dense family (the
-other families are ROADMAP item A11).  Parameters keep the JAX package's
-layout — a dict with ``blocks`` stacked on a leading [L, ...] axis,
-``embed`` [V_pad, h], ``lm_head`` [h, V_pad] and ``final_norm`` [h] — so
-``repro_torch.bridge`` carries JAX weights over unchanged.  The layer loop
-is a Python loop (the JAX package scanned it), and KV caches are updated
-in place (the JAX package donated them).
+Counterpart of ``repro.models.transformer`` for the dense and ssm
+(RWKV-6) families (the others are ROADMAP item A11); the block and its
+init are picked by ``cfg.family``, as the JAX package's ``_BLOCKS`` does.
+Parameters keep the JAX package's layout — a dict with ``blocks`` stacked
+on a leading [L, ...] axis, ``embed`` [V_pad, h], ``lm_head`` [h, V_pad]
+and ``final_norm`` [h] — so ``repro_torch.bridge`` carries JAX weights
+over unchanged.  The layer loop is a Python loop (the JAX package scanned
+it), and caches are updated in place (the JAX package donated them).
 
 Entry points:
-  prefill(params, tokens, max_len)       last-position logits + ring cache
-  decode_step(params, cache, tokens, pos) one token against the ring cache
+  prefill(params, tokens, max_len)       last-position logits + cache (a
+                                         ring KV cache, or the ssm state)
+  decode_step(params, cache, tokens, pos) one token against the cache
   decode_steps(..., num_tokens)          greedy multi-token decode
   paged_step(params, cache, tokens, pos, block_table)
                                          a prefill chunk or a decode step
-                                         against KV pages
+                                         against KV pages (dense only)
 """
 from __future__ import annotations
 
@@ -28,9 +30,14 @@ from repro_torch.config.base import ModelConfig
 from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
 from repro_torch.models import blocks as blocks_lib
 from repro_torch.models import layers as layers_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import dense_init, rms_norm, torch_dtype
 
-PORTED_FAMILIES = ("dense",)
+_BLOCKS = {
+    "dense": (blocks_lib.init_dense_blocks, blocks_lib.dense_block_apply),
+    "ssm": (ssm_lib.init_ssm_blocks, ssm_lib.ssm_block_apply),
+}
+PORTED_FAMILIES = tuple(_BLOCKS)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -59,18 +66,21 @@ def greedy_decode_loop(step_fn, tokens, cache, pos, num_tokens: int):
 
 
 class Model:
-    """Functional dense model for one ModelConfig.
+    """Functional model for one ModelConfig of a ported family.
 
-    ``plain=True`` runs the JAX package's plain attention and RMSNorm in
-    place of the kernels (the path the kernels are held to)."""
+    ``plain=True`` runs the plain versions of the kernels (the JAX
+    package's attention, RMSNorm and WKV recurrence): the path the
+    kernels are held to."""
 
     def __init__(self, cfg: ModelConfig, plain: bool = False):
         if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
-                f"{cfg.name} is {cfg.family}: the port covers the dense "
-                "family; the other families are ROADMAP item A11")
+                f"{cfg.name} is {cfg.family}: the port covers the "
+                f"{' and '.join(PORTED_FAMILIES)} families; the others are "
+                "ROADMAP item A11")
         self.cfg = cfg
         self.plain = bool(plain)
+        self._init_blocks, self._block_apply = _BLOCKS[cfg.family]
         self._norm = rms_norm_ref if plain else rms_norm
 
     # ------------------------------------------------------------- params
@@ -84,8 +94,7 @@ class Model:
         dtype = torch_dtype(cfg.dtype)
         gen = torch.Generator(device=device).manual_seed(int(seed))
         params = {
-            "blocks": blocks_lib.init_dense_blocks(gen, cfg, cfg.num_layers,
-                                                   dtype),
+            "blocks": self._init_blocks(gen, cfg, cfg.num_layers, dtype),
             "final_norm": torch.zeros((cfg.d_model,), dtype=dtype,
                                       device=device),
         }
@@ -128,39 +137,54 @@ class Model:
         return {name: w[l] for name, w in params["blocks"].items()}
 
     def _block(self, p_l, x, positions, **kw):
-        return blocks_lib.dense_block_apply(self.cfg, p_l, x, positions,
-                                            plain=self.plain, **kw)
+        return self._block_apply(self.cfg, p_l, x, positions,
+                                 plain=self.plain, **kw)
 
     # ---------------------------------------------------------- interface
     def prefill(self, params, tokens, max_len: int):
-        """tokens [B, S] -> (last-position logits [B, v], ring cache
-        {k, v: [L, B, W, Hkv, D]}, S)."""
+        """tokens [B, S] -> (last-position logits [B, v], cache, S).  The
+        cache is the ring KV cache {k, v: [L, B, W, Hkv, D]} (dense) or
+        the recurrent state {state [L, B, H, hs, hs] f32, tm_prev,
+        cm_prev [L, B, h]} (ssm)."""
         cfg = self.cfg
+        L = cfg.num_layers
         x = self._embed(params, tokens)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device).expand(B, S)
         w = self.cache_width(max_len)
-        shape = (cfg.num_layers, B, w, cfg.num_kv_heads, cfg.head_dim)
-        cache = {key: x.new_zeros(shape) for key in ("k", "v")}
-        for l in range(cfg.num_layers):
+        cache = None
+        for l in range(L):
             x, c = self._block(self._layer(params, l), x, positions,
                                build_cache_w=w)
-            cache["k"][l] = c["k"]
-            cache["v"][l] = c["v"]
+            if cache is None:
+                cache = {key: val.new_empty((L, *val.shape))
+                         for key, val in c.items()}
+            for key, val in c.items():
+                cache[key][l] = val
         return self._head(params, x[:, -1:, :])[:, 0], cache, S
 
     def init_cache(self, batch: int, max_len: int, device=None):
+        """An empty cache for ``batch`` sequences: the ring KV cache
+        (dense) or the ssm state, whose size does not depend on
+        ``max_len``."""
         cfg = self.cfg
         device = resolve_device(device)
+        if cfg.family == "ssm":
+            return ssm_lib.init_ssm_cache(cfg, cfg.num_layers, batch,
+                                          torch_dtype(cfg.dtype), device)
         w = self.cache_width(max_len)
         shape = (cfg.num_layers, batch, w, cfg.num_kv_heads, cfg.head_dim)
         return {key: torch.zeros(shape, dtype=torch_dtype(cfg.dtype),
                                  device=device) for key in ("k", "v")}
 
     def init_paged_cache(self, num_pages: int, page_size: int, device=None):
-        """[L, P, ps, Hkv, D] K/V page pools (page 0 is the scratch page —
-        runtime/kvpool.py)."""
+        """[L, P, ps, Hkv, D] K/V page pools (dense attention only; page 0
+        is the scratch page — runtime/kvpool.py)."""
         cfg = self.cfg
+        if cfg.family != "dense":
+            raise ValueError(
+                f"paged KV cache covers dense attention; {cfg.name} is "
+                f"{cfg.family}")
         if cfg.sliding_window:
             raise ValueError(
                 "paged KV cache keeps every position (pages, no ring wrap); "
@@ -191,14 +215,14 @@ class Model:
 
     def decode_step(self, params, cache, tokens, pos):
         """One step: tokens [B]; ``pos`` a scalar (every sequence at one
-        depth) or [B] per-sequence positions.  Returns (logits [B, v],
-        cache), the cache updated in place."""
+        depth) or [B] per-sequence positions (the ssm family ignores it).
+        Returns (logits [B, v], cache), the cache updated in place."""
         x = self._embed(params, tokens[:, None])
         B = x.shape[0]
         pos = torch.as_tensor(pos, device=x.device)
         positions = layers_lib.decode_positions(pos, B, device=x.device)
         for l in range(self.cfg.num_layers):
-            layer_cache = {key: cache[key][l] for key in ("k", "v")}
+            layer_cache = {key: val[l] for key, val in cache.items()}
             x, _ = self._block(self._layer(params, l), x, positions,
                                cache=layer_cache, pos=pos)
         return self._head(params, x)[:, 0], cache

@@ -306,8 +306,9 @@ class ModelBackend(_BackendBase):
         self._init_device_cache()
 
     def _write_slot(self, small, slot: int) -> None:
-        for key in ("k", "v"):
-            self.cache[key][:, slot] = small[key][:, 0]
+        # every cache family keeps the batch on axis 1 of each leaf
+        for key, val in small.items():
+            self.cache[key][:, slot] = val[:, 0]
 
 
 class TPBackend(_BackendBase):

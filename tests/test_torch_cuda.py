@@ -8,7 +8,9 @@ JAX nor the JAX package, so it runs on a machine with only PyTorch:
 
 Tolerances: bf16 rounds the output once on each side, so the two may land
 one bf16 ulp apart (2^-8 relative); f32 differs only in summation order.
-The quantization kernels B5–B9 have no tolerance: integer, byte and fp8
+B10 (the WKV6 recurrence) is held to the same tolerances: its f32 state
+update is contracted to an FMA, about one f32 ulp per step over these
+short sequences.  The quantization kernels B5–B9 have no tolerance: integer, byte and fp8
 outputs, B5's f32 abs-max and B9's single rounding must be bitwise equal
 to the plain versions.  The shapes are small and ragged on purpose (odd
 lengths, partial tiles, a hidden width with no 16-byte vector path, a
@@ -27,6 +29,8 @@ from repro_torch.kernels.quant_collective import ops as qops  # noqa: E402
 from repro_torch.kernels.quant_collective import ref as qref  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as rref  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import ops as wops  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import ref as wref  # noqa: E402
 
 DTYPES = [pytest.param(torch.float32, 1e-4, id="f32"),
           pytest.param(torch.bfloat16, 2e-2, id="bf16")]
@@ -101,6 +105,36 @@ def test_paged_decode_kernel(cuda, dtype, tol, ps):
     lens = _i32(cuda, [3 * ps + 2, 1, 4 * ps])
     _close(dops.paged_decode_attention_cuda(q, kp, vp, bt, lens),
            dref.paged_decode_attention_ref(q, kp, vp, bt, lens), tol)
+
+
+def _wkv6_inputs(dev, dtype, b, s, h, hs, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=0.5):
+        return scale * torch.randn(shape, generator=g, device=dev)
+    r, k, v = (rnd(b, s, h, hs).to(dtype) for _ in range(3))
+    w = (0.8 + 0.199 * torch.rand((b, s, h, hs), generator=g,
+                                  device=dev)).to(dtype)
+    return r, k, v, w, rnd(h, hs, scale=0.3), rnd(b, h, hs, hs, scale=0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("b,s,h,hs", [(2, 77, 3, 64), (1, 1, 4, 32),
+                                      (3, 40, 1, 16), (4, 1, 64, 64)])
+def test_wkv6_kernel(cuda, dtype, tol, b, s, h, hs):
+    """B10 against the plain version: y and the final state, from a
+    non-zero initial state, any S (77 is not a multiple of the kernel's
+    32-step staging), decode (S = 1); then in place over the state."""
+    r, k, v, w, u, st = _wkv6_inputs(cuda, dtype, b, s, h, hs, seed=s)
+    want_y, want_s = wref.wkv6_ref(r, k, v, w, u, st)
+    y, s_out = wops.wkv6_cuda(r, k, v, w, u, st)
+    _close(y, want_y, tol)
+    _close(s_out, want_s, 1e-4)
+    y, s_out = wops.wkv6_cuda(r, k, v, w, u, st, state_out=st)
+    assert s_out is st
+    _close(y, want_y, tol)
+    _close(st, want_s, 1e-4)
 
 
 def _bits(t):
@@ -178,6 +212,19 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="even"):
         qops.nibble_pack_cuda(torch.zeros(2, 7, dtype=torch.int8,
                                           device=cuda))
+    r, k, v, w, u, st = _wkv6_inputs(cuda, torch.float32, 1, 3, 2, 48)
+    with pytest.raises(ValueError, match="head size"):
+        wops.wkv6_cuda(r, k, v, w, u, st)
+    r, k, v, w, u, st = _wkv6_inputs(cuda, torch.float32, 1, 3, 2, 16)
+    with pytest.raises(TypeError):
+        wops.wkv6_cuda(r, k, v, w.to(torch.bfloat16), u, st)
+    with pytest.raises(TypeError):
+        wops.wkv6_cuda(r, k, v, w, u.to(torch.bfloat16), st)
+    with pytest.raises(TypeError):
+        wops.wkv6_cuda(r, k, v, w, u, st.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        wops.wkv6_cuda(r, k.transpose(1, 2).contiguous().transpose(1, 2),
+                       v, w, u, st)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -197,6 +244,10 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         dops.paged_decode_attention_cuda(q[:, 0], q, q,
                                          torch.zeros(1, 1, dtype=torch.int32),
                                          torch.ones(1, dtype=torch.int32))
+    z = torch.zeros(1, 2, 1, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        wops.wkv6_cuda(z, z, z, z, torch.zeros(1, 16),
+                       torch.zeros(1, 1, 16, 16))
     s = torch.ones(2, 1)
     for call in (lambda: qops.chunk_amax_cuda(x),
                  lambda: qops.chunk_quantize_cuda(x, s, 8),

@@ -241,4 +241,4 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
 
 def test_other_families_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="A11"):
-        port_model(port_config("rwkv6-7b").reduced())
+        port_model(port_config("hymba-1.5b").reduced())
