@@ -15,8 +15,8 @@ Phases:
      the card's bound for the work;
   3. the serving path at the full width of llama32-3b (random weights from
      a seed, made on the card): InferenceEngine.generate, the contiguous
-     Scheduler and the paged Scheduler with chunked prefill, and one
-     decode step's time breakdown;
+     Scheduler and the paged Scheduler with chunked prefill, one decode
+     step's time breakdown and one 333-token prefill pass's (B2's share);
   4. the kernel path against the plain path on the whole model;
   5. the explicit tensor-parallel engine at t = 4 virtual ranks, full
      width: (a) the comm log of a prefill and a decode step equals
@@ -179,6 +179,7 @@ def compare(name, got, want, dtype: str, kind: str = "") -> float:
 
 FULL = dict(h=3072, Hq=24, Hkv=8, D=128)
 DECODE_LENGTHS = (1, 17, 300, 1024)
+SPLIT_LENGTHS = (128, 129, 1, 1024)
 
 
 def kernel_phase(dev, iters: int):
@@ -219,7 +220,9 @@ def kernel_phase(dev, iters: int):
                  (1, 333, 333, [0], [333], None),
                  (2, 333, 333, [0, 0], [333, 333], 100),
                  # a chunk of 256 at pos 300 over the gathered 64-page view
-                 (1, 256, 1024, [300], [556], None)]
+                 (1, 256, 1024, [300], [556], None),
+                 # where prefill attention turns operation-bound (timed)
+                 (1, 1024, 1024, [0], [1024], None)]
         err = 0.0
         for B, S, T, off, kl, win in cases:
             q = randn((B, S, Hq, D), dt)
@@ -233,6 +236,8 @@ def kernel_phase(dev, iters: int):
             if S == 333 and win is None:
                 timed = dict(args=(q, k, v, ints(off), ints(kl), None),
                              shape=f"q[{B},{S},{Hq},{D}] kv[{B},{T},{Hkv},{D}]")
+            if S == 1024:
+                timed["long_args"] = (q, k, v, ints(off), ints(kl))
         rows.setdefault("flash_attention", {})[dname] = dict(err=err, **timed)
         # -- B3 contiguous decode: B = 4, W = 1024, ragged lengths --------
         B, W = 4, 1024
@@ -265,6 +270,14 @@ def kernel_phase(dev, iters: int):
             "B4 paged with a scratch-page row",
             paged_decode_attention_cuda(q, kp, vp, bt0, lens0),
             dref.paged_decode_attention_ref(q, kp, vp, bt0, lens0), dname))
+        # split boundaries (128 keys a split at ps 16): on an edge, one
+        # past it, one key, beside the 1024-token row, so the short rows'
+        # later splits are empty
+        lens_s = ints(SPLIT_LENGTHS)
+        err = max(err, compare(
+            f"B4 paged split edges len={SPLIT_LENGTHS}",
+            paged_decode_attention_cuda(q, kp, vp, bt, lens_s),
+            dref.paged_decode_attention_ref(q, kp, vp, bt, lens_s), dname))
         rows.setdefault("paged_decode_attention", {})[dname] = dict(
             err=err, args=(q, kp, vp, bt, lens),
             shape=f"q[{B},{Hq},{D}] pages[{P},{ps},{Hkv},{D}] bt[{B},{n}]")
@@ -305,6 +318,8 @@ def kernel_phase(dev, iters: int):
                 a, b, c, is_causal=True, enable_gqa=True), lib_sets, iters))
         t["bound"], t["by"] = bound_ms(nbytes, 4.0 * D * Hq * pairs, dname)
         out.setdefault("flash_attention", {})[dname] = t
+        if dname == "bfloat16":
+            flash_long(r["long_args"], iters)
         # B3 / B4: bytes of the cache rows the lengths name
         live = sum(min(x, W) for x in DECODE_LENGTHS)
         flops = 4.0 * D * Hq * live
@@ -348,6 +363,28 @@ def kernel_phase(dev, iters: int):
                 f"bound {t['bound']:.4f} ms ({t['by']})  "
                 f"[{rows[name][dname]['shape']}]")
     return rows, out
+
+
+def flash_long(args, iters: int):
+    """Log B2 bf16 beside SDPA at one 1024-token prompt, in TFLOP/s, where
+    causal prefill attention turns operation-bound (log only: the kernel
+    table keeps the S = 333 row)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    q, k, v, off, kl = args
+    B, S, Hq, D = q.shape
+    flops = 4.0 * D * Hq * B * S * (S + 1) // 2
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    sets = copies((q, k, v, off, kl), nbytes)
+    lib_sets = [tuple(a.transpose(1, 2).contiguous() for a in s[:3])
+                for s in sets]
+    tk = bench(flash_attention_cuda, sets, iters)
+    tl = bench(lambda a, b, c: F.scaled_dot_product_attention(
+        a, b, c, is_causal=True, enable_gqa=True), lib_sets, iters)
+    bound, by = bound_ms(nbytes, flops, "bfloat16")
+    log(f"  time flash_attention S={S}    bfloat16 kernel {tk:.4f} ms "
+        f"({flops / tk / 1e9:.1f} TFLOP/s)  library {tl:.4f} ms "
+        f"({flops / tl / 1e9:.1f} TFLOP/s)  bound {bound:.4f} ms ({by})  "
+        f"[q[{B},{S},{Hq},{D}], causal]")
 
 
 QDECODE = (4, 3072)     # one rank's rows on the decode path: 4 slots x h
@@ -698,6 +735,7 @@ def serving_phase(dev, smi):
                for r in reports["paged"])
     log(f"[serve] paged streams equal to contiguous: {same}/8 (bf16)")
     decode_breakdown(dev, get_model(cfg), params, smi, "t=1")
+    prefill_breakdown(dev, get_model(cfg), params, smi)
     return params, totals
 
 
@@ -735,9 +773,7 @@ def decode_breakdown(dev, model, params, smi, what: str, steps: int = 8):
                                  ProfilerActivity.CUDA]) as prof:
             cache, tok = run(steps, cache, tok, 130 + steps)
             torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) is not None
-              and str(e.device_type).endswith("CUDA")]
+    events = device_events(prof)
     busy_us = sum(e.self_device_time_total for e in events)
     kernels = sum(e.count for e in events) / steps
     if busy_us <= 0:
@@ -759,6 +795,51 @@ def decode_breakdown(dev, model, params, smi, what: str, steps: int = 8):
     for e in host:
         log(f"    host   {e.self_cpu_time_total / 1e3 / steps:8.3f} "
             f"ms/step {e.count // steps:5d}/step  {e.key[:90]}")
+
+
+def device_events(prof):
+    """The profiler's per-kernel records that ran on the card."""
+    return [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) is not None
+            and str(e.device_type).endswith("CUDA")]
+
+
+def prefill_breakdown(dev, model, params, smi, S: int = 333):
+    """One full-width prefill pass of one S-token prompt: host wall
+    (synchronised, no profiler), device busy from torch.profiler's kernel
+    records, and B2's share of it (the kernels named flash_prefill)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prompt = torch.randint(2, model.cfg.vocab_size, (1, S), device=dev,
+                           generator=torch.Generator(dev).manual_seed(9))
+    with torch.inference_mode():
+        model.prefill(params, prompt, 1024)                  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(params, prompt, 1024)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.prefill(params, prompt, 1024)
+            torch.cuda.synchronize()
+    events = device_events(prof)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if busy_ms <= 0:
+        log(f"[prefill pass] S={S}: host wall {wall_ms:.3f} ms; device busy: "
+            "not measured (profiler recorded no device time)")
+        return
+    flash = [e for e in events if "flash_prefill" in e.key]
+    flash_ms = sum(e.self_device_time_total for e in flash) / 1e3
+    log(f"[prefill pass] {model.cfg.name} S={S}, 1 prompt: host wall "
+        f"{wall_ms:.3f} ms (no profiler), device busy {busy_ms:.3f} ms "
+        f"(profiler), B2 {flash_ms:.3f} ms in "
+        f"{sum(e.count for e in flash)} launches = {flash_ms / busy_ms:.3f} "
+        f"of device busy, device idle share {1 - busy_ms / wall_ms:.3f} "
+        f"({smi})")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"    device {e.self_device_time_total / 1e3:8.3f} ms "
+            f"{e.count:5d}x  {e.key[:90]}")
 
 
 # ---------------------------------------------------------------------------

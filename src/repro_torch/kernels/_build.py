@@ -47,9 +47,9 @@ SIGNATURES = {
                             _I, _I, _F, _I, _P],
     "repro_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _LL, _LL, _LL, _F, _I, _P],
-    "repro_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                     _I, _I, _I, _I, _LL, _LL, _LL, _F, _I,
-                                     _P],
+    "repro_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                     _LL, _LL, _LL, _F, _I, _P],
     "repro_chunk_amax": [_P, _P, _LL, _I, _I, _I, _P],
     "repro_chunk_quantize": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
     "repro_chunk_dequantize": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],

@@ -1,24 +1,57 @@
 // B3 / B4 — flash-decode for Hopper: one query token per sequence against a
 // contiguous KV cache (B3) or against KV pages named by a block table (B4).
 //
-// Replaces: src/repro/kernels/decode_attention/decode_kernel.py ·
-// decode_attention_pallas (B3) and paged_kernel.py ·
-// paged_decode_attention_pallas (B4).  One kernel, templated on the
-// addressing, serves both:
-//   * B3 takes per-sequence lengths[b] in place of the TPU kernel's one
-//     valid[W] mask for the whole batch.  Continuous batching decodes at
-//     pos[b]; decode_cache_mask(W, pos + 1, window) is idx < min(pos + 1, W)
-//     for the ring cache, wrap included, so a length is all it needs.
-//   * B4 reads physical page block_tables[b, j] of the [P, ps, Hkv, D] pools
-//     in place, through the pools' strides.  The TPU wrapper transposes the
-//     whole pool on every call; nothing here copies.  The page loop stops at
-//     min(ceil(lengths[b] / ps), n), and a table entry outside [0, P) is
-//     treated as masked, so no read leaves the pool (inactive slots carry
-//     rows of scratch page 0 and garbage positions).
+// Replaces: src/repro/kernels/decode_attention/decode_kernel.py:56 ·
+// decode_attention_pallas (B3) and paged_kernel.py:70 ·
+// paged_decode_attention_pallas (B4).
 //
 // Bound on the H100: device-memory bytes.  Every cached K/V row of a live
 // sequence is read once per step for 4 * G * D FLOPs per 4 * D bytes (bf16),
-// about G operations per byte, two orders below the card's ratio.  Design:
+// about G operations per byte, two orders below the card's ratio.  What
+// sets the time is how many bytes are in flight at once across the SMs.
+//
+// B4 (paged): a split-KV pair of kernels, templated on the addressing
+// (instantiated for PagedAddr; B3 moves onto it next).
+//   * Split pass, grid (Hkv, B, n_splits).  Split s covers whole pages
+//     [s * pps, (s + 1) * pps) of the block table, pps = max(1, 128 / ps)
+//     (about 128 keys; ops.split_geometry), and n_splits = ceil(n / pps)
+//     comes from the table width, so no length is read on the host.  A
+//     split past the sequence's live pages exits at once; at B 4, lengths
+//     1/17/300/1024, ps 16, n 64 that leaves 104 live CTAs of 256 (32 CTAs
+//     without the split), spread over the 132 SMs.  Inside a CTA of 8
+//     warps:
+//       - the CTA's slice of block_tables goes into shared memory once,
+//         loaded beside the sequence's length;
+//       - K and V rows come in by cp.async, 16 bytes a lane (8 bf16 or 4
+//         f32: a 128-wide bf16 row is 16 lanes, a warp reads two rows per
+//         instruction), into a ring of four stages of 32 rows (two pages
+//         at ps 16; 64 at bf16 D 32, one row per lane group), so a 128-key
+//         split is in flight at once; a row past
+//         the length or on a table entry outside [0, P) is zero-filled and
+//         flagged masked in shared memory, so no read leaves the pool
+//         (inactive slots carry rows of scratch page 0);
+//       - a lane owns 16 bytes of columns of one row at a time, and a
+//         score is reduced across that row's lanes only (4 shuffles for
+//         bf16 D 128, not 5);
+//       - the G query heads of the KV head share every staged row, each
+//         with its own f32 online softmax (max, sum, accumulator);
+//       - the row streams of a warp merge by shuffles, the 8 warps through
+//         shared memory, into one partial per (query head, split): the
+//         max m, the sum l and the unnormalised accumulator acc, in f32.
+//   * Combine pass, grid (Hq, B), D threads: reads lengths itself, merges
+//     the live splits' partials, M = max m, out = sum acc e^(m - M) /
+//     max(sum l e^(m - M), 1e-30), cast to the input type.  An empty
+//     partial (every row masked) has m = finfo(f32).min and l = 0, so no
+//     exp(-inf - (-inf)) arises.  The wrapper allocates the partials.
+//   Both take exponentials with __expf (ex2.approx on x * log2(e)), within
+//   2 + 1.16 |x| f32 ulp of expf (CUDA's documented bound); the f32 checks
+//   hold the pair to 1e-4.
+//
+// B3 (contiguous): the first port's kernel.  It takes per-sequence
+// lengths[b] in place of the TPU kernel's one valid[W] mask for the whole
+// batch (continuous batching decodes at pos[b]; decode_cache_mask(W, pos +
+// 1, window) is idx < min(pos + 1, W) for the ring cache, wrap included, so
+// a length is all it needs):
 //   * one CTA of 8 warps per (KV head, sequence); the G query heads of that
 //     KV head share every K/V row the CTA reads;
 //   * a lane owns D/32 columns; a warp takes 4 consecutive keys at a time
@@ -27,9 +60,10 @@
 //     f32 registers;
 //   * a final pass through shared memory merges the warps' (max, sum, acc).
 // Known limit: at B = 4 slots x Hkv = 8 this is 32 CTAs on 132 SMs, so one
-// step cannot draw the card's full bandwidth.  Split-KV is a later step.
-// Numerics: f32 accumulation, masked scores at finfo(f32).min, p in f32,
-// denominator clamped at 1e-30, output cast to the input type.
+// step cannot draw the card's full bandwidth; it moves onto the split-KV
+// pair next.
+// Numerics (both): f32 accumulation, masked scores at finfo(f32).min, p in
+// f32, denominator clamped at 1e-30, output cast to the input type.
 #include "common.cuh"
 
 namespace repro {
@@ -48,20 +82,6 @@ struct ContigAddr {
     return b * sb + idx * sw + h * sh;
   }
   __device__ int span() const { return W; }
-};
-
-// Page pools [P, ps, Hkv, D] + block tables [B, n] int32.
-struct PagedAddr {
-  const int* bt;
-  int64_t sp, sr, sh;
-  int P, ps, n;
-  __device__ int64_t offset(int b, int idx, int h) const {
-    const int j = idx / ps;
-    const int page = bt[static_cast<int64_t>(b) * n + j];
-    if (page < 0 || page >= P) return -1;
-    return page * sp + (idx - j * ps) * sr + h * sh;
-  }
-  __device__ int span() const { return n * ps; }
 };
 
 template <int D>
@@ -205,6 +225,326 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// B4: split-KV flash-decode (split pass + combine pass)
+// ---------------------------------------------------------------------------
+namespace split {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kStages = 4;      // ring depth: a 128-row split is in flight at once
+constexpr int kMaxTable = 128;  // pages one split covers at most (ps >= 1)
+
+// Page pools [P, ps, Hkv, D] (element strides sp, sr, sh, unit last-dim
+// stride; K and V alike) + block tables [B, n] int32.  Split s covers the
+// table's pages [s * pps, (s + 1) * pps).
+struct PagedAddr {
+  const int* bt;
+  int64_t sp, sr, sh;
+  int P, ps, n, pps;
+  __device__ int span() const { return n * ps; }
+  __device__ int split_rows() const { return pps * ps; }
+  // the split's slice of the table -> tbl (every thread of the CTA calls)
+  __device__ void stage(int b, int s, int* tbl) const {
+    const int j0 = s * pps, cnt = min(pps, n - j0);
+    for (int i = threadIdx.x; i < cnt; i += blockDim.x)
+      tbl[i] = bt[static_cast<int64_t>(b) * n + j0 + i];
+  }
+  // element offset of logical row idx of KV head h, or -1 when masked
+  __device__ int64_t offset(int b, int s, int idx, int h,
+                            const int* tbl) const {
+    const int j = idx / ps;
+    const int page = tbl[j - s * pps];
+    if (page < 0 || page >= P) return -1;
+    return page * sp + (idx - j * ps) * sr + h * sh;
+  }
+};
+
+template <typename T, int D>
+struct Geo {
+  static constexpr int EPL = 16 / static_cast<int>(sizeof(T));  // per lane
+  static constexpr int LPR = D / EPL;            // lanes per row
+  static constexpr int RPW = 32 / LPR;           // rows a warp holds at once
+  static constexpr int NS = kWarps * RPW;        // row streams per CTA
+  static constexpr int ROWS = NS > 32 ? NS : 32; // rows per ring stage
+  static constexpr int RPS = ROWS / NS;          // rows per stream per stage
+  static constexpr int ROW = D * static_cast<int>(sizeof(T));  // bytes
+  static constexpr int STAGE = 2 * ROWS * ROW;   // K and V rows
+  static constexpr int SMEM = kStages * STAGE;
+  static_assert(ROWS * LPR % kThreads == 0 && ROWS % NS == 0, "geometry");
+  static_assert(kWarps * kMaxG * D * 4 <= SMEM, "merge area fits the ring");
+};
+
+__device__ __forceinline__ void load16(const float* p, float (&f)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  f[0] = x.x; f[1] = x.y; f[2] = x.z; f[3] = x.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&f)[8]) {
+  const uint4 x = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+template <typename T, int D, class Addr>
+__global__ void __launch_bounds__(kThreads)
+split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const int* __restrict__ lengths,
+             Addr addr, float* __restrict__ pm, float* __restrict__ pl,
+             float* __restrict__ pacc, int Hkv, int G, int n_splits,
+             float scale) {
+  using Gm = Geo<T, D>;
+  constexpr int EPL = Gm::EPL, LPR = Gm::LPR, ROWS = Gm::ROWS;
+  extern __shared__ __align__(16) uint8_t ring[];
+  __shared__ int tbl[kMaxTable];
+  __shared__ bool live_row[kStages][ROWS];
+  __shared__ float sm_m[kWarps][kMaxG], sm_l[kWarps][kMaxG];
+
+  const int h = blockIdx.x, b = blockIdx.y, sx = blockIdx.z;
+  addr.stage(b, sx, tbl);  // loads beside the length's load
+  const int len = max(0, min(lengths[b], addr.span()));
+  const int row0 = sx * addr.split_rows();
+  if (row0 >= len) return;  // an empty split: the combine pass skips it
+  const int nrows = min(len, row0 + addr.split_rows()) - row0;
+  __syncthreads();
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int seg = lane % LPR;                   // this lane's 16 bytes
+  const int stream = warp * Gm::RPW + lane / LPR;
+  const int Hq = Hkv * G;
+  const uint32_t ring_s = smem_u32(ring);
+
+  // cp.async the K and V rows of ring chunk c (zero-filled where masked)
+  const int n_chunks = (nrows + ROWS - 1) / ROWS;
+  auto fetch = [&](int c) {
+    const int st = c % kStages;
+    const uint32_t sk = ring_s + st * Gm::STAGE;
+    const uint32_t sv = sk + ROWS * Gm::ROW;
+#pragma unroll
+    for (int j = 0; j < ROWS * LPR / kThreads; ++j) {
+      const int i = tid + j * kThreads;
+      const int r = i / LPR, sg = i % LPR;
+      const int idx = c * ROWS + r;
+      const int64_t off =
+          idx < nrows ? addr.offset(b, sx, row0 + idx, h, tbl) : -1;
+      const bool ok = off >= 0;
+      if (sg == 0) live_row[st][r] = ok;
+      const int64_t e = (ok ? off : 0) + sg * EPL;
+      cp_async16(sk + r * Gm::ROW + sg * 16, k + e, ok);
+      cp_async16(sv + r * Gm::ROW + sg * 16, v + e, ok);
+    }
+  };
+#pragma unroll
+  for (int c = 0; c < kStages - 1; ++c) {
+    if (c < n_chunks) fetch(c);
+    cp_async_commit();
+  }
+
+  float qv[kMaxG][EPL], acc[kMaxG][EPL], m[kMaxG], l[kMaxG];
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) {
+      acc[g][e] = 0.f;
+      qv[g][e] = g < G ? to_f32(q[(static_cast<int64_t>(b) * Hq + h * G + g) * D +
+                                  seg * EPL + e])
+                       : 0.f;
+    }
+  }
+
+  for (int c = 0; c < n_chunks; ++c) {
+    if (c + kStages - 1 < n_chunks) fetch(c + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();  // chunk c has landed
+    __syncthreads();
+    const int st = c % kStages;
+    const T* sk = reinterpret_cast<const T*>(ring + st * Gm::STAGE);
+    const T* sv = sk + ROWS * D;
+
+    // scores of this stream's rows: the row's LPR lanes reduce together
+    float s[Gm::RPS][kMaxG];
+    bool ok[Gm::RPS];
+#pragma unroll
+    for (int rr = 0; rr < Gm::RPS; ++rr) {
+      const int r = stream + rr * Gm::NS;
+      ok[rr] = live_row[st][r];
+      float kf[EPL];
+      load16(sk + r * D + seg * EPL, kf);
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) {
+        float part = 0.f;
+        if (g < G) {
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) part += qv[g][e] * kf[e];
+#pragma unroll
+          for (int o = LPR / 2; o > 0; o >>= 1)
+            part += __shfl_xor_sync(0xffffffffu, part, o);
+        }
+        s[rr][g] = ok[rr] ? part * scale : kNegInf;
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      if (g >= G) continue;
+      float bmax = kNegInf;
+#pragma unroll
+      for (int rr = 0; rr < Gm::RPS; ++rr) bmax = fmaxf(bmax, s[rr][g]);
+      const float m_new = fmaxf(m[g], bmax);
+      const float alpha = __expf(m[g] - m_new);
+      m[g] = m_new;
+      l[g] *= alpha;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[g][e] *= alpha;
+    }
+#pragma unroll
+    for (int rr = 0; rr < Gm::RPS; ++rr) {
+      const int r = stream + rr * Gm::NS;
+      float vf[EPL];
+      load16(sv + r * D + seg * EPL, vf);
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) {
+        if (g >= G) continue;
+        const float p = ok[rr] ? __expf(s[rr][g] - m[g]) : 0.f;
+        l[g] += p;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[g][e] += p * vf[e];
+      }
+    }
+    __syncthreads();  // chunk c's stage is refilled next
+  }
+  cp_async_wait<0>();
+
+  // merge the warp's row streams (lanes lane ^ LPR, ^ 2 LPR, ... hold the
+  // same columns), then the warps through shared memory
+#pragma unroll
+  for (int off = LPR; off < 32; off <<= 1) {
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      if (g >= G) continue;
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[g], off);
+      const float M = fmaxf(m[g], mo);
+      const float fa = __expf(m[g] - M), fb = __expf(mo - M);
+      l[g] = l[g] * fa + lo * fb;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e)
+        acc[g][e] = acc[g][e] * fa +
+                    __shfl_xor_sync(0xffffffffu, acc[g][e], off) * fb;
+      m[g] = M;
+    }
+  }
+  float* sm_acc = reinterpret_cast<float*>(ring);  // [kWarps][kMaxG][D]
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g) {
+    if (g >= G) continue;
+    if (lane < LPR) {
+#pragma unroll
+      for (int e = 0; e < EPL; ++e)
+        sm_acc[(warp * kMaxG + g) * D + seg * EPL + e] = acc[g][e];
+    }
+    if (lane == 0) {
+      sm_m[warp][g] = m[g];
+      sm_l[warp][g] = l[g];
+    }
+  }
+  __syncthreads();
+  for (int t = tid; t < G * D; t += kThreads) {
+    const int g = t / D, d = t % D;
+    float M = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sm_m[w][g]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = __expf(sm_m[w][g] - M);
+      L += sm_l[w][g] * f;
+      A += sm_acc[(w * kMaxG + g) * D + d] * f;
+    }
+    const int64_t row =
+        (static_cast<int64_t>(b) * Hq + h * G + g) * n_splits + sx;
+    pacc[row * D + d] = A;
+    if (d == 0) {
+      pm[row] = M;
+      pl[row] = L;
+    }
+  }
+}
+
+// one block of D threads per (query head, sequence): merge the live splits
+template <typename T, int D>
+__global__ void __launch_bounds__(D)
+combine_kernel(const float* __restrict__ pm, const float* __restrict__ pl,
+               const float* __restrict__ pacc, const int* __restrict__ lengths,
+               T* __restrict__ out, int span, int split_rows, int n_splits) {
+  const int hq = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+  const int len = max(0, min(lengths[b], span));
+  const int live = min(n_splits, (len + split_rows - 1) / split_rows);
+  const int64_t row = static_cast<int64_t>(b) * gridDim.x + hq;
+  const float* m = pm + row * n_splits;
+  const float* l = pl + row * n_splits;
+  const float* a = pacc + row * n_splits * D + d;
+  float M = kNegInf;
+  for (int s = 0; s < live; ++s) M = fmaxf(M, m[s]);
+  float L = 0.f, A = 0.f;
+  for (int s = 0; s < live; ++s) {
+    const float f = expf(m[s] - M);
+    L += l[s] * f;
+    A += a[static_cast<int64_t>(s) * D] * f;
+  }
+  out[row * D + d] = from_f32<T>(A / fmaxf(L, kMinDenom));
+}
+
+template <typename T, int D, class Addr>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   const int* lengths, const Addr& addr, float* pm, float* pl,
+                   float* pacc, int B, int Hkv, int G, int n_splits, int span,
+                   int split_rows, float scale, cudaStream_t s) {
+  using Gm = Geo<T, D>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        split_kernel<T, D, Addr>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Gm::SMEM);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  split_kernel<T, D, Addr><<<dim3(Hkv, B, n_splits), kThreads, Gm::SMEM, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), lengths, addr, pm, pl, pacc, Hkv, G, n_splits,
+      scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  combine_kernel<T, D><<<dim3(Hkv * G, B), D, 0, s>>>(
+      pm, pl, pacc, lengths, static_cast<T*>(out), span, split_rows,
+      n_splits);
+  return cudaGetLastError();
+}
+
+template <typename T, class Addr>
+cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
+                     void* out, const int* lengths, const Addr& addr,
+                     float* pm, float* pl, float* pacc, int B, int Hkv, int G,
+                     int n_splits, int span, int split_rows, float scale,
+                     cudaStream_t s) {
+  if (G < 1 || G > kMaxG || B <= 0 || Hkv <= 0 || B > 65535 ||
+      n_splits <= 0 || n_splits > 65535 || Hkv * G > 65535)
+    return cudaErrorInvalidValue;
+  switch (D) {
+    case 32: return launch<T, 32>(q, k, v, out, lengths, addr, pm, pl, pacc, B, Hkv, G, n_splits, span, split_rows, scale, s);
+    case 64: return launch<T, 64>(q, k, v, out, lengths, addr, pm, pl, pacc, B, Hkv, G, n_splits, span, split_rows, scale, s);
+    case 128: return launch<T, 128>(q, k, v, out, lengths, addr, pm, pl, pacc, B, Hkv, G, n_splits, span, split_rows, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace split
+
 }  // namespace
 }  // namespace repro
 
@@ -225,20 +565,30 @@ REPRO_EXPORT int repro_decode_attention(
 }
 
 // B4.  q/out [B, Hq, D] contiguous; k/v pools [P, ps, Hkv, D] with element
-// strides (sp, sr, sh) and unit last-dim stride (K and V pools share them);
-// block_tables [B, n] and lengths [B] int32 on the device.
+// strides (sp, sr, sh) and unit last-dim stride (K and V pools share them;
+// base 16-byte aligned, strides multiples of 16 bytes); block_tables [B, n]
+// and lengths [B] int32 on the device; f32 partials part_m/part_l
+// [B, Hq, n_splits] and part_acc [B, Hq, n_splits, D], n_splits =
+// ceil(n / pps).  Two kernels: the split pass, then the combine pass.
 REPRO_EXPORT int repro_paged_decode_attention(
     const void* q, const void* k_pages, const void* v_pages, void* out,
-    const void* block_tables, const void* lengths, int B, int P, int ps,
-    int n, int Hkv, int G, int D, long long sp, long long sr, long long sh,
-    float scale, int dtype, void* stream) {
-  if (ps <= 0 || n <= 0 || P <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  repro::PagedAddr addr{static_cast<const int*>(block_tables), sp, sr, sh, P, ps, n};
+    const void* block_tables, const void* lengths, void* part_m,
+    void* part_l, void* part_acc, int B, int P, int ps, int n, int pps,
+    int n_splits, int Hkv, int G, int D, long long sp, long long sr,
+    long long sh, float scale, int dtype, void* stream) {
+  if (ps <= 0 || n <= 0 || P <= 0 || pps <= 0 ||
+      pps > repro::split::kMaxTable || n_splits != (n + pps - 1) / pps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  repro::split::PagedAddr addr{static_cast<const int*>(block_tables), sp, sr,
+                               sh, P, ps, n, pps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
+  float* pm = static_cast<float*>(part_m);
+  float* pl = static_cast<float*>(part_l);
+  float* pa = static_cast<float*>(part_acc);
   if (dtype == repro::kFloat32)
-    return repro::dispatch<float>(D, q, k_pages, v_pages, out, len, addr, B, Hkv, G, scale, s);
+    return repro::split::dispatch<float>(D, q, k_pages, v_pages, out, len, addr, pm, pl, pa, B, Hkv, G, n_splits, n * ps, pps * ps, scale, s);
   if (dtype == repro::kBFloat16)
-    return repro::dispatch<__nv_bfloat16>(D, q, k_pages, v_pages, out, len, addr, B, Hkv, G, scale, s);
+    return repro::split::dispatch<__nv_bfloat16>(D, q, k_pages, v_pages, out, len, addr, pm, pl, pa, B, Hkv, G, n_splits, n * ps, pps * ps, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -12,6 +12,16 @@ from repro_torch.kernels.decode_attention.ref import (
 
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUPS = 8          # query heads per KV head the kernel holds
+SPLIT_KEYS = 128        # keys one split of B4's split pass covers, about
+
+
+def split_geometry(page_size: int, n_pages: int):
+    """(pages per split, splits) of B4's split pass over a block table of
+    ``n_pages`` entries: each split covers whole pages, about SPLIT_KEYS
+    keys, and the count follows from the table's width alone (no length
+    is read on the host)."""
+    pps = max(1, SPLIT_KEYS // page_size)
+    return pps, -(-n_pages // pps)
 
 
 def decode_attention(q, k, v, lengths):
@@ -73,9 +83,12 @@ def decode_attention_cuda(q, k, v, lengths):
 
 
 def paged_decode_attention_cuda(q, k_pages, v_pages, block_tables, lengths):
-    """Launch B4.  q [B,Hq,D] contiguous; k_pages, v_pages [P,ps,Hkv,D]
-    read in place through their strides (unit last-dim stride, K and V
-    alike); block_tables [B,n] and lengths [B] int32."""
+    """Launch B4, the split pass then the combine pass (one count).  q
+    [B,Hq,D] contiguous; k_pages, v_pages [P,ps,Hkv,D] read in place
+    through their strides (unit last-dim stride, K and V alike; the base on
+    a 16-byte boundary and the page, row and head strides multiples of 16
+    bytes, since the kernel loads 16 bytes a lane); block_tables [B,n] and
+    lengths [B] int32."""
     name = "paged_decode_attention_cuda"
     P, ps, Hkv = k_pages.shape[:3]
     B, Hq, D = _check_q(name, q, Hkv)
@@ -84,19 +97,32 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, block_tables, lengths):
     _check_cache(name, v_pages, "v_pages", dev, dt, (P, ps, Hkv, D))
     if k_pages.stride() != v_pages.stride():
         raise ValueError(f"{name}: k_pages and v_pages strides differ")
+    esz = k_pages.element_size()
+    for what, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16 or any(st * esz % 16 for st in t.stride()[:3]):
+            raise ValueError(
+                f"{name}: {what} must start on a 16-byte boundary with page, "
+                f"row and head strides in multiples of 16 bytes, got "
+                f"address {t.data_ptr()} and strides {t.stride()[:3]}")
     n = block_tables.shape[1] if block_tables.dim() == 2 else -1
     _build.require(name, "block_tables", block_tables, dev, torch.int32,
                    (B, n))
     _build.require(name, "lengths", lengths, dev, torch.int32, (B,))
     code = _build.dtype_code(dt)
     out = torch.empty_like(q)
+    pps, n_splits = split_geometry(ps, n)
+    part_m = torch.empty((B, Hq, n_splits), dtype=torch.float32, device=dev)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty((B, Hq, n_splits, D), dtype=torch.float32,
+                           device=dev)
     sp, sr, sh, _ = k_pages.stride()
     with torch.cuda.device(dev):
         rc = _build.lib().repro_paged_decode_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             out.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
-            B, P, ps, n, Hkv, Hq // Hkv, D, sp, sr, sh, 1.0 / math.sqrt(D),
-            code, _build.stream_ptr(dev))
+            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+            B, P, ps, n, pps, n_splits, Hkv, Hq // Hkv, D, sp, sr, sh,
+            1.0 / math.sqrt(D), code, _build.stream_ptr(dev))
     _build.check(rc, name)
     _build.count("paged_decode_attention")
     return out

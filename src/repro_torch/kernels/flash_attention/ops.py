@@ -19,8 +19,10 @@ def flash_attention(q, k, v, q_offset, kv_len, window=None):
 
 
 def flash_attention_cuda(q, k, v, q_offset, kv_len, window=None):
-    """Launch B2.  q [B,S,Hq,D]; k, v [B,T,Hkv,D]; q_offset, kv_len [B]
-    int32 — all contiguous on one CUDA device."""
+    """Launch B2: the tensor-core kernel for bf16, the CUDA-core kernel
+    for f32.  q [B,S,Hq,D]; k, v [B,T,Hkv,D]; q_offset, kv_len [B] int32 —
+    all contiguous on one CUDA device, q, k and v on 16-byte boundaries
+    (the bf16 kernel copies 16 bytes a thread)."""
     name = "flash_attention_cuda"
     if q.device.type != "cuda":
         raise ValueError(f"{name}: q on {q.device}, expected a CUDA device")
@@ -38,6 +40,10 @@ def flash_attention_cuda(q, k, v, q_offset, kv_len, window=None):
     _build.require(name, "q_offset", q_offset, dev, torch.int32, (B,))
     _build.require(name, "kv_len", kv_len, dev, torch.int32, (B,))
     code = _build.dtype_code(dt)
+    for what, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} must start on a 16-byte "
+                             f"boundary, got address {t.data_ptr()}")
     out = torch.empty_like(q)
     with torch.cuda.device(dev):
         rc = _build.lib().repro_flash_prefill(

@@ -9,7 +9,8 @@ import torch
 NEG_INF = torch.finfo(torch.float32).min
 
 
-def flash_attention_ref(q, k, v, q_offset, kv_len, window=None):
+def flash_attention_ref(q, k, v, q_offset, kv_len, window=None,
+                        p_dtype=None):
     """q [B,S,Hq,D]; k, v [B,T,Hkv,D]; q_offset, kv_len [B] int.
 
     Query s of sequence b sits at absolute position q_offset[b] + s and
@@ -17,6 +18,11 @@ def flash_attention_ref(q, k, v, q_offset, kv_len, window=None):
     t > position - window).  f32 throughout, masked probabilities exactly
     0, denominator clamped at 1e-30 (a fully masked row gives 0); the
     result is cast to the type of q.
+
+    ``p_dtype`` (a model of B2's bf16 tensor-core numerics, for the tests):
+    the unnormalised probabilities are rounded to it before the P·V
+    product and the f32 sum divides afterwards.  None (the plain version
+    every kernel is held to) keeps P in f32.
     """
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
@@ -37,5 +43,9 @@ def flash_attention_ref(q, k, v, q_offset, kv_len, window=None):
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(logits - m), 0.0)
     denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("bkgst,btkd->bskgd", p / denom, v.float())
+    if p_dtype is None:
+        out = torch.einsum("bkgst,btkd->bskgd", p / denom, v.float())
+    else:
+        out = torch.einsum("bkgst,btkd->bskgd", p.to(p_dtype).float(),
+                           v.float()) / denom.permute(0, 3, 1, 2, 4)
     return out.reshape(B, S, Hq, D).to(q.dtype)

@@ -65,14 +65,33 @@ def test_rmsnorm_kernel(cuda, dtype, tol, rows, h):
     _close(rops.rms_norm_cuda(x, w), rref.rms_norm_ref(x, w), tol)
 
 
+# B2 across its tiling: S below, at and off one 64-query tile, a paged
+# chunk (q_offset > 0, kv_len > S), a window, every head width and group
+FLASH_CASES = [  # B, S, T, q_offset, kv_len, window, D, Hkv, G
+    pytest.param(2, 77, 90, [0, 13], [77, 90], None, 128, 8, 3, id="d128"),
+    pytest.param(2, 77, 90, [0, 13], [77, 90], 17, 64, 2, 2, id="d64-w17"),
+    pytest.param(2, 77, 90, [0, 13], [77, 90], None, 32, 1, 4, id="d32"),
+    pytest.param(1, 40, 40, [0], [40], None, 128, 8, 3, id="S40"),
+    pytest.param(2, 64, 64, [0, 0], [64, 64], None, 64, 2, 1, id="S64"),
+    pytest.param(2, 77, 77, [0, 0], [77, 50], None, 32, 1, 8, id="S77"),
+    pytest.param(1, 333, 333, [0], [333], None, 128, 8, 3, id="S333"),
+    pytest.param(2, 100, 400, [300, 37], [400, 137], None, 128, 2, 3,
+                 id="chunk"),
+    pytest.param(1, 333, 333, [0], [333], 17, 64, 2, 3, id="window17"),
+    pytest.param(1, 130, 200, [70], [200], 17, 32, 1, 8, id="chunk-window17"),
+]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("d,hkv,g,window", [(128, 8, 3, None),
-                                            (64, 2, 2, 17), (32, 1, 4, None)])
-def test_flash_kernel(cuda, dtype, tol, d, hkv, g, window):
-    rnd = _rand(cuda, dtype, seed=d)
-    q, k, v = rnd(2, 77, hkv * g, d), rnd(2, 90, hkv, d), rnd(2, 90, hkv, d)
-    off, kl = _i32(cuda, [0, 13]), _i32(cuda, [77, 90])
+@pytest.mark.parametrize("B,S,T,off,kl,window,d,hkv,g", FLASH_CASES)
+def test_flash_kernel(cuda, dtype, tol, B, S, T, off, kl, window, d, hkv,
+                      g):
+    """B2 (bf16: tensor cores; f32: CUDA cores) against the plain version,
+    whose P stays f32 (bf16 rounds P for P·V: 2^-9 relative)."""
+    rnd = _rand(cuda, dtype, seed=S + d)
+    q, k, v = rnd(B, S, hkv * g, d), rnd(B, T, hkv, d), rnd(B, T, hkv, d)
+    off, kl = _i32(cuda, off), _i32(cuda, kl)
     _close(fops.flash_attention_cuda(q, k, v, off, kl, window),
            fref.flash_attention_ref(q, k, v, off, kl, window), tol)
 
@@ -105,6 +124,30 @@ def test_paged_decode_kernel(cuda, dtype, tol, ps):
     lens = _i32(cuda, [3 * ps + 2, 1, 4 * ps])
     _close(dops.paged_decode_attention_cuda(q, kp, vp, bt, lens),
            dref.paged_decode_attention_ref(q, kp, vp, bt, lens), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("d,hkv,g", [(128, 8, 3), (64, 2, 1), (32, 1, 8)])
+@pytest.mark.parametrize("ps", [16, 5])
+def test_paged_decode_split_boundaries(cuda, dtype, tol, ps, d, hkv, g):
+    """B4's split pass + combine pass at lengths 1, exactly on a split
+    boundary, one past it and 1024 (the short rows' later splits are
+    empty), then with an inactive slot on scratch page 0."""
+    pps, _ = dops.split_geometry(ps, 1)
+    n = -(-1024 // ps)
+    P = 1 + 4 * n
+    rnd = _rand(cuda, dtype, seed=ps * d)
+    q, kp, vp = rnd(4, hkv * g, d), rnd(P, ps, hkv, d), rnd(P, ps, hkv, d)
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(ps))
+    bt = (perm + 1).reshape(4, n).to(device=cuda, dtype=torch.int32)
+    for lens in ([1, pps * ps, pps * ps + 1, 1024],
+                 [pps * ps + 1, 1, 1, 1024]):
+        if lens[1] == 1:
+            bt[1] = 0
+        lens = _i32(cuda, lens)
+        _close(dops.paged_decode_attention_cuda(q, kp, vp, bt, lens),
+               dref.paged_decode_attention_ref(q, kp, vp, bt, lens), tol)
 
 
 def _wkv6_inputs(dev, dtype, b, s, h, hs, seed=0):
@@ -205,6 +248,21 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="KV heads"):
         dops.decode_attention_cuda(rnd(1, 18, 32), rnd(1, 8, 2, 32),
                                    rnd(1, 8, 2, 32), _i32(cuda, [8]))
+    # B2 bf16 copies 16 bytes a thread: an input off a 16-byte boundary
+    qb = rnd(1 + 8 * 3 * 32).to(torch.bfloat16)[1:].view(1, 8, 3, 32)
+    kb = rnd(1, 8, 1, 32).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        fops.flash_attention_cuda(qb, kb, kb, _i32(cuda, [0]), _i32(cuda, [8]))
+    # B4 loads 16 bytes a lane: a pool view off a 16-byte boundary, or with
+    # a head stride that is not a multiple of 16 bytes
+    bt, lens = _i32(cuda, [[3, 1]]), _i32(cuda, [20])
+    flat = rnd(1 + 5 * 16 * 2 * 32)
+    shifted = flat[1:].view(5, 16, 2, 32)
+    padded = rnd(5, 16, 2, 33)[..., :32]
+    for pool in (shifted, padded):
+        with pytest.raises(ValueError, match="16-byte"):
+            dops.paged_decode_attention_cuda(rnd(1, 2, 32), pool, pool, bt,
+                                             lens)
     with pytest.raises(TypeError):
         qops.chunk_amax_cuda(x.half())
     with pytest.raises(ValueError, match="scales"):
