@@ -36,7 +36,8 @@ Phases:
      (c) launches equal their formula (B1 2L+1 and B10 L per pass, no
      B2–B9), (d) the kernel path against the plain path on the whole
      model (bf16 teacher-forced; f32 greedy tokens at L = 4), (e) one
-     decode step's time breakdown;
+     decode step's time breakdown, (f) one 512-token prefill pass's, with
+     B10's chunked kernel and with its per-step kernel;
   7. one JSON line with the kernel table, then the ok line.
 
 It imports nothing of JAX, exits non-zero with no ok line when there is no
@@ -248,6 +249,21 @@ def kernel_phase(dev, iters: int):
         err = compare(f"B3 decode B={B} W={W} len={DECODE_LENGTHS}",
                       decode_attention_cuda(q, k, v, lens),
                       dref.decode_attention_ref(q, k, v, lens), dname)
+        # split edges (128 rows a split): on an edge, one past it, one key
+        lens_s = ints(SPLIT_LENGTHS)
+        err = max(err, compare(
+            f"B3 decode split edges len={SPLIT_LENGTHS}",
+            decode_attention_cuda(q, k, v, lens_s),
+            dref.decode_attention_ref(q, k, v, lens_s), dname))
+        # a strided slot-subset view of one layer of a [L, 2B, W, Hkv, D]
+        # cache, read in place
+        big = randn((2, 2 * B, W, Hkv, D), dt)
+        kv = big[1, ::2]
+        err = max(err, compare(
+            "B3 decode strided slot-subset view",
+            decode_attention_cuda(q, kv, kv, lens),
+            dref.decode_attention_ref(q, kv, kv, lens), dname))
+        del big, kv
         rows.setdefault("decode_attention", {})[dname] = dict(
             err=err, args=(q, k, v, lens),
             shape=f"q[{B},{Hq},{D}] kv[{B},{W},{Hkv},{D}]")
@@ -501,68 +517,113 @@ def quant_kernel_phase(dev, iters: int):
 # (hs 32, S not a multiple of 128 — the TPU kernel refuses it, ROADMAP C7)
 WKV_SHAPES = {"prefill": (1, 512, 64, 64), "decode": (4, 1, 64, 64),
               "ragged": (2, 200, 3, 32)}
+# per-step vs chunked over batch x sequence at rwkv6-7b's heads: where the
+# wrapper's pick changes kernel (ops.CHUNK_MIN_S, ops.CHUNK_MAX_BH)
+WKV_SWEEP = [(b, s) for b in (1, 2, 4) for s in (1, 8, 16, 32, 64, 128, 512)]
 
 
-def wkv6_inputs(g, dev, dt, shape):
+def wkv6_inputs(g, dev, dt, shape, strong=False):
     """r, k, v [B,S,H,hs] ~ 0.5 N(0,1), w ~ U(0.8, 0.999) (the JAX sweep's
-    ranges), in ``dt``; u [H,hs] f32; a non-zero f32 initial state."""
+    ranges) or, ``strong``, U(0, 0.2) with a quarter exactly 0 (the
+    model's bf16 exp(-exp(dw)) rounds to 0), in ``dt``; u [H,hs] f32; a
+    non-zero f32 initial state."""
     B, S, H, hs = shape
     r, k, v = ((0.5 * torch.randn(shape, generator=g, device=dev)).to(dt)
                for _ in range(3))
-    w = (0.8 + 0.199 * torch.rand(shape, generator=g, device=dev)).to(dt)
+    if strong:
+        w = 0.2 * torch.rand(shape, generator=g, device=dev)
+        w = torch.where(torch.rand(shape, generator=g, device=dev) < 0.25,
+                        0.0, w).to(dt)
+    else:
+        w = (0.8 + 0.199 * torch.rand(shape, generator=g, device=dev)).to(dt)
     u = 0.3 * torch.randn((H, hs), generator=g, device=dev)
     st = 0.1 * torch.randn((B, H, hs, hs), generator=g, device=dev)
     return r, k, v, w, u, st
 
 
 def wkv6_kernel_phase(dev, iters: int):
-    """B10 against wkv6_ref (y and the final state) at WKV_SHAPES in bf16
-    and f32, from a non-zero state; times at the prefill and decode
-    shapes.  The prefill row is the kernel table's."""
-    from repro_torch.kernels.rwkv6_scan.ops import wkv6_cuda
+    """B10's two kernels (chunked, per-step) against wkv6_ref (y and the
+    final state) at WKV_SHAPES, at S = C-1, C, C+1 and with strong decays
+    (exact zeros), in bf16 and f32, from a non-zero state; times of the
+    wrapper's pick at the prefill and decode shapes (the prefill row is
+    the kernel table's), of each kernel at prefill, and of both kernels
+    over WKV_SWEEP (the pick's thresholds)."""
+    from repro_torch.kernels.rwkv6_scan.ops import CHUNK, wkv6_cuda
     from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
 
+    def kernel(chunk):
+        return lambda *a: wkv6_cuda(*a, chunk=chunk)
+
+    full = WKV_SHAPES["prefill"]
+    # (label, shape, strong decays, chunks checked; None: the wrapper's pick)
+    cases = [(what, shape, False, (None, 0, CHUNK))
+             for what, shape in WKV_SHAPES.items()]
+    cases += [(f"edge C={CHUNK}", (1, n, 64, 64), False, (CHUNK,))
+              for n in (CHUNK - 1, CHUNK, CHUNK + 1)]
+    cases += [("strong decays", full, True, (None, 0))]
     g = torch.Generator(device=dev).manual_seed(13)
     rows, out = {}, {}
     for dt in (torch.bfloat16, torch.float32):
         dname = str(dt).replace("torch.", "")
         log(f"[kernels] B10 {dname}")
         err, timed = 0.0, {}
-        for what, shape in WKV_SHAPES.items():
-            args = wkv6_inputs(g, dev, dt, shape)
-            y, st = wkv6_cuda(*args)
-            want_y, want_st = wkv6_ref(*args)
-            for name, got, want in (("y", y, want_y), ("state", st, want_st)):
-                err = max(err, compare(f"B10 wkv6 {what} {list(shape)} {name}",
-                                       got, want, dname, "wkv6"))
-            timed[what] = args
+        for what, shape, strong, chunks in cases:
+            args = wkv6_inputs(g, dev, dt, shape, strong)
+            want = wkv6_ref(*args)
+            for chunk in chunks:
+                got = wkv6_cuda(*args, chunk=chunk)
+                pick = "pick" if chunk is None else f"C={chunk}" if chunk \
+                    else "step"
+                for name, a, b in zip(("y", "state"), got, want):
+                    err = max(err, compare(
+                        f"B10 wkv6 {what} {list(shape)} {pick} {name}", a, b,
+                        dname, "wkv6"))
+            timed.setdefault(what, args)
         torch.cuda.synchronize()
-        B, S, H, hs = WKV_SHAPES["prefill"]
+        B, S, H, hs = full
         rows.setdefault("wkv6", {})[dname] = dict(
             err=err, shape=f"r/k/v/w[{B},{S},{H},{hs}], state[{B},{H},{hs},"
                            f"{hs}] f32")
         esz = torch.empty((), dtype=dt).element_size()
-        for what in ("prefill", "decode"):
-            args = timed[what]
-            B, S, H, hs = WKV_SHAPES[what]
+
+        def timing(args, fn, plain=True):
+            B, S, H, hs = args[0].shape
             n = B * S * H * hs
             # r, k, v, w read and y written once; u read; state read, written
             nbytes = 5 * n * esz + 4 * H * hs + 2 * 4 * B * H * hs * hs
             sets = copies(args, nbytes)
-            t = dict(kernel=bench(wkv6_cuda, sets, iters),
-                     plain=bench(wkv6_ref, sets, max(3, iters // 10)),
-                     library=None)
+            t = dict(kernel=bench(fn, sets, iters),
+                     plain=bench(wkv6_ref, sets, max(3, iters // 10))
+                     if plain else None, library=None)
             # the f32 operations the function needs: 5 per (b, t, h, i, j)
             # (r·S, an FMA; k·v; w·S + kv, an FMA) and 5 per (b, t, h, j)
             # for the u term, one scalar per step: v_j · sum_i r_i·u_i·k_i
             t["bound"], t["by"] = bound_ms(nbytes, 5.0 * n * hs + 5.0 * n,
                                            "float32")
+            return t
+
+        for what in ("prefill", "decode"):
+            t = timing(timed[what], wkv6_cuda)
             if what == "prefill":
                 out.setdefault("wkv6", {})[dname] = t
             log(f"  time wkv6 {what:<19s} {dname:8s} kernel "
                 f"{t['kernel']:.4f} ms  plain {t['plain']:.4f} ms  library "
                 f"none (no one call)  bound {t['bound']:.6f} ms ({t['by']})  "
-                f"[{list(WKV_SHAPES[what])}]")
+                f"[{list(WKV_SHAPES[what])}, the wrapper's pick]")
+        for chunk in (0, CHUNK):
+            t = timing(timed["prefill"], kernel(chunk), plain=False)
+            log(f"  time wkv6 prefill {'step' if not chunk else f'C={chunk}':<11s}"
+                f" {dname:8s} kernel {t['kernel']:.4f} ms  bound "
+                f"{t['bound']:.6f} ms  [{list(full)}]")
+        if dname != "bfloat16":
+            continue
+        for nb, n in WKV_SWEEP:
+            args = wkv6_inputs(g, dev, dt, (nb, n, 64, 64))
+            ts = {chunk: timing(args, kernel(chunk), plain=False)["kernel"]
+                  for chunk in (0, CHUNK, None)}
+            log(f"  time wkv6 sweep B={nb} S={n:<4d} bfloat16 step "
+                f"{ts[0]:.4f} ms  C={CHUNK} {ts[CHUNK]:.4f} ms  pick "
+                f"{ts[None]:.4f} ms  [[{nb}, {n}, 64, 64]]")
     return rows, out
 
 
@@ -776,6 +837,8 @@ def decode_breakdown(dev, model, params, smi, what: str, steps: int = 8):
     events = device_events(prof)
     busy_us = sum(e.self_device_time_total for e in events)
     kernels = sum(e.count for e in events) / steps
+    pair = sum(e.self_device_time_total for e in events
+               if "split_kernel" in e.key or "combine_kernel" in e.key)
     if busy_us <= 0:
         log(f"[decode step {what}] 4 slots: host wall {wall_ms:.3f} ms/step; "
             "device busy: not measured (profiler recorded no device time)")
@@ -785,7 +848,8 @@ def decode_breakdown(dev, model, params, smi, what: str, steps: int = 8):
         f"{wall_ms:.3f} ms/step (no profiler), device busy {busy_ms:.3f} "
         f"ms/step (profiler), device idle share {1 - busy_ms / wall_ms:.3f}, "
         f"hand-written kernel launches {ours:.0f}/step, device kernels "
-        f"{kernels:.0f}/step (profiler) ({smi})")
+        f"{kernels:.0f}/step (profiler), split-KV decode pair (split + "
+        f"combine) {pair / 1e3 / steps:.3f} ms/step ({smi})")
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     for e in top:
         log(f"    device {e.self_device_time_total / 1e3 / steps:8.3f} "
@@ -804,10 +868,12 @@ def device_events(prof):
             and str(e.device_type).endswith("CUDA")]
 
 
-def prefill_breakdown(dev, model, params, smi, S: int = 333):
+def prefill_breakdown(dev, model, params, smi, S: int = 333,
+                      kernel: str = "flash_prefill", label: str = "B2"):
     """One full-width prefill pass of one S-token prompt: host wall
     (synchronised, no profiler), device busy from torch.profiler's kernel
-    records, and B2's share of it (the kernels named flash_prefill)."""
+    records, and one kernel's share of it (the records whose name holds
+    ``kernel``: B2's flash_prefill by default)."""
     from torch.profiler import ProfilerActivity, profile
 
     prompt = torch.randint(2, model.cfg.vocab_size, (1, S), device=dev,
@@ -829,12 +895,12 @@ def prefill_breakdown(dev, model, params, smi, S: int = 333):
         log(f"[prefill pass] S={S}: host wall {wall_ms:.3f} ms; device busy: "
             "not measured (profiler recorded no device time)")
         return
-    flash = [e for e in events if "flash_prefill" in e.key]
-    flash_ms = sum(e.self_device_time_total for e in flash) / 1e3
+    mine = [e for e in events if kernel in e.key]
+    mine_ms = sum(e.self_device_time_total for e in mine) / 1e3
     log(f"[prefill pass] {model.cfg.name} S={S}, 1 prompt: host wall "
         f"{wall_ms:.3f} ms (no profiler), device busy {busy_ms:.3f} ms "
-        f"(profiler), B2 {flash_ms:.3f} ms in "
-        f"{sum(e.count for e in flash)} launches = {flash_ms / busy_ms:.3f} "
+        f"(profiler), {label} {mine_ms:.3f} ms in "
+        f"{sum(e.count for e in mine)} launches = {mine_ms / busy_ms:.3f} "
         f"of device busy, device idle share {1 - busy_ms / wall_ms:.3f} "
         f"({smi})")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
@@ -1280,6 +1346,18 @@ def rwkv_phase(dev, smi):
 
     # (e) one decode step's breakdown at 4 slots
     decode_breakdown(dev, get_model(cfg), params, smi, RWKV_ARCH)
+    # (f) one 512-token prefill pass, B10 as the wrapper picks it (the
+    # chunked kernel), then with the per-step kernel forced
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+    prefill_breakdown(dev, get_model(cfg), params, smi, 512, "wkv6_",
+                      "B10 (chunked)")
+    pick = wops.CHUNK_MAX_CTAS
+    wops.CHUNK_MAX_CTAS = 0
+    try:
+        prefill_breakdown(dev, get_model(cfg), params, smi, 512, "wkv6_",
+                          "B10 (per-step kernel forced)")
+    finally:
+        wops.CHUNK_MAX_CTAS = pick
     return totals
 
 

@@ -45,8 +45,8 @@ SIGNATURES = {
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _P],
     "repro_flash_prefill": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _I, _F, _I, _P],
-    "repro_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _LL, _LL, _LL, _F, _I, _P],
+    "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _I, _LL, _LL, _LL, _F, _I, _P],
     "repro_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                      _LL, _LL, _LL, _F, _I, _P],
@@ -55,7 +55,8 @@ SIGNATURES = {
     "repro_chunk_dequantize": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
     "repro_nibble_pack": [_P, _P, _LL, _P],
     "repro_nibble_unpack": [_P, _P, _LL, _P],
-    "repro_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "repro_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                   _P],
 }
 
 LAUNCHES: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,

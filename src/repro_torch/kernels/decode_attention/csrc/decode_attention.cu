@@ -10,26 +10,27 @@
 // about G operations per byte, two orders below the card's ratio.  What
 // sets the time is how many bytes are in flight at once across the SMs.
 //
-// B4 (paged): a split-KV pair of kernels, templated on the addressing
-// (instantiated for PagedAddr; B3 moves onto it next).
-//   * Split pass, grid (Hkv, B, n_splits).  Split s covers whole pages
-//     [s * pps, (s + 1) * pps) of the block table, pps = max(1, 128 / ps)
-//     (about 128 keys; ops.split_geometry), and n_splits = ceil(n / pps)
-//     comes from the table width, so no length is read on the host.  A
-//     split past the sequence's live pages exits at once; at B 4, lengths
-//     1/17/300/1024, ps 16, n 64 that leaves 104 live CTAs of 256 (32 CTAs
-//     without the split), spread over the 132 SMs.  Inside a CTA of 8
-//     warps:
-//       - the CTA's slice of block_tables goes into shared memory once,
-//         loaded beside the sequence's length;
+// One design for both, a split-KV pair of kernels templated on the
+// addressing (PagedAddr for B4, ContigAddr for B3):
+//   * Split pass, grid (Hkv, B, n_splits).  Split s covers about 128 keys
+//     (SPLIT_KEYS in ops.py): for B4 whole pages [s * pps, (s + 1) * pps)
+//     of the block table, pps = max(1, 128 / ps) (ops.split_geometry), and
+//     n_splits = ceil(n / pps) comes from the table width; for B3 rows
+//     [128 s, 128 (s + 1)) of the cache, n_splits = ceil(W / 128).  No
+//     length is read on the host.  A split past the sequence's length exits
+//     at once; at B 4, lengths 1/17/300/1024 (W 1024, or ps 16 and n 64)
+//     that leaves 104 live CTAs of 256 (32 CTAs without the split), spread
+//     over the 132 SMs.  Inside a CTA of 8 warps:
+//       - B4: the CTA's slice of block_tables goes into shared memory once,
+//         loaded beside the sequence's length (B3 has no table);
 //       - K and V rows come in by cp.async, 16 bytes a lane (8 bf16 or 4
 //         f32: a 128-wide bf16 row is 16 lanes, a warp reads two rows per
 //         instruction), into a ring of four stages of 32 rows (two pages
 //         at ps 16; 64 at bf16 D 32, one row per lane group), so a 128-key
-//         split is in flight at once; a row past
-//         the length or on a table entry outside [0, P) is zero-filled and
-//         flagged masked in shared memory, so no read leaves the pool
-//         (inactive slots carry rows of scratch page 0);
+//         split is in flight at once; a row past the length, or (B4) on a
+//         table entry outside [0, P), is zero-filled and flagged masked in
+//         shared memory, so no read leaves the cache or the pool (inactive
+//         slots carry rows of scratch page 0);
 //       - a lane owns 16 bytes of columns of one row at a time, and a
 //         score is reduced across that row's lanes only (4 shuffles for
 //         bf16 D 128, not 5);
@@ -47,21 +48,11 @@
 //   2 + 1.16 |x| f32 ulp of expf (CUDA's documented bound); the f32 checks
 //   hold the pair to 1e-4.
 //
-// B3 (contiguous): the first port's kernel.  It takes per-sequence
-// lengths[b] in place of the TPU kernel's one valid[W] mask for the whole
-// batch (continuous batching decodes at pos[b]; decode_cache_mask(W, pos +
-// 1, window) is idx < min(pos + 1, W) for the ring cache, wrap included, so
-// a length is all it needs):
-//   * one CTA of 8 warps per (KV head, sequence); the G query heads of that
-//     KV head share every K/V row the CTA reads;
-//   * a lane owns D/32 columns; a warp takes 4 consecutive keys at a time
-//     (independent loads and shuffle reductions for latency hiding), and
-//     the 8 warps split the keys, each with its own online-softmax state in
-//     f32 registers;
-//   * a final pass through shared memory merges the warps' (max, sum, acc).
-// Known limit: at B = 4 slots x Hkv = 8 this is 32 CTAs on 132 SMs, so one
-// step cannot draw the card's full bandwidth; it moves onto the split-KV
-// pair next.
+// B3 takes per-sequence lengths[b] in place of the TPU kernel's one
+// valid[W] mask for the whole batch (continuous batching decodes at pos[b];
+// decode_cache_mask(W, pos + 1, window) is idx < min(pos + 1, W) for the
+// ring cache, wrap included, so a length is all it needs).  Both wrappers
+// check that the cache's base and strides are multiples of 16 bytes.
 // Numerics (both): f32 accumulation, masked scores at finfo(f32).min, p in
 // f32, denominator clamped at 1e-30, output cast to the input type.
 #include "common.cuh"
@@ -69,171 +60,26 @@
 namespace repro {
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kKeys = 4;   // keys per warp iteration
-constexpr int kMaxG = 8;   // query heads per KV head
-
-// Contiguous cache [B, W, Hkv, D] (any strides, last dim unit stride).
-struct ContigAddr {
-  int64_t sb, sw, sh;
-  int W;
-  __device__ int64_t offset(int b, int idx, int h) const {
-    return b * sb + idx * sw + h * sh;
-  }
-  __device__ int span() const { return W; }
-};
-
-template <int D>
-size_t smem_bytes(int G) {
-  return sizeof(float) * (2 * kWarps * kMaxG + kWarps * G * D);
-}
-
-template <typename T, int D, class Addr>
-__global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ out,
-              const int* __restrict__ lengths, Addr addr, int Hkv, int G,
-              float scale) {
-  constexpr int DPL = D / 32;
-  extern __shared__ float smem[];
-  float* sm_m = smem;                          // [kWarps][kMaxG]
-  float* sm_l = sm_m + kWarps * kMaxG;         // [kWarps][kMaxG]
-  float* sm_acc = sm_l + kWarps * kMaxG;       // [kWarps][G][D]
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int len = max(0, min(lengths[b], addr.span()));
-  const int Hq = Hkv * G;
-
-  float qv[kMaxG][DPL], acc[kMaxG][DPL], m[kMaxG], l[kMaxG];
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      acc[g][i] = 0.f;
-      qv[g][i] = g < G ? to_f32(q[(static_cast<int64_t>(b) * Hq + h * G + g) * D +
-                                  lane * DPL + i])
-                       : 0.f;
-    }
-  }
-
-  for (int k0 = warp * kKeys; k0 < len; k0 += kWarps * kKeys) {
-    float kf[kKeys][DPL], vf[kKeys][DPL], s[kKeys][kMaxG];
-    bool ok[kKeys];
-#pragma unroll
-    for (int kk = 0; kk < kKeys; ++kk) {
-      const int idx = k0 + kk;
-      const int64_t off = idx < len ? addr.offset(b, idx, h) : -1;
-      ok[kk] = off >= 0;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        kf[kk][i] = ok[kk] ? to_f32(k[off + lane * DPL + i]) : 0.f;
-        vf[kk][i] = ok[kk] ? to_f32(v[off + lane * DPL + i]) : 0.f;
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < kKeys; ++kk) {
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        float part = 0.f;
-        if (g < G) {
-#pragma unroll
-          for (int i = 0; i < DPL; ++i) part += qv[g][i] * kf[kk][i];
-          part = warp_sum(part);
-        }
-        s[kk][g] = ok[kk] ? part * scale : kNegInf;
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g >= G) continue;
-      float bmax = kNegInf;
-#pragma unroll
-      for (int kk = 0; kk < kKeys; ++kk) bmax = fmaxf(bmax, s[kk][g]);
-      const float m_new = fmaxf(m[g], bmax);
-      const float alpha = expf(m[g] - m_new);
-      l[g] *= alpha;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[g][i] *= alpha;
-#pragma unroll
-      for (int kk = 0; kk < kKeys; ++kk) {
-        const float p = ok[kk] ? expf(s[kk][g] - m_new) : 0.f;
-        l[g] += p;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[g][i] += p * vf[kk][i];
-      }
-      m[g] = m_new;
-    }
-  }
-
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g >= G) continue;
-    if (lane == 0) {
-      sm_m[warp * kMaxG + g] = m[g];
-      sm_l[warp * kMaxG + g] = l[g];
-    }
-#pragma unroll
-    for (int i = 0; i < DPL; ++i)
-      sm_acc[(warp * G + g) * D + lane * DPL + i] = acc[g][i];
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < G * D; t += kThreads) {
-    const int g = t / D, d = t % D;
-    float M = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sm_m[w * kMaxG + g]);
-    float L = 0.f, A = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(sm_m[w * kMaxG + g] - M);
-      L += sm_l[w * kMaxG + g] * f;
-      A += sm_acc[(w * G + g) * D + d] * f;
-    }
-    out[(static_cast<int64_t>(b) * Hq + h * G + g) * D + d] =
-        from_f32<T>(A / fmaxf(L, kMinDenom));
-  }
-}
-
-template <typename T, class Addr>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
-                     void* out, const int* lengths, const Addr& addr, int B,
-                     int Hkv, int G, float scale, cudaStream_t s) {
-  if (G < 1 || G > kMaxG || B <= 0 || Hkv <= 0 || B > 65535)
-    return cudaErrorInvalidValue;
-  dim3 grid(Hkv, B);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  T* op = static_cast<T*>(out);
-  switch (D) {
-    case 32:
-      decode_kernel<T, 32, Addr><<<grid, kThreads, smem_bytes<32>(G), s>>>(qp, kp, vp, op, lengths, addr, Hkv, G, scale);
-      break;
-    case 64:
-      decode_kernel<T, 64, Addr><<<grid, kThreads, smem_bytes<64>(G), s>>>(qp, kp, vp, op, lengths, addr, Hkv, G, scale);
-      break;
-    case 128:
-      decode_kernel<T, 128, Addr><<<grid, kThreads, smem_bytes<128>(G), s>>>(qp, kp, vp, op, lengths, addr, Hkv, G, scale);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// B4: split-KV flash-decode (split pass + combine pass)
-// ---------------------------------------------------------------------------
-namespace split {
-
+constexpr int kMaxG = 8;        // query heads per KV head
+constexpr int kSplitKeys = 128; // B3's rows per split (SPLIT_KEYS in ops.py)
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 4;      // ring depth: a 128-row split is in flight at once
 constexpr int kMaxTable = 128;  // pages one split covers at most (ps >= 1)
+
+// Contiguous caches [B, W, Hkv, D] (element strides sb, sw, sh, unit
+// last-dim stride; K and V alike).  Split s covers rows [128 s, 128 (s + 1)).
+struct ContigAddr {
+  int64_t sb, sw, sh;
+  int W;
+  __device__ int span() const { return W; }
+  __device__ int split_rows() const { return kSplitKeys; }
+  __device__ void stage(int, int, int*) const {}
+  // element offset of row idx of KV head h (never masked)
+  __device__ int64_t offset(int b, int, int idx, int h, const int*) const {
+    return b * sb + idx * sw + h * sh;
+  }
+};
 
 // Page pools [P, ps, Hkv, D] (element strides sp, sr, sh, unit last-dim
 // stride; K and V alike) + block tables [B, n] int32.  Split s covers the
@@ -543,24 +389,33 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
   }
 }
 
-}  // namespace split
-
 }  // namespace
 }  // namespace repro
 
 // B3.  q/out [B, Hq, D] contiguous; k/v [B, W, Hkv, D] with element strides
-// (sb, sw, sh) and unit last-dim stride; lengths [B] int32 on the device.
+// (sb, sw, sh) and unit last-dim stride (base 16-byte aligned, strides
+// multiples of 16 bytes); lengths [B] int32 on the device; f32 partials
+// part_m/part_l [B, Hq, n_splits] and part_acc [B, Hq, n_splits, D],
+// n_splits = ceil(W / 128).  Two kernels: the split pass, then the combine
+// pass.
 REPRO_EXPORT int repro_decode_attention(
     const void* q, const void* k, const void* v, void* out,
-    const void* lengths, int B, int W, int Hkv, int G, int D, long long sb,
-    long long sw, long long sh, float scale, int dtype, void* stream) {
+    const void* lengths, void* part_m, void* part_l, void* part_acc, int B,
+    int W, int n_splits, int Hkv, int G, int D, long long sb, long long sw,
+    long long sh, float scale, int dtype, void* stream) {
+  using repro::kSplitKeys;
+  if (W <= 0 || n_splits != (W + kSplitKeys - 1) / kSplitKeys)
+    return static_cast<int>(cudaErrorInvalidValue);
   repro::ContigAddr addr{sb, sw, sh, W};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
+  float* pm = static_cast<float*>(part_m);
+  float* pl = static_cast<float*>(part_l);
+  float* pa = static_cast<float*>(part_acc);
   if (dtype == repro::kFloat32)
-    return repro::dispatch<float>(D, q, k, v, out, len, addr, B, Hkv, G, scale, s);
+    return repro::dispatch<float>(D, q, k, v, out, len, addr, pm, pl, pa, B, Hkv, G, n_splits, W, kSplitKeys, scale, s);
   if (dtype == repro::kBFloat16)
-    return repro::dispatch<__nv_bfloat16>(D, q, k, v, out, len, addr, B, Hkv, G, scale, s);
+    return repro::dispatch<__nv_bfloat16>(D, q, k, v, out, len, addr, pm, pl, pa, B, Hkv, G, n_splits, W, kSplitKeys, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -577,9 +432,9 @@ REPRO_EXPORT int repro_paged_decode_attention(
     int n_splits, int Hkv, int G, int D, long long sp, long long sr,
     long long sh, float scale, int dtype, void* stream) {
   if (ps <= 0 || n <= 0 || P <= 0 || pps <= 0 ||
-      pps > repro::split::kMaxTable || n_splits != (n + pps - 1) / pps)
+      pps > repro::kMaxTable || n_splits != (n + pps - 1) / pps)
     return static_cast<int>(cudaErrorInvalidValue);
-  repro::split::PagedAddr addr{static_cast<const int*>(block_tables), sp, sr,
+  repro::PagedAddr addr{static_cast<const int*>(block_tables), sp, sr,
                                sh, P, ps, n, pps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
@@ -587,8 +442,8 @@ REPRO_EXPORT int repro_paged_decode_attention(
   float* pl = static_cast<float*>(part_l);
   float* pa = static_cast<float*>(part_acc);
   if (dtype == repro::kFloat32)
-    return repro::split::dispatch<float>(D, q, k_pages, v_pages, out, len, addr, pm, pl, pa, B, Hkv, G, n_splits, n * ps, pps * ps, scale, s);
+    return repro::dispatch<float>(D, q, k_pages, v_pages, out, len, addr, pm, pl, pa, B, Hkv, G, n_splits, n * ps, pps * ps, scale, s);
   if (dtype == repro::kBFloat16)
-    return repro::split::dispatch<__nv_bfloat16>(D, q, k_pages, v_pages, out, len, addr, pm, pl, pa, B, Hkv, G, n_splits, n * ps, pps * ps, scale, s);
+    return repro::dispatch<__nv_bfloat16>(D, q, k_pages, v_pages, out, len, addr, pm, pl, pa, B, Hkv, G, n_splits, n * ps, pps * ps, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

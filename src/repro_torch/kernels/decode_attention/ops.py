@@ -12,7 +12,7 @@ from repro_torch.kernels.decode_attention.ref import (
 
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUPS = 8          # query heads per KV head the kernel holds
-SPLIT_KEYS = 128        # keys one split of B4's split pass covers, about
+SPLIT_KEYS = 128        # keys one split covers: B3 exactly, B4 about
 
 
 def split_geometry(page_size: int, n_pages: int):
@@ -58,8 +58,11 @@ def _check_q(name, q, Hkv):
 
 
 def decode_attention_cuda(q, k, v, lengths):
-    """Launch B3.  q [B,Hq,D] contiguous; k, v [B,W,Hkv,D] with a unit
-    last-dim stride (any other strides, K and V alike); lengths [B] int32."""
+    """Launch B3, the split pass then the combine pass (one count).  q
+    [B,Hq,D] contiguous; k, v [B,W,Hkv,D] read in place through their
+    strides (unit last-dim stride, K and V alike; the base on a 16-byte
+    boundary and the other strides multiples of 16 bytes, since the kernel
+    loads 16 bytes a lane); lengths [B] int32."""
     name = "decode_attention_cuda"
     W, Hkv = k.shape[1], k.shape[2]
     B, Hq, D = _check_q(name, q, Hkv)
@@ -68,18 +71,43 @@ def decode_attention_cuda(q, k, v, lengths):
     _check_cache(name, v, "v", dev, dt, (B, W, Hkv, D))
     if k.stride() != v.stride():
         raise ValueError(f"{name}: k and v strides differ")
+    _check_16_bytes(name, "k", k)
+    _check_16_bytes(name, "v", v)
     _build.require(name, "lengths", lengths, dev, torch.int32, (B,))
     code = _build.dtype_code(dt)
     out = torch.empty_like(q)
+    n_splits = -(-W // SPLIT_KEYS)
+    part_m, part_l, part_acc = _partials(B, Hq, n_splits, D, dev)
     sb, sw, sh, _ = k.stride()
     with torch.cuda.device(dev):
         rc = _build.lib().repro_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lengths.data_ptr(), B, W, Hkv, Hq // Hkv, D, sb, sw, sh,
-            1.0 / math.sqrt(D), code, _build.stream_ptr(dev))
+            lengths.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+            part_acc.data_ptr(), B, W, n_splits, Hkv, Hq // Hkv, D, sb, sw,
+            sh, 1.0 / math.sqrt(D), code, _build.stream_ptr(dev))
     _build.check(rc, name)
     _build.count("decode_attention")
     return out
+
+
+def _check_16_bytes(name, what, t):
+    """The kernels load 16 bytes a lane: the base on a 16-byte boundary and
+    every stride but the last a multiple of 16 bytes."""
+    esz = t.element_size()
+    if t.data_ptr() % 16 or any(st * esz % 16 for st in t.stride()[:3]):
+        raise ValueError(
+            f"{name}: {what} must start on a 16-byte boundary with strides "
+            f"in multiples of 16 bytes, got address {t.data_ptr()} and "
+            f"strides {t.stride()[:3]}")
+
+
+def _partials(B, Hq, n_splits, D, dev):
+    """The split pass's f32 partials: m, l [B,Hq,n_splits], acc
+    [B,Hq,n_splits,D]."""
+    part_m = torch.empty((B, Hq, n_splits), dtype=torch.float32, device=dev)
+    return (part_m, torch.empty_like(part_m),
+            torch.empty((B, Hq, n_splits, D), dtype=torch.float32,
+                        device=dev))
 
 
 def paged_decode_attention_cuda(q, k_pages, v_pages, block_tables, lengths):
@@ -97,13 +125,8 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, block_tables, lengths):
     _check_cache(name, v_pages, "v_pages", dev, dt, (P, ps, Hkv, D))
     if k_pages.stride() != v_pages.stride():
         raise ValueError(f"{name}: k_pages and v_pages strides differ")
-    esz = k_pages.element_size()
-    for what, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.data_ptr() % 16 or any(st * esz % 16 for st in t.stride()[:3]):
-            raise ValueError(
-                f"{name}: {what} must start on a 16-byte boundary with page, "
-                f"row and head strides in multiples of 16 bytes, got "
-                f"address {t.data_ptr()} and strides {t.stride()[:3]}")
+    _check_16_bytes(name, "k_pages", k_pages)
+    _check_16_bytes(name, "v_pages", v_pages)
     n = block_tables.shape[1] if block_tables.dim() == 2 else -1
     _build.require(name, "block_tables", block_tables, dev, torch.int32,
                    (B, n))
@@ -111,10 +134,7 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, block_tables, lengths):
     code = _build.dtype_code(dt)
     out = torch.empty_like(q)
     pps, n_splits = split_geometry(ps, n)
-    part_m = torch.empty((B, Hq, n_splits), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B, Hq, n_splits, D), dtype=torch.float32,
-                           device=dev)
+    part_m, part_l, part_acc = _partials(B, Hq, n_splits, D, dev)
     sp, sr, sh, _ = k_pages.stride()
     with torch.cuda.device(dev):
         rc = _build.lib().repro_paged_decode_attention(

@@ -1,7 +1,7 @@
 """Plain PyTorch single-token decode attention against a contiguous cache
 or against KV pages: the references B3 and B4 are held to.  Beside them,
-plain models of B4's two passes (``split_partials``, ``combine_partials``)
-that the CPU tests hold to the JAX package."""
+plain models of the two passes both kernels run (``split_partials``,
+``combine_partials``) that the CPU tests hold to the JAX package."""
 from __future__ import annotations
 
 import math
@@ -31,31 +31,39 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths):
     return decode_attention_ref(q, k, v, lengths.clamp_max(n * ps))
 
 
-def split_partials(q, k_pages, v_pages, block_tables, lengths,
-                   pages_per_split):
-    """B4's split pass in plain PyTorch.  Split s covers the table's pages
-    [s * pages_per_split, (s + 1) * pages_per_split); a row at or past
-    lengths[b], or on a table entry outside [0, P), is masked.  Returns the
-    f32 partials of every (sequence, query head, split): the max m and the
-    sum l [B,Hq,n_splits] and the unnormalised accumulator acc
-    [B,Hq,n_splits,D].  A split past the live pages is NaN: the kernel
-    writes nothing there, and ``combine_partials`` never reads it."""
+def split_partials(q, k, v, lengths, split_rows, block_tables=None):
+    """The split pass of B3 and B4 in plain PyTorch.  Without
+    ``block_tables`` k, v are contiguous caches [B,W,Hkv,D] and split s
+    covers rows [s * split_rows, (s + 1) * split_rows) (B3); with them k, v
+    are page pools [P,ps,Hkv,D], split_rows a whole number of pages, and
+    split s covers the table's pages [s * pps, (s + 1) * pps), pps =
+    split_rows / ps (B4).  A row at or past lengths[b], or on a table entry
+    outside [0, P), is masked.  Returns the f32 partials of every
+    (sequence, query head, split): the max m and the sum l [B,Hq,n_splits]
+    and the unnormalised accumulator acc [B,Hq,n_splits,D].  A split past
+    the length is NaN: the kernel writes nothing there, and
+    ``combine_partials`` never reads it."""
     B, Hq, D = q.shape
-    P, ps, Hkv = k_pages.shape[:3]
-    n = block_tables.shape[1]
-    G, rows, dev = Hq // Hkv, pages_per_split * ps, q.device
-    ns = -(-n // pages_per_split)
-    bt = block_tables.long()
-    page_ok = (bt >= 0) & (bt < P)
-    safe = torch.where(page_ok, bt, 0)
-    pad = ns * rows - n * ps
-    k = _pad_rows(k_pages[safe].reshape(B, n * ps, Hkv, D).float(), pad)
-    v = _pad_rows(v_pages[safe].reshape(B, n * ps, Hkv, D).float(), pad)
-    lens = lengths.long().clamp(0, n * ps)
+    Hkv, dev = k.shape[2], q.device
+    G, rows = Hq // Hkv, split_rows
+    if block_tables is None:
+        T = k.shape[1]
+        row_ok = torch.ones(B, T, dtype=torch.bool, device=dev)
+    else:
+        P, ps = k.shape[:2]
+        n = block_tables.shape[1]
+        T = n * ps
+        bt = block_tables.long()
+        page_ok = (bt >= 0) & (bt < P)
+        safe = torch.where(page_ok, bt, 0)
+        k, v = (x[safe].reshape(B, T, Hkv, D) for x in (k, v))
+        row_ok = page_ok.repeat_interleave(ps, dim=1)
+    ns = -(-T // rows)
+    pad = ns * rows - T
+    k, v = (_pad_rows(x.float(), pad) for x in (k, v))
+    lens = lengths.long().clamp(0, T)
     idx = torch.arange(ns * rows, device=dev)
-    mask = (idx[None] < lens[:, None]) & torch.cat(
-        [page_ok.repeat_interleave(ps, dim=1),
-         torch.zeros(B, pad, dtype=torch.bool, device=dev)], dim=1)  # [B,T]
+    mask = (idx[None] < lens[:, None]) & _pad_rows(row_ok, pad)   # [B,T]
     logits = torch.einsum("bkgd,btkd->bkgt", q.float().reshape(B, Hkv, G, D),
                           k) * (1.0 / math.sqrt(D))
     mask = mask.reshape(B, 1, 1, ns, rows)
@@ -79,7 +87,7 @@ def _pad_rows(x, rows):
 
 
 def combine_partials(m, l, acc, lengths, span, split_rows, dtype):
-    """B4's combine pass in plain PyTorch: for sequence b only the first
+    """The combine pass of B3 and B4 in plain PyTorch: for sequence b only the first
     ceil(min(lengths[b], span) / split_rows) splits are live; M = max m over
     them, out = sum acc e^(m - M) / max(sum l e^(m - M), 1e-30), cast to
     ``dtype``.  m, l [B,Hq,n_splits]; acc [B,Hq,n_splits,D] (f32)."""

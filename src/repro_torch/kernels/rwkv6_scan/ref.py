@@ -28,3 +28,48 @@ def wkv6_ref(r, k, v, w, u, state):
         ys.append(torch.einsum("bhi,bhij->bhj", rf[:, t], s + uf * kv))
         s = wf[:, t, :, :, None] * s + kv
     return torch.stack(ys, dim=1).to(r.dtype), s
+
+
+def wkv6_chunk_ref(r, k, v, w, u, state, chunk: int = 16):
+    """The chunked arithmetic kernel B10 runs for prefill, in plain PyTorch
+    (the same function as ``wkv6_ref``).  Time is cut into chunks of
+    ``chunk`` tokens, the last one ragged (any S >= 1).  Within a chunk of
+    n tokens, with the decays taken as products of w (never a quotient,
+    so nothing overflows and a w of exactly 0 gives exact zeros):
+
+        y_t  = (r_t ⊙ Π_{s<t} w_s) · S_c                  inter-chunk
+             + Σ_{τ<t} A[t,τ] v_τ                          intra-chunk
+             + (Σ_i r_{t,i} u_i k_{t,i}) v_t                bonus (A[t,t])
+        A[t,τ] = Σ_i r_{t,i} k_{τ,i} Π_{τ<s<t} w_{s,i}
+        S_{c+1} = diag(Π_{s<n} w_s) S_c + Σ_τ (k_τ ⊙ Π_{s>τ} w_s) v_τᵀ
+
+    r, k, v, w: [B,S,H,hs]; u: [H,hs]; state: [B,H,hs,hs].  Returns (y
+    [B,S,H,hs] in r.dtype, final state f32)."""
+    B, S, H, hs = r.shape
+    uf = u.float()
+    s = state.float()
+    ys = []
+    for c0 in range(0, S, chunk):
+        rc, kc, vc, wc = (t[:, c0:c0 + chunk].float().transpose(1, 2)
+                          for t in (r, k, v, w))            # [B,H,n,hs]
+        n = rc.shape[2]
+        ones = torch.ones_like(wc[:, :, :1])
+        incl = torch.cumprod(wc, dim=2)                     # Π_{s<=t} w_s
+        rd = rc * torch.cat([ones, incl[:, :, :-1]], dim=2)
+        after = torch.cat([wc[:, :, 1:], ones], dim=2)      # w_{t+1}
+        kd = kc * torch.cumprod(after.flip(2), dim=2).flip(2)
+        # D[t,τ] = Π_{τ<s<t} w_s: w_s for s < t, 1 elsewhere, multiplied
+        # from s = t-1 down to τ+1
+        t_idx = torch.arange(n, device=r.device)
+        below = (t_idx[None, :] < t_idx[:, None])[..., None]  # [t,s,1]
+        x = torch.where(below, wc[:, :, None], 1.0)         # [B,H,t,s,hs]
+        x = torch.cat([x[:, :, :, 1:], torch.ones_like(x[:, :, :, :1])], 3)
+        d = torch.cumprod(x.flip(3), dim=3).flip(3)         # [B,H,t,τ,hs]
+        A = torch.einsum("bhti,bhsi,bhtsi->bhts", rc, kc, d)
+        A = torch.where(t_idx[None, :] < t_idx[:, None], A, 0.0)
+        A = A + torch.diag_embed(torch.einsum("bhti,hi->bht", rc * kc, uf))
+        y = torch.einsum("bhti,bhij->bhtj", rd, s) + A @ vc
+        s = incl[:, :, -1, :, None] * s + torch.einsum("bhti,bhtj->bhij",
+                                                       kd, vc)
+        ys.append(y.transpose(1, 2))
+    return torch.cat(ys, dim=1).to(r.dtype), s

@@ -1,16 +1,18 @@
-"""B4's split-KV arithmetic and B2's bf16-P numerics against the JAX package.
+"""The split-KV arithmetic of B3 and B4 and B2's bf16-P numerics against
+the JAX package.
 
-Neither CUDA kernel runs on the CPU, so what each computes is modelled in
-plain PyTorch beside its plain version:
+No CUDA kernel runs on the CPU, so what each computes is modelled in plain
+PyTorch beside its plain version:
 
 * ``split_partials`` and ``combine_partials`` (``decode_attention/ref.py``)
-  are B4's split pass and combine pass, over the split geometry its wrapper
-  launches with (``decode_attention.ops.split_geometry``);
+  are the split pass and combine pass of B4, over the split geometry its
+  wrapper launches with (``decode_attention.ops.split_geometry``), and of
+  B3, over rows of a contiguous cache in splits of ``SPLIT_KEYS``;
 * ``flash_attention_ref(..., p_dtype=torch.bfloat16)`` is B2's bf16
   tensor-core kernel, which rounds the probabilities to bf16 before P·V.
 
-The same numpy inputs (from a seed) go through the JAX package's paged
-reference and its Pallas kernel in interpret mode, in f32 with the
+The same numpy inputs (from a seed) go through the JAX package's paged and
+contiguous references and its Pallas kernels in interpret mode, in f32 with the
 tolerance of ``test_torch_kernels.py`` (2e-5: the two frameworks differ
 only in the order of their sums), and through JAX's flash reference in
 bf16 with the bf16 tolerance the kernels are held to on the card
@@ -23,8 +25,12 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels.decode_attention.decode_kernel import \
+    decode_attention_pallas  # noqa: E402
 from repro.kernels.decode_attention.paged_kernel import \
     paged_decode_attention_pallas  # noqa: E402
+from repro.kernels.decode_attention.ref import \
+    decode_attention_ref as jax_decode_ref  # noqa: E402
 from repro.kernels.decode_attention.ref import \
     paged_decode_attention_ref  # noqa: E402
 from repro.kernels.flash_attention.ref import \
@@ -56,7 +62,8 @@ def _split_then_combine(q, kp, vp, table, lengths):
     ps, n = kp.shape[1], table.shape[1]
     pps, n_splits = split_geometry(ps, n)
     t = [torch.from_numpy(a) for a in (q, kp, vp, table, lengths)]
-    m, l, acc = dref.split_partials(*t, pps)
+    m, l, acc = dref.split_partials(t[0], t[1], t[2], t[4], pps * ps,
+                                    block_tables=t[3])
     assert m.shape == (q.shape[0], q.shape[1], n_splits)
     out = dref.combine_partials(m, l, acc, t[4], n * ps, pps * ps,
                                 torch.float32)
@@ -152,6 +159,82 @@ def test_combine_reads_only_live_splits():
     want3 = (acc[2, :, :3] * w[..., None]).sum(-2) / \
         (l[2, :, :3] * w).sum(-1, keepdim=True)
     torch.testing.assert_close(got3[2], want3, **TOL)
+
+
+# B3: a contiguous ring cache [B, W, Hkv, D] in splits of SPLIT_KEYS rows
+CONTIG_W = 300          # not a multiple of the split: a ragged last split
+
+
+def _contig_inputs(seed, B, Hkv, G, D, W):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Hkv * G, D)).astype(np.float32),
+            rng.standard_normal((B, W, Hkv, D)).astype(np.float32),
+            rng.standard_normal((B, W, Hkv, D)).astype(np.float32))
+
+
+def _contig_split_then_combine(q, k, v, lengths):
+    """B3's two passes, in plain PyTorch, over the wrapper's geometry."""
+    W = k.shape[1]
+    t = [torch.from_numpy(np.ascontiguousarray(a))
+         for a in (q, k, v, lengths)]
+    m, l, acc = dref.split_partials(*t, SPLIT_KEYS)
+    assert m.shape == (q.shape[0], q.shape[1], -(-W // SPLIT_KEYS))
+    return dref.combine_partials(m, l, acc, t[3], W, SPLIT_KEYS,
+                                 torch.float32).numpy(), m
+
+
+def _contig_lengths(W):
+    """One key, one short of a split, on its edge, one past it, all W."""
+    return np.array([1, SPLIT_KEYS - 1, SPLIT_KEYS, SPLIT_KEYS + 1, W],
+                    np.int32)
+
+
+@pytest.mark.parametrize("hkv,g,d", [(2, 3, 32), (1, 3, 128), (2, 1, 64),
+                                     (1, 8, 32)])
+def test_contiguous_split_then_combine_matches_jax_ref(hkv, g, d):
+    """B3's split pass + combine pass at lengths 1, 127, 128, 129 and W,
+    one per sequence, == the JAX contiguous reference with each sequence's
+    own valid mask; the later splits of the short rows are empty (NaN
+    partials) and the output has no NaN."""
+    lengths = _contig_lengths(CONTIG_W)
+    q, k, v = _contig_inputs(d + g, len(lengths), hkv, g, d, CONTIG_W)
+    got, m = _contig_split_then_combine(q, k, v, lengths)
+    assert torch.isnan(m).any() and np.isfinite(got).all()
+    for b, n in enumerate(lengths):
+        want = jax_decode_ref(jnp.asarray(q[b:b + 1]), jnp.asarray(k[b:b + 1]),
+                              jnp.asarray(v[b:b + 1]),
+                              jnp.arange(CONTIG_W) < n)
+        np.testing.assert_allclose(got[b:b + 1], np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("length", list(_contig_lengths(CONTIG_W)))
+def test_contiguous_split_then_combine_matches_pallas(length):
+    """Every sequence at one length (the TPU kernel takes one valid mask
+    for the batch) == ``decode_attention_pallas`` in interpret mode."""
+    q, k, v = _contig_inputs(int(length), 2, 2, 3, 32, CONTIG_W)
+    lengths = np.full(2, length, np.int32)
+    got, _ = _contig_split_then_combine(q, k, v, lengths)
+    want = decode_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v),
+                                   jnp.arange(CONTIG_W) < length,
+                                   interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+def test_contiguous_split_reads_a_strided_view():
+    """A slot-subset view of a [L, B, W, Hkv, D] cache (what the engine
+    hands B3) gives what its contiguous copy gives, bit for bit."""
+    big = _contig_inputs(5, 6, 2, 3, 32, CONTIG_W)[1]
+    q = _contig_inputs(6, 3, 2, 3, 32, 1)[0]
+    lengths = np.array([1, 129, CONTIG_W], np.int32)
+    view = torch.from_numpy(big)[1::2]
+    assert not view.is_contiguous()
+    tq, tl = torch.from_numpy(q), torch.from_numpy(lengths)
+    got = dref.split_partials(tq, view, view, tl, SPLIT_KEYS)
+    want = dref.split_partials(tq, view.contiguous(), view.contiguous(), tl,
+                               SPLIT_KEYS)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
 
 
 @pytest.mark.parametrize("hkv,window", [(1, None), (2, None), (1, 100)])

@@ -8,9 +8,9 @@ JAX nor the JAX package, so it runs on a machine with only PyTorch:
 
 Tolerances: bf16 rounds the output once on each side, so the two may land
 one bf16 ulp apart (2^-8 relative); f32 differs only in summation order.
-B10 (the WKV6 recurrence) is held to the same tolerances: its f32 state
-update is contracted to an FMA, about one f32 ulp per step over these
-short sequences.  The quantization kernels B5–B9 have no tolerance: integer, byte and fp8
+B10 (the WKV6 recurrence, both its kernels) is held to the same
+tolerances: its f32 state updates are contracted to FMAs and summed in
+another order, about one f32 ulp per step over these short sequences.  The quantization kernels B5–B9 have no tolerance: integer, byte and fp8
 outputs, B5's f32 abs-max and B9's single rounding must be bitwise equal
 to the plain versions.  The shapes are small and ragged on purpose (odd
 lengths, partial tiles, a hidden width with no 16-byte vector path, a
@@ -115,6 +115,20 @@ def test_decode_kernel(cuda, dtype, tol, d, g):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("d,hkv,g", [(128, 8, 3), (64, 2, 1), (32, 1, 8)])
+def test_decode_split_boundaries(cuda, dtype, tol, d, hkv, g):
+    """B3's split pass + combine pass (128 rows a split) at lengths 1, 127,
+    128, 129 and W = 300 (a ragged last split), so the short rows' later
+    splits are empty."""
+    rnd = _rand(cuda, dtype, seed=d + g)
+    q, k, v = rnd(5, hkv * g, d), rnd(5, 300, hkv, d), rnd(5, 300, hkv, d)
+    lens = _i32(cuda, [1, 127, 128, 129, 300])
+    _close(dops.decode_attention_cuda(q, k, v, lens),
+           dref.decode_attention_ref(q, k, v, lens), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("ps", [16, 5])
 def test_paged_decode_kernel(cuda, dtype, tol, ps):
     rnd = _rand(cuda, dtype, seed=ps)
@@ -150,14 +164,20 @@ def test_paged_decode_split_boundaries(cuda, dtype, tol, ps, d, hkv, g):
                dref.paged_decode_attention_ref(q, kp, vp, bt, lens), tol)
 
 
-def _wkv6_inputs(dev, dtype, b, s, h, hs, seed=0):
+def _wkv6_inputs(dev, dtype, b, s, h, hs, seed=0, strong=False):
+    """w from U(0.8, 0.999), or (``strong``) from U(0, 0.2) with a quarter
+    of them exactly 0."""
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def rnd(*shape, scale=0.5):
         return scale * torch.randn(shape, generator=g, device=dev)
     r, k, v = (rnd(b, s, h, hs).to(dtype) for _ in range(3))
-    w = (0.8 + 0.199 * torch.rand((b, s, h, hs), generator=g,
-                                  device=dev)).to(dtype)
+    u01 = torch.rand((b, s, h, hs), generator=g, device=dev)
+    if strong:
+        w = torch.where(torch.rand(u01.shape, generator=g, device=dev) < 0.25,
+                        0.0, 0.2 * u01).to(dtype)
+    else:
+        w = (0.8 + 0.199 * u01).to(dtype)
     return r, k, v, w, rnd(h, hs, scale=0.3), rnd(b, h, hs, hs, scale=0.1)
 
 
@@ -166,15 +186,44 @@ def _wkv6_inputs(dev, dtype, b, s, h, hs, seed=0):
 @pytest.mark.parametrize("b,s,h,hs", [(2, 77, 3, 64), (1, 1, 4, 32),
                                       (3, 40, 1, 16), (4, 1, 64, 64)])
 def test_wkv6_kernel(cuda, dtype, tol, b, s, h, hs):
-    """B10 against the plain version: y and the final state, from a
-    non-zero initial state, any S (77 is not a multiple of the kernel's
-    32-step staging), decode (S = 1); then in place over the state."""
+    """B10 (the wrapper's pick: per-step at S = 1, chunked above) against
+    the plain version: y and the final state, from a non-zero initial
+    state, any S (77 is a multiple of neither chunk size), decode (S = 1);
+    then in place over the state."""
     r, k, v, w, u, st = _wkv6_inputs(cuda, dtype, b, s, h, hs, seed=s)
     want_y, want_s = wref.wkv6_ref(r, k, v, w, u, st)
     y, s_out = wops.wkv6_cuda(r, k, v, w, u, st)
     _close(y, want_y, tol)
     _close(s_out, want_s, 1e-4)
     y, s_out = wops.wkv6_cuda(r, k, v, w, u, st, state_out=st)
+    assert s_out is st
+    _close(y, want_y, tol)
+    _close(st, want_s, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("strong", [False, True], ids=["w0.8", "strong"])
+@pytest.mark.parametrize("chunk,s", [(0, 17), (0, 200), (16, 1), (16, 15),
+                                     (16, 16), (16, 17), (16, 31), (16, 32),
+                                     (16, 33), (16, 200)])
+@pytest.mark.parametrize("hs", [64, 16])
+def test_wkv6_kernels_across_chunk_edges(cuda, dtype, tol, hs, chunk, s,
+                                         strong):
+    """Each B10 kernel, forced (chunk 0: per-step; 16: chunked), against
+    the plain version across the chunk edges (S = C-1, C, C+1, 2C-1, 2C,
+    2C+1, a ragged 200) and with strong decays that hold exact zeros; then
+    with ``state_out=state``, which S > C makes the chunked kernel carry
+    over several chunks before it writes."""
+    r, k, v, w, u, st = _wkv6_inputs(cuda, dtype, 1, s, 2, hs, seed=s + hs,
+                                     strong=strong)
+    if strong:
+        assert bool((w == 0).any())
+    want_y, want_s = wref.wkv6_ref(r, k, v, w, u, st)
+    y, s_out = wops.wkv6_cuda(r, k, v, w, u, st, chunk=chunk)
+    _close(y, want_y, tol)
+    _close(s_out, want_s, 1e-4)
+    y, s_out = wops.wkv6_cuda(r, k, v, w, u, st, state_out=st, chunk=chunk)
     assert s_out is st
     _close(y, want_y, tol)
     _close(st, want_s, 1e-4)
@@ -263,6 +312,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         with pytest.raises(ValueError, match="16-byte"):
             dops.paged_decode_attention_cuda(rnd(1, 2, 32), pool, pool, bt,
                                              lens)
+    # B3 loads 16 bytes a lane too: a cache view off a 16-byte boundary,
+    # or with a head stride that is not a multiple of 16 bytes
+    lens = _i32(cuda, [5])
+    shifted = rnd(1 + 8 * 2 * 32)[1:].view(1, 8, 2, 32)
+    padded = rnd(1, 8, 2, 33)[..., :32]
+    for cache in (shifted, padded):
+        with pytest.raises(ValueError, match="16-byte"):
+            dops.decode_attention_cuda(rnd(1, 2, 32), cache, cache, lens)
     with pytest.raises(TypeError):
         qops.chunk_amax_cuda(x.half())
     with pytest.raises(ValueError, match="scales"):
@@ -283,6 +340,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         wops.wkv6_cuda(r, k.transpose(1, 2).contiguous().transpose(1, 2),
                        v, w, u, st)
+    with pytest.raises(ValueError, match="chunk"):
+        wops.wkv6_cuda(r, k, v, w, u, st, chunk=8)
+    # the chunked kernel copies 16 bytes a lane: r off a 16-byte boundary
+    r1 = rnd(1 + r.numel())[1:].view(r.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        wops.wkv6_cuda(r1, k, v, w, u, st, chunk=16)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
