@@ -6,18 +6,21 @@
 Phases:
   1. the card's name and power limit, and the kernels' build time;
   2. each hand-written kernel (B1 RMSNorm, B2 flash prefill, B3 contiguous
-     and B4 paged flash-decode, B5–B9 the quantized all-reduce's amax,
-     quantize, nibble pack/unpack and dequantize, B10 the RWKV-6 WKV
-     recurrence) against its plain PyTorch version at the main paths'
-     shapes, in bf16 and f32 — B1–B4 and B10 within the tolerance stated,
-     B5–B9 bit for bit; times of the kernel, the plain version and one
+     and B4 paged flash-decode, B5, B6, B9 the quantized all-reduce's
+     amax, quantize and dequantize, the int4 wire's three fused passes
+     that hold B7 nibble pack and B8 unpack, B10 the RWKV-6 WKV recurrence)
+     against its plain PyTorch version at the main paths' shapes, in bf16
+     and f32 — B1–B4 and B10 within the tolerance stated, the quantization
+     kernels bit for bit; times of the kernel, the plain version and one
      library call computing the same function (where one exists), beside
-     the card's bound for the work;
+     the card's bound for the work (and the launch floor for the
+     quantization kernels);
   3. the serving path at the full width of llama32-3b (random weights from
      a seed, made on the card): InferenceEngine.generate, the contiguous
      Scheduler and the paged Scheduler with chunked prefill, one decode
      step's time breakdown and one 333-token prefill pass's (B2's share);
-  4. the kernel path against the plain path on the whole model;
+  4. the kernel path against the plain path on the whole model, beside a
+     yardstick: the plain path with f64 attention against the plain path;
   5. the explicit tensor-parallel engine at t = 4 virtual ranks, full
      width: (a) the comm log of a prefill and a decode step equals
      commodel.comm_ops_for in every quant mode (and unquantized at t = 2),
@@ -29,7 +32,7 @@ Phases:
      (d) quantized_psum with kernels == with plain versions, bit for bit
      (run before (c)),
      (e) every run's launches equal their formula; one TP decode step's
-     time breakdown (int8 and unquantized);
+     time breakdown (unquantized, int8 and int4);
   6. the RWKV-6 path at the full width of rwkv6-7b (random weights from a
      seed, made on the card after llama32-3b's are freed): (a) the engine,
      (b) the contiguous Scheduler over the trace, every logit finite,
@@ -419,9 +422,15 @@ def bitwise(name, got, want) -> float:
 
 
 def quant_kernel_phase(dev, iters: int):
-    """B5–B9 against their plain versions, bit for bit, at the decode
-    shape (and a ragged h = 160, chunk = 64), bf16 and f32 inputs, in the
-    int8, fp8 and int4 modes at t = 4; times at the decode shape in bf16."""
+    """B5, B6 and B9 (int8, fp8) and the int4 wire's three fused kernels
+    (chunk_quantize_pack = B6 + B7, nibble_reduce_requant = B8 + exact sum
+    + requantize + B7, nibble_unpack_dequantize = B8 + B9) against their
+    plain versions, bit for bit, at the decode shape, a ragged h = 160,
+    chunk = 64 and an odd chunk (pairs straddle two scales), bf16 and f32
+    inputs, at t = 4: the fused kernels on t ranks' rows through the comm
+    layer's all-to-all and all-gather, as ``quantized_psum`` runs them.
+    Times at the decode shape in bf16, beside the launch floor."""
+    from repro_torch.core import comm
     from repro_torch.kernels.quant_collective import ops as qops
     from repro_torch.kernels.quant_collective import ref as qref
 
@@ -429,38 +438,62 @@ def quant_kernel_phase(dev, iters: int):
     rows = {}
     for dt in (torch.bfloat16, torch.float32):
         dname = str(dt).replace("torch.", "")
-        log(f"[kernels] B5-B9 {dname}")
-        for shape, chunk in ((QDECODE, QCHUNK), ((3, 160), 64)):
-            x = (3 * torch.randn(shape, generator=g, device=dev)).to(dt)
+        log(f"[kernels] B5, B6, B9, int4 fused {dname}")
+        for shape, chunk in ((QDECODE, QCHUNK), ((3, 160), 64),
+                             ((2, 200), 25)):
+            xs = [(3 * torch.randn(shape, generator=g, device=dev)).to(dt)
+                  for _ in range(TP)]
+            x = xs[0]
             where = f"x{list(shape)} chunk {chunk}"
             amax = qops.chunk_amax_cuda(x, chunk)
             bitwise(f"B5 chunk_amax {where}", amax,
                     qref.chunk_amax_ref(x, chunk))
-            for quant in ("int8", "fp8", "int4"):
+            for quant in ("int8", "fp8"):
                 scales = qops.scales_from_amax(
                     amax, qops.collective_qmax(quant, TP))
                 qdt = qops.QUANT_DTYPES[quant]
                 q = qops.chunk_quantize_cuda(x, scales, chunk, qdt)
                 bitwise(f"B6 chunk_quantize {quant} {where}", q,
                         qref.chunk_quantize_ref(x, scales, chunk, qdt))
-                if quant == "int4":
-                    packed = qops.nibble_pack_cuda(q)
-                    bitwise(f"B7 nibble_pack {where}", packed,
-                            qref.nibble_pack_ref(q))
-                    bitwise(f"B8 nibble_unpack {where}",
-                            qops.nibble_unpack_cuda(packed),
-                            qref.nibble_unpack_ref(packed))
                 bitwise(f"B9 chunk_dequantize {quant} {where}",
                         qops.chunk_dequantize_cuda(q, scales, chunk, dt),
                         qref.chunk_dequantize_ref(q, scales, chunk, dt))
+            # the int4 wire on t ranks, shared scales as quantized_psum
+            # makes them
+            group = comm.VirtualGroup(TP)
+            scales = qops.scales_from_amax(
+                group.all_reduce([qops.chunk_amax_cuda(a, chunk)
+                                  for a in xs], op="max"),
+                qops.collective_qmax("int4", TP))
+            packed = []
+            for r, a in enumerate(xs):
+                packed.append(qops.chunk_quantize_pack_cuda(a, scales, chunk))
+                bitwise(f"chunk_quantize_pack rank {r} {where}", packed[-1],
+                        qref.chunk_quantize_pack_ref(a, scales, chunk))
+            reduced = []
+            for r, p in enumerate(group.all_to_all(packed, values_per_item=2)):
+                reduced.append(qops.nibble_reduce_requant_cuda(p, TP))
+                bitwise(f"nibble_reduce_requant rank {r} {where}",
+                        reduced[-1], qref.nibble_reduce_requant_ref(p, TP))
+            gathered = group.all_gather(reduced, values_per_item=2)
+            st = scales * TP
+            bitwise(f"nibble_unpack_dequantize {where}",
+                    qops.nibble_unpack_dequantize_cuda(gathered, st, chunk,
+                                                       dt),
+                    qref.nibble_unpack_dequantize_ref(gathered, st, chunk,
+                                                      dt))
         rws, h = QDECODE
         shapes = {
             "chunk_amax": f"x[{rws},{h}] {dname}, chunk {QCHUNK}",
             "chunk_quantize": f"x[{rws},{h}] {dname} -> int8, chunk {QCHUNK}",
-            "nibble_pack": f"q[{rws},{h}] int8 -> uint8[{rws},{h // 2}]",
-            "nibble_unpack": f"b[{rws},{h // 2}] uint8 -> int8[{rws},{h}]",
             "chunk_dequantize": f"q[{rws},{h}] int8 -> {dname}, chunk "
-                                f"{QCHUNK}"}
+                                f"{QCHUNK}",
+            "chunk_quantize_pack": f"x[{rws},{h}] {dname} -> uint8"
+                                   f"[{rws},{h // 2}], chunk {QCHUNK}",
+            "nibble_reduce_requant": f"uint8[{rws},{h // 2}] (t={TP} blocks)"
+                                     f" -> uint8[{rws},{h // (2 * TP)}]",
+            "nibble_unpack_dequantize": f"uint8[{rws},{h // 2}] -> {dname}"
+                                        f"[{rws},{h}], chunk {QCHUNK}"}
         for name, shape in shapes.items():
             rows.setdefault(name, {})[dname] = dict(err=0.0, shape=shape)
     torch.cuda.synchronize()
@@ -473,10 +506,17 @@ def quant_kernel_phase(dev, iters: int):
     s8 = qops.scales_from_amax(amax, qops.collective_qmax("int8", TP))
     s4 = qops.scales_from_amax(amax, qops.collective_qmax("int4", TP))
     q8 = qops.chunk_quantize_cuda(x, s8, QCHUNK, torch.int8)
-    q4 = qops.chunk_quantize_cuda(x, s4, QCHUNK, torch.int8)
-    packed = qops.nibble_pack_cuda(q4)
+    packed = qops.chunk_quantize_pack_cuda(x, s4, QCHUNK)
+    # one rank's all-to-all row: t source blocks of this rank's packed block
+    received = comm.VirtualGroup(TP).all_to_all(
+        [qops.chunk_quantize_pack_cuda(
+            (3 * torch.randn(QDECODE, generator=g, device=dev)).to(
+                torch.bfloat16), s4, QCHUNK) for _ in range(TP)],
+        values_per_item=2)[0]
     bf16 = torch.bfloat16
-    # name: (kernel, plain, args, bytes moved, operations, library call)
+    # name: (kernel, plain, args, bytes moved, operations, library call);
+    # bytes: each input read once, each output written once; operations:
+    # the f32 / integer element-wise work the function needs
     specs = {
         "chunk_amax": (
             lambda a: qops.chunk_amax_cuda(a, QCHUNK),
@@ -488,27 +528,47 @@ def quant_kernel_phase(dev, iters: int):
             lambda a, s: qops.chunk_quantize_cuda(a, s, QCHUNK, torch.int8),
             lambda a, s: qref.chunk_quantize_ref(a, s, QCHUNK, torch.int8),
             (x, s8), 2 * n + 4 * rws * K + n, 3 * n, None),
-        "nibble_pack": (qops.nibble_pack_cuda, qref.nibble_pack_ref, (q4,),
-                        n + n // 2, 2 * n, None),
-        "nibble_unpack": (qops.nibble_unpack_cuda, qref.nibble_unpack_ref,
-                          (packed,), n // 2 + n, 2 * n, None),
         "chunk_dequantize": (
             lambda q, s: qops.chunk_dequantize_cuda(q, s, QCHUNK, bf16),
             lambda q, s: qref.chunk_dequantize_ref(q, s, QCHUNK, bf16),
             (q8, s8), n + 4 * rws * K + 2 * n, n, None),
+        # divide, round, clip per element; mask and shift-or per element
+        "chunk_quantize_pack": (
+            lambda a, s: qops.chunk_quantize_pack_cuda(a, s, QCHUNK),
+            lambda a, s: qref.chunk_quantize_pack_ref(a, s, QCHUNK),
+            (x, s4), 2 * n + 4 * rws * K + n // 2, 5 * n, None),
+        # sign-extend and add per received value; divide, round, clip and
+        # pack per reduced value
+        "nibble_reduce_requant": (
+            lambda p: qops.nibble_reduce_requant_cuda(p, TP),
+            lambda p: qref.nibble_reduce_requant_ref(p, TP), (received,),
+            n // 2 + n // (2 * TP), 2 * n + 5 * n // TP, None),
+        # sign-extend and multiply per value
+        "nibble_unpack_dequantize": (
+            lambda b, s: qops.nibble_unpack_dequantize_cuda(b, s, QCHUNK,
+                                                            bf16),
+            lambda b, s: qref.nibble_unpack_dequantize_ref(b, s, QCHUNK,
+                                                           bf16),
+            (packed, s4 * TP), n // 2 + 4 * rws * K + 2 * n, 2 * n, None),
     }
+    # the launch floor: the emptiest kernel, torch.cuda._sleep(0), timed
+    # as a kernel is; no kernel goes below it, whatever its bytes bound says
+    floor = bench(lambda: torch.cuda._sleep(0), [()], iters)
+    log(f"  time launch floor (torch.cuda._sleep(0))  {floor:.6f} ms")
     out = {}
     for name, (kernel, plain, args, nbytes, ops, library) in specs.items():
         sets = copies(args, nbytes)
         t = dict(kernel=bench(kernel, sets, iters),
                  plain=bench(plain, sets, iters),
-                 library=bench(library, sets, iters) if library else None)
+                 library=bench(library, sets, iters) if library else None,
+                 floor=floor)
         t["bound"], t["by"] = bound_ms(nbytes, ops, "float32")
         out[name] = {"bfloat16": t}
         lib = f"{t['library']:.4f} ms" if library else "none (no one call)"
-        log(f"  time {name:<24s} bfloat16 kernel {t['kernel']:.4f} ms  "
+        log(f"  time {name:<24s} bfloat16 kernel {t['kernel']:.6f} ms  "
             f"plain {t['plain']:.4f} ms  library {lib}  bound "
-            f"{t['bound']:.6f} ms ({t['by']})  [{rows[name]['bfloat16']['shape']}]")
+            f"{t['bound']:.6f} ms ({t['by']})  launch floor {floor:.6f} ms  "
+            f"[{rows[name]['bfloat16']['shape']}]")
     return rows, out
 
 
@@ -687,19 +747,19 @@ def expect_launches(what, counts, L, passes, flash, decode, paged, t=1,
     the TP group at any t), one B2 per layer and rank of every prefill
     pass, one B3/B4 per layer and rank of every decode step, one B10 per
     layer of every RWKV-6 pass (``scan`` passes).  Each of the 2L layer
-    all-reduces of a quantized decode step adds one B5 and one B6 per rank
-    and one B9; int4 adds two B7 per rank (pack before the all-to-all and
-    after the requantize) and t + 1 B8 (one per rank after the all-to-all,
-    one after the gather)."""
+    all-reduces of a quantized decode step adds one B5 per rank; int8 and
+    fp8 then one B6 per rank and one B9; int4 one chunk_quantize_pack
+    (B6 + B7) and one nibble_reduce_requant (B8 + B7) per rank and one
+    nibble_unpack_dequantize (B8 + B9)."""
     ar = 2 * L * quant_steps if quant else 0
-    int4 = quant == "int4"
+    int4, int8 = (ar, 0) if quant == "int4" else (0, ar)
     want = {"rmsnorm": (2 * L + 1) * passes, "flash_attention": L * t * flash,
             "decode_attention": L * t * decode,
             "paged_decode_attention": L * t * paged,
-            "chunk_amax": ar * t, "chunk_quantize": ar * t,
-            "nibble_pack": 2 * ar * t if int4 else 0,
-            "nibble_unpack": ar * (t + 1) if int4 else 0,
-            "chunk_dequantize": ar, "wkv6": L * scan}
+            "chunk_amax": ar * t, "chunk_quantize": int8 * t,
+            "chunk_dequantize": int8, "chunk_quantize_pack": int4 * t,
+            "nibble_reduce_requant": int4 * t,
+            "nibble_unpack_dequantize": int4, "wkv6": L * scan}
     log(f"  launches {what}: {counts}")
     if counts != want:
         raise AssertionError(f"{what}: launches {counts} != expected {want}")
@@ -971,10 +1031,26 @@ def hold(what, got, ref, floor: float, ceiling: float) -> None:
         raise AssertionError(f"{what}: drifted past its tolerance")
 
 
+def gqa_attention_exact(q, k, v, mask):
+    """``layers.gqa_attention`` in f64 (scores, softmax, P·V), rounded once
+    to the input type: the yardstick of how far an attention more exact
+    than the plain path's (which rounds scores and probabilities to bf16)
+    moves the bf16 model."""
+    from repro_torch.models.layers import NEG_INF
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qg = q.double().reshape(B, S, Hkv, Hq // Hkv, D)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k.double()) / D ** 0.5
+    probs = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.double())
+    return out.reshape(B, S, Hq, D).to(q.dtype)
+
+
 def model_compare_phase(dev, params):
     """Returns (prompt, the kernel path's contiguous teacher-forced
     logits), which the TP phase holds its engine to."""
     from repro_torch.configs import get_config
+    from repro_torch.models import blocks
     from repro_torch.models.transformer import get_model
     from repro_torch.runtime.engine import InferenceEngine
 
@@ -982,6 +1058,19 @@ def model_compare_phase(dev, params):
     prompt = torch.randint(2, cfg.vocab_size, (1, FORCED),
                            generator=torch.Generator().manual_seed(2)).to(dev)
     ref = teacher_forced(get_model(cfg, plain=True), params, prompt, False)
+    # the yardstick (logged, holds nothing): the plain path with f64
+    # attention against the plain path
+    plain_attention = blocks.gqa_attention
+    blocks.gqa_attention = gqa_attention_exact
+    try:
+        exact = teacher_forced(get_model(cfg, plain=True), params, prompt,
+                               False)
+    finally:
+        blocks.gqa_attention = plain_attention
+    match, drift = agreement(exact, ref)
+    log(f"[compare] bf16 {ARCH} plain path with f64 attention vs plain (the "
+        f"yardstick), {ref.shape[0]} teacher-forced positions: top-1 match "
+        f"{match:.4f}, max logit drift {drift:.4f}")
     kernel_rows = None
     for paged in (False, True):
         got = teacher_forced(get_model(cfg), params, prompt, paged)
@@ -1199,7 +1288,7 @@ def tp_phase(dev, smi, params, prompt, kernel_rows):
                              "single-device path")
     del p32
 
-    for quant in (None, "int8"):
+    for quant in (None, "int8", "int4"):
         decode_breakdown(dev, TPModel(cfg, TP, quant=quant), shards, smi,
                          f"t={TP} {quant or 'unquantized'}")
     return totals
@@ -1378,14 +1467,28 @@ REPLACES = {
     "paged_decode_attention": (
         "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/paged_kernel.py:70"),
+    # the int4 wire's fused kernels stand for B7 (nibble_pack_pallas, :113)
+    # and B8 (nibble_unpack_pallas, :141); FUSES names all they cover
     **{name: ("src/repro_torch/kernels/quant_collective/csrc/"
               "quant_collective.cu",
               f"src/repro/kernels/quant_collective/quant_kernel.py:{line}")
        for name, line in (("chunk_amax", 44), ("chunk_quantize", 75),
-                          ("nibble_pack", 113), ("nibble_unpack", 141),
-                          ("chunk_dequantize", 167))},
+                          ("chunk_dequantize", 167),
+                          ("chunk_quantize_pack", 113),
+                          ("nibble_reduce_requant", 141),
+                          ("nibble_unpack_dequantize", 141))},
     "wkv6": ("src/repro_torch/kernels/rwkv6_scan/csrc/wkv6.cu",
              "src/repro/kernels/rwkv6_scan/wkv6_kernel.py:55"),
+}
+
+
+_QK = "src/repro/kernels/quant_collective/quant_kernel.py"
+FUSES = {
+    "chunk_quantize_pack": [f"{_QK}:75", f"{_QK}:113"],
+    "nibble_reduce_requant": [f"{_QK}:141",
+                              "src/repro/core/parallel_exec.py:176",
+                              f"{_QK}:113"],
+    "nibble_unpack_dequantize": [f"{_QK}:141", f"{_QK}:167"],
 }
 
 
@@ -1444,7 +1547,9 @@ def main(argv=None) -> int:
             max_abs_err=max(rows[name][d]["err"] for d in rows[name]),
             ms=t["kernel"], kernel_ms=t["kernel"], plain_ms=t["plain"],
             bound_ms=t["bound"], bound_by=t["by"], library_ms=t["library"],
-            shape=rows[name]["bfloat16"]["shape"], dtype="bfloat16"))
+            shape=rows[name]["bfloat16"]["shape"], dtype="bfloat16",
+            **({"launch_floor_ms": t["floor"]} if "floor" in t else {}),
+            **({"fuses": FUSES[name]} if name in FUSES else {})))
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the main path")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -53,8 +53,8 @@ _WIRE_FACTOR = {
 # scales travel as f32.  fp8 is modeled at its nominal 1-byte width — real
 # accelerator wire bytes; host-CPU XLA upcasts the f8 payload to f16 on the
 # wire, which the HLO-parity tests gate per-platform.  int4 ships two
-# values per uint8 byte (``kernels.quant_collective.nibble_pack``), hence
-# the half-byte wire width.
+# values per uint8 byte (``kernels.quant_collective.chunk_quantize_pack``),
+# hence the half-byte wire width.
 QUANT_WIRE_BYTES = {"int8": 1, "fp8": 1, "int4": 0.5}
 QUANT_SCALE_BYTES = 4
 DEFAULT_QUANT_CHUNK = 128

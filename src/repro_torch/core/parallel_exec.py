@@ -44,14 +44,10 @@ from repro_torch.config.base import ModelConfig
 from repro_torch.core.comm import VirtualGroup
 from repro_torch.core.commodel import DEFAULT_QUANT_CHUNK
 from repro_torch.kernels.quant_collective import ref as qref
-from repro_torch.kernels.quant_collective.ops import (QUANT_DTYPES,
-                                                      chunk_amax,
-                                                      chunk_dequantize,
-                                                      chunk_quantize,
-                                                      collective_qmax,
-                                                      nibble_pack,
-                                                      nibble_unpack,
-                                                      scales_from_amax)
+from repro_torch.kernels.quant_collective.ops import (
+    QUANT_DTYPES, chunk_amax, chunk_dequantize, chunk_quantize,
+    chunk_quantize_pack, collective_qmax, nibble_reduce_requant,
+    nibble_unpack_dequantize, scales_from_amax)
 from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
 from repro_torch.models.blocks import attention_apply
 from repro_torch.models.layers import (decode_positions, mlp_apply,
@@ -132,13 +128,16 @@ def _vocab_parallel_embed(embeds, tokens, group: VirtualGroup):
 
 _KERNEL_OPS = types.SimpleNamespace(
     amax=chunk_amax, quantize=chunk_quantize, dequantize=chunk_dequantize,
-    pack=nibble_pack, unpack=nibble_unpack)
+    quantize_pack=chunk_quantize_pack, reduce_requant=nibble_reduce_requant,
+    unpack_dequantize=nibble_unpack_dequantize)
 _PLAIN_OPS = types.SimpleNamespace(
     amax=qref.chunk_amax_ref,
     quantize=lambda x, s, chunk, quant: qref.chunk_quantize_ref(
         x, s, chunk, QUANT_DTYPES[quant]),
     dequantize=qref.chunk_dequantize_ref,
-    pack=qref.nibble_pack_ref, unpack=qref.nibble_unpack_ref)
+    quantize_pack=qref.chunk_quantize_pack_ref,
+    reduce_requant=qref.nibble_reduce_requant_ref,
+    unpack_dequantize=qref.nibble_unpack_dequantize_ref)
 
 
 def _check_quant(quant):
@@ -154,18 +153,18 @@ def quantized_psum(xs, group: VirtualGroup, quant: str = "int8",
 
       1. per-chunk abs-max on every rank (B5), all-reduced with max — the
          shared scales, with ``collective_qmax`` headroom;
-      2. quantize on every rank (B6) onto the shared scales;
-      3. int8 / fp8: reduce-scatter of the 1-byte payload (the int8 sum is
-         exact by the headroom), all-gather of the reduced blocks;
-         int4: pack on every rank (B7), all-to-all of the nibbles, unpack
-         on every rank (B8), an exact int32 sum of the t copies of the
-         rank's block, requantize by t (plain torch, as in JAX), pack
-         again (B7), all-gather; unpack once (B8);
-      4. dequantize once (B9) with the shared scales (times t for int4),
-         back to the inputs' dtype.
+      2. int8 / fp8: quantize on every rank (B6) onto the shared scales,
+         reduce-scatter of the 1-byte payload (the int8 sum is exact by
+         the headroom), all-gather of the reduced blocks, dequantize once
+         (B9) back to the inputs' dtype;
+      3. int4, three fused passes around the two hops: quantize and pack
+         on every rank (B6 + B7), all-to-all of the nibbles; on every rank
+         unpack, an exact int32 sum of the t copies of the rank's block,
+         requantize by t and pack again (B8 + B7); all-gather; unpack and
+         dequantize once (B8 + B9) with the shared scales times t.
 
     ``quant=None`` or a group of one rank is the plain all-reduce.
-    ``plain=True`` runs the plain versions of B5–B9 in place of the
+    ``plain=True`` runs the plain versions of the passes in place of the
     kernels.  Returns the one tensor every rank holds.
     """
     t = group.t
@@ -178,24 +177,18 @@ def quantized_psum(xs, group: VirtualGroup, quant: str = "int8",
     ops = _PLAIN_OPS if plain else _KERNEL_OPS
     amax = group.all_reduce([ops.amax(x, chunk) for x in xs], op="max")
     scales = scales_from_amax(amax, collective_qmax(quant, t))
-    qs = [ops.quantize(x, scales, chunk, quant) for x in xs]
     if quant == "int4":
         if h % (2 * t):
             raise ValueError(f"int4 packs two values per byte and ships "
                              f"h/t-element blocks: h={h} must divide 2t="
                              f"{2 * t}")
-        lead = xs[0].shape[:-1]
-        received = group.all_to_all([ops.pack(q) for q in qs],
-                                    values_per_item=2)
-        reduced = []
-        for packed in received:          # t source copies of the rank's block
-            r = ops.unpack(packed).to(torch.int32).reshape(
-                *lead, t, h // t).sum(dim=-2)            # exact: |r| <= 7t
-            rq = torch.clamp(torch.round(r.float() / t), -7, 7)
-            reduced.append(ops.pack(rq.to(torch.int8)))
+        packed = [ops.quantize_pack(x, scales, chunk) for x in xs]
+        received = group.all_to_all(packed, values_per_item=2)
+        reduced = [ops.reduce_requant(p, t) for p in received]
         gathered = group.all_gather(reduced, values_per_item=2)
-        return ops.dequantize(ops.unpack(gathered), scales * t, chunk,
-                              xs[0].dtype)
+        return ops.unpack_dequantize(gathered, scales * t, chunk,
+                                     xs[0].dtype)
+    qs = [ops.quantize(x, scales, chunk, quant) for x in xs]
     gathered = group.all_gather(group.reduce_scatter(qs))
     return ops.dequantize(gathered, scales, chunk, xs[0].dtype)
 

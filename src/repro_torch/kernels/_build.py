@@ -53,8 +53,9 @@ SIGNATURES = {
     "repro_chunk_amax": [_P, _P, _LL, _I, _I, _I, _P],
     "repro_chunk_quantize": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
     "repro_chunk_dequantize": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
-    "repro_nibble_pack": [_P, _P, _LL, _P],
-    "repro_nibble_unpack": [_P, _P, _LL, _P],
+    "repro_chunk_quantize_pack": [_P, _P, _P, _LL, _I, _I, _I, _P],
+    "repro_nibble_reduce_requant": [_P, _P, _LL, _I, _I, _P],
+    "repro_nibble_unpack_dequantize": [_P, _P, _P, _LL, _I, _I, _I, _P],
     "repro_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                    _P],
 }
@@ -62,9 +63,10 @@ SIGNATURES = {
 LAUNCHES: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
                             "decode_attention": 0,
                             "paged_decode_attention": 0, "chunk_amax": 0,
-                            "chunk_quantize": 0, "nibble_pack": 0,
-                            "nibble_unpack": 0, "chunk_dequantize": 0,
-                            "wkv6": 0}
+                            "chunk_quantize": 0, "chunk_dequantize": 0,
+                            "chunk_quantize_pack": 0,
+                            "nibble_reduce_requant": 0,
+                            "nibble_unpack_dequantize": 0, "wkv6": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()

@@ -1,33 +1,56 @@
-// B5–B9 — per-chunk collective quantization for Hopper: the five dense
-// passes of the quantized two-step all-reduce (core/parallel_exec.py ·
+// B5–B9 — per-chunk collective quantization for Hopper: the dense passes
+// of the quantized two-step all-reduce (core/parallel_exec.py ·
 // quantized_psum).
 //
 // Replaces, in src/repro/kernels/quant_collective/quant_kernel.py:
 //   B5 chunk_amax_kernel        <- chunk_amax_pallas
-//   B6 chunk_quantize_kernel    <- chunk_quantize_pallas
-//   B7 nibble_pack_kernel       <- nibble_pack_pallas
-//   B8 nibble_unpack_kernel     <- nibble_unpack_pallas
-//   B9 chunk_dequantize_kernel  <- chunk_dequantize_pallas
+//   B6 chunk_quantize_kernel    <- chunk_quantize_pallas (int8, fp8)
+//   B9 chunk_dequantize_kernel  <- chunk_dequantize_pallas (int8, fp8)
+// and, on the int4 wire, fused with the work beside them:
+//   B6 + B7 chunk_quantize_pack_kernel       <- chunk_quantize_pallas,
+//                                               nibble_pack_pallas
+//   B8 + B7 nibble_reduce_requant_kernel     <- nibble_unpack_pallas, the
+//           jnp sum / round / clip (src/repro/core/parallel_exec.py:176–180),
+//           nibble_pack_pallas
+//   B8 + B9 nibble_unpack_dequantize_kernel  <- nibble_unpack_pallas,
+//                                               chunk_dequantize_pallas
 //
 // Bound on the H100: device-memory bytes.  Each pass reads its input once
-// and writes its output once with one or two operations per element, far
-// below the card's ~295 operations per byte.  On the decode path a call
-// sees one rank's rows, [4, 3072] bf16 (24 KB): the bound is nanoseconds
-// and the launch sets the time.  So the design is plain and exact:
+// and writes its output once with a few operations per element, far below
+// the card's ~295 operations per byte.  On the decode path a call sees one
+// rank's rows, [4, 3072] bf16 (24 KB): the bound is nanoseconds and the
+// launch sets the time.  So the design is plain and exact, and the int4
+// wire, which launched B6, B7, B8, the torch ops of the sum and the
+// requantize, and B7 again on every rank, then B8 and B9 once, launches
+// three fused kernels: no int8 intermediate and no int32 sum goes through
+// device memory.
 //   * B5: one warp per (row, chunk), 16-byte loads when h and chunk are
 //     multiples of the vector width, a scalar loop otherwise (a ragged
 //     last chunk, h % chunk != 0, reads nothing past h);
 //   * B6, B9: a grid-stride loop, one element per thread per step; the
 //     scale of element j of a row is scales[row, j / chunk];
-//   * B7, B8: one packed byte per thread per step.
+//   * the three int4 passes: a 2-D grid (row steps x rows), no 64-bit
+//     index division; chunk_quantize_pack reads 16 bytes of x per thread
+//     per step (8 bf16 or 4 f32 values -> 4 or 2 packed bytes) when x is
+//     16-byte aligned and h a multiple of the vector width, one pair -> one
+//     byte otherwise; nibble_reduce_requant and nibble_unpack_dequantize
+//     take one packed byte per thread per step.  Every element uses its own
+//     chunk's scale (looked up once a step where the step lies in one
+//     chunk), so with an odd chunk a pair may straddle two scales.
 // Numerics are those of the plain versions (ref.py), bit for bit:
 //   * B5 propagates NaN (torch.amax and jnp.max do; fmaxf would drop it);
 //   * B6 divides x / scale as written (IEEE division: the library is built
 //     without --use_fast_math), rounds half to even with rintf, then clips
-//     to [-127, 127] for int8; for fp8 it clips to +-448 first and rounds
-//     once to e4m3 with __nv_cvt_float_to_fp8(..., __NV_SATFINITE, E4M3);
+//     to [-127, 127] for int8 (and for int4, whose nibble is then the low 4
+//     bits, so an out-of-grid value packs as the unfused chain packs it);
+//     for fp8 it clips to +-448 first and rounds once to e4m3 with
+//     __nv_cvt_float_to_fp8(..., __NV_SATFINITE, E4M3);
 //   * B6 takes every zero scale as 1, as the JAX package's Pallas wrapper
 //     does (quant_kernel.py:83) — its jnp reference divides by the zero;
+//   * the requantize sums the t source nibbles exactly in int32, divides by
+//     t in f32 (IEEE), rounds half to even with rintf (torch.round and
+//     jnp.round do) and clips to [-7, 7]: at t = 2, r = 1 -> 0, 3 -> 2;
+//   * a nibble n sign-extends as (n ^ 8) - 8;
 //   * B9 multiplies in f32 and rounds once to the output type.
 #include <cuda_fp8.h>
 
@@ -226,26 +249,197 @@ cudaError_t launch_dequantize(const void* q, const float* scales, void* out,
   return cudaGetLastError();
 }
 
-// ------------------------------------------------------------ B7, B8
-__global__ void __launch_bounds__(kThreads)
-nibble_pack_kernel(const int8_t* __restrict__ q, uint8_t* __restrict__ out,
-                   int64_t n_bytes) {
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       i < n_bytes; i += static_cast<int64_t>(gridDim.x) * kThreads) {
-    const int lo = q[2 * i], hi = q[2 * i + 1];
-    out[i] = static_cast<uint8_t>((lo & 0xF) | ((hi & 0xF) << 4));
+// ------------------------------------------------- int4: B6+B7, B8+B9
+// The three passes walk a 2-D grid, x over a row's steps and y over rows,
+// so no thread divides a 64-bit flat index by the row width: at the
+// decode shape a step is a few hundred cycles and such a division would
+// be a large share of it.  A step's scale is looked up once where the
+// step lies inside one chunk.
+constexpr int kRowThreads = 128;
+
+dim3 row_grid(int64_t rows, int steps) {
+  return dim3(std::min((steps + kRowThreads - 1) / kRowThreads, kMaxBlocks),
+              static_cast<unsigned>(std::min<int64_t>(rows, 65535)));
+}
+
+// the low 4 bits of B6's int8 value of x / s
+__device__ __forceinline__ uint32_t quantize_nibble(float x, float s) {
+  if (s == 0.f) s = 1.f;
+  const float v = clip(rintf(x / s), -127.f, 127.f);
+  return static_cast<uint32_t>(static_cast<int>(v)) & 0xFu;
+}
+
+// the nibble at bit ``shift`` of b, sign-extended
+__device__ __forceinline__ int nibble_value(uint32_t b, int shift) {
+  return static_cast<int>(((b >> shift) & 0xFu) ^ 8u) - 8;
+}
+
+// a step: kPer elements (16 bytes of T, or one pair) -> kPer / 2 packed
+// bytes; element 2i in the low nibble of byte i, 2i + 1 in the high one
+template <typename T, bool kVector, bool kOneScale>
+__global__ void __launch_bounds__(kRowThreads)
+chunk_quantize_pack_kernel(const T* __restrict__ x,
+                           const float* __restrict__ scales,
+                           uint8_t* __restrict__ out, int64_t rows, int h,
+                           int chunk, int K) {
+  constexpr int kPer = kVector ? Load16<T>::N : 2;
+  const int steps = h / kPer;
+  for (int64_t row = blockIdx.y; row < rows; row += gridDim.y) {
+    const T* xr = x + row * h;
+    const float* sr = scales + row * K;
+    uint8_t* orow = out + row * (h / 2);
+    for (int c = blockIdx.x * kRowThreads + threadIdx.x; c < steps;
+         c += gridDim.x * kRowThreads) {
+      const int j = c * kPer;
+      float f[kPer];
+      if constexpr (kVector) {
+        Load16<T>::load(xr + j, f);
+      } else {
+        f[0] = to_f32(xr[j]);
+        f[1] = to_f32(xr[j + 1]);
+      }
+      uint32_t word = 0;
+      if constexpr (kOneScale) {
+        const float s = sr[j / chunk];
+#pragma unroll
+        for (int k = 0; k < kPer; ++k)
+          word |= quantize_nibble(f[k], s) << (4 * k);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kPer; ++k)
+          word |= quantize_nibble(f[k], sr[(j + k) / chunk]) << (4 * k);
+      }
+      uint8_t* o = orow + j / 2;
+      if constexpr (kPer == 8)
+        *reinterpret_cast<uint32_t*>(o) = word;
+      else if constexpr (kPer == 4)
+        *reinterpret_cast<uint16_t*>(o) = static_cast<uint16_t>(word);
+      else
+        *o = static_cast<uint8_t>(word);
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-nibble_unpack_kernel(const uint8_t* __restrict__ b, int8_t* __restrict__ out,
-                     int64_t n_bytes) {
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       i < n_bytes; i += static_cast<int64_t>(gridDim.x) * kThreads) {
-    const int v = b[i];
-    out[2 * i] = static_cast<int8_t>(((v & 0xF) ^ 8) - 8);
-    out[2 * i + 1] = static_cast<int8_t>((((v >> 4) & 0xF) ^ 8) - 8);
+template <typename T, bool kVector>
+void launch_quantize_pack_v(const T* x, const float* scales, uint8_t* out,
+                            int64_t rows, int h, int chunk, int K,
+                            cudaStream_t stream) {
+  constexpr int kPer = kVector ? Load16<T>::N : 2;
+  const dim3 grid = row_grid(rows, h / kPer);
+  if (chunk % kPer == 0)
+    chunk_quantize_pack_kernel<T, kVector, true>
+        <<<grid, kRowThreads, 0, stream>>>(x, scales, out, rows, h, chunk, K);
+  else
+    chunk_quantize_pack_kernel<T, kVector, false>
+        <<<grid, kRowThreads, 0, stream>>>(x, scales, out, rows, h, chunk, K);
+}
+
+template <typename T>
+cudaError_t launch_quantize_pack(const void* x, const float* scales,
+                                 uint8_t* out, int64_t rows, int h, int chunk,
+                                 cudaStream_t stream) {
+  const int K = (h + chunk - 1) / chunk;
+  const T* xp = static_cast<const T*>(x);
+  if (reinterpret_cast<uintptr_t>(x) % 16 == 0 && h % Load16<T>::N == 0)
+    launch_quantize_pack_v<T, true>(xp, scales, out, rows, h, chunk, K,
+                                    stream);
+  else
+    launch_quantize_pack_v<T, false>(xp, scales, out, rows, h, chunk, K,
+                                     stream);
+  return cudaGetLastError();
+}
+
+// requantize an exact sum r of t int4 values: rint(r / t) clipped to +-7
+__device__ __forceinline__ uint32_t requant_nibble(int r, int t) {
+  const float v = clip(rintf(static_cast<float>(r) / static_cast<float>(t)),
+                       -7.f, 7.f);
+  return static_cast<uint32_t>(static_cast<int>(v)) & 0xFu;
+}
+
+// a row of ``in`` is the t source ranks' copies of this rank's block, mb
+// bytes each, in rank order; output byte c of the row sums byte c of each.
+// kT > 0 fixes t at compile time, so the t loads of a step are unrolled and
+// in flight together (kT = 0: t at run time)
+template <int kT>
+__global__ void __launch_bounds__(kRowThreads)
+nibble_reduce_requant_kernel(const uint8_t* __restrict__ in,
+                             uint8_t* __restrict__ out, int64_t rows, int mb,
+                             int t_run) {
+  const int t = kT > 0 ? kT : t_run;
+  for (int64_t row = blockIdx.y; row < rows; row += gridDim.y) {
+    const uint8_t* src = in + row * mb * t;
+    for (int c = blockIdx.x * kRowThreads + threadIdx.x; c < mb;
+         c += gridDim.x * kRowThreads) {
+      int lo = 0, hi = 0;                  // exact: |r| <= 8t
+#pragma unroll
+      for (int s = 0; s < t; ++s) {
+        const uint32_t b = src[s * mb + c];
+        lo += nibble_value(b, 0);
+        hi += nibble_value(b, 4);
+      }
+      out[row * mb + c] = static_cast<uint8_t>(
+          requant_nibble(lo, t) | (requant_nibble(hi, t) << 4));
+    }
   }
+}
+
+cudaError_t launch_reduce_requant(const uint8_t* in, uint8_t* out,
+                                  int64_t rows, int mb, int t,
+                                  cudaStream_t stream) {
+  const dim3 grid = row_grid(rows, mb);
+  if (t == 2)
+    nibble_reduce_requant_kernel<2><<<grid, kRowThreads, 0, stream>>>(
+        in, out, rows, mb, t);
+  else if (t == 4)
+    nibble_reduce_requant_kernel<4><<<grid, kRowThreads, 0, stream>>>(
+        in, out, rows, mb, t);
+  else if (t == 8)
+    nibble_reduce_requant_kernel<8><<<grid, kRowThreads, 0, stream>>>(
+        in, out, rows, mb, t);
+  else
+    nibble_reduce_requant_kernel<0><<<grid, kRowThreads, 0, stream>>>(
+        in, out, rows, mb, t);
+  return cudaGetLastError();
+}
+
+// packed byte c of a row holds elements 2c and 2c + 1, each scaled by its
+// own chunk's scale (one lookup when chunk is even)
+template <typename T, bool kOneScale>
+__global__ void __launch_bounds__(kRowThreads)
+nibble_unpack_dequantize_kernel(const uint8_t* __restrict__ b,
+                                const float* __restrict__ scales,
+                                T* __restrict__ out, int64_t rows, int m,
+                                int chunk, int K) {
+  for (int64_t row = blockIdx.y; row < rows; row += gridDim.y) {
+    const uint8_t* br = b + row * m;
+    const float* sr = scales + row * K;
+    T* orow = out + row * 2 * m;
+    for (int c = blockIdx.x * kRowThreads + threadIdx.x; c < m;
+         c += gridDim.x * kRowThreads) {
+      const int j = 2 * c;
+      const uint32_t v = br[c];
+      const float s0 = sr[j / chunk];
+      const float s1 = kOneScale ? s0 : sr[(j + 1) / chunk];
+      orow[j] = from_f32<T>(static_cast<float>(nibble_value(v, 0)) * s0);
+      orow[j + 1] = from_f32<T>(static_cast<float>(nibble_value(v, 4)) * s1);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_unpack_dequantize(const uint8_t* b, const float* scales,
+                                     void* out, int64_t rows, int m,
+                                     int chunk, cudaStream_t stream) {
+  const int K = (2 * m + chunk - 1) / chunk;
+  const dim3 grid = row_grid(rows, m);
+  T* op = static_cast<T*>(out);
+  if (chunk % 2 == 0)
+    nibble_unpack_dequantize_kernel<T, true>
+        <<<grid, kRowThreads, 0, stream>>>(b, scales, op, rows, m, chunk, K);
+  else
+    nibble_unpack_dequantize_kernel<T, false>
+        <<<grid, kRowThreads, 0, stream>>>(b, scales, op, rows, m, chunk, K);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -299,20 +493,48 @@ REPRO_EXPORT int repro_chunk_dequantize(const void* q, const void* scales,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-REPRO_EXPORT int repro_nibble_pack(const void* q, void* out,
-                                   long long n_bytes, void* stream) {
-  if (n_bytes <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  repro::nibble_pack_kernel<<<repro::grid_for(n_bytes), repro::kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), static_cast<uint8_t*>(out), n_bytes);
-  return static_cast<int>(cudaGetLastError());
+REPRO_EXPORT int repro_chunk_quantize_pack(const void* x, const void* scales,
+                                           void* out, long long rows, int h,
+                                           int chunk, int dtype,
+                                           void* stream) {
+  if (rows <= 0 || h <= 0 || h % 2 || chunk <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scales);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  if (dtype == repro::kFloat32)
+    return repro::launch_quantize_pack<float>(x, sc, o, rows, h, chunk, s);
+  if (dtype == repro::kBFloat16)
+    return repro::launch_quantize_pack<__nv_bfloat16>(x, sc, o, rows, h,
+                                                      chunk, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-REPRO_EXPORT int repro_nibble_unpack(const void* b, void* out,
-                                     long long n_bytes, void* stream) {
-  if (n_bytes <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  repro::nibble_unpack_kernel<<<repro::grid_for(n_bytes), repro::kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(b), static_cast<int8_t*>(out), n_bytes);
-  return static_cast<int>(cudaGetLastError());
+REPRO_EXPORT int repro_nibble_reduce_requant(const void* in, void* out,
+                                             long long rows, int mb, int t,
+                                             void* stream) {
+  if (rows <= 0 || mb <= 0 || t <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return repro::launch_reduce_requant(
+      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out), rows, mb,
+      t, static_cast<cudaStream_t>(stream));
+}
+
+REPRO_EXPORT int repro_nibble_unpack_dequantize(const void* b,
+                                                const void* scales, void* out,
+                                                long long rows, int m,
+                                                int chunk, int dtype,
+                                                void* stream) {
+  if (rows <= 0 || m <= 0 || chunk <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint8_t* bp = static_cast<const uint8_t*>(b);
+  const float* sc = static_cast<const float*>(scales);
+  if (dtype == repro::kFloat32)
+    return repro::launch_unpack_dequantize<float>(bp, sc, out, rows, m, chunk,
+                                                  s);
+  if (dtype == repro::kBFloat16)
+    return repro::launch_unpack_dequantize<__nv_bfloat16>(bp, sc, out, rows,
+                                                          m, chunk, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

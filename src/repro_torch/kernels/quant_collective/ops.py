@@ -1,9 +1,11 @@
 """Dispatch and numerics contract of the quantized collectives.
 
-``chunk_amax`` (B5), ``chunk_quantize`` (B6), ``nibble_pack`` (B7),
-``nibble_unpack`` (B8) and ``chunk_dequantize`` (B9) launch their CUDA
-kernel on a CUDA tensor and run the plain version on a CPU tensor; a
-``*_cuda`` wrapper raises on anything its kernel does not take.
+``chunk_amax`` (B5), ``chunk_quantize`` (B6), ``chunk_dequantize`` (B9)
+and the int4 wire's three fused passes, ``chunk_quantize_pack`` (B6 + B7),
+``nibble_reduce_requant`` (B8, exact sum, requantize, B7) and
+``nibble_unpack_dequantize`` (B8 + B9), launch their CUDA kernel on a CUDA
+tensor and run the plain version on a CPU tensor; a ``*_cuda`` wrapper
+raises on anything its kernel does not take.
 
 The numerics contract is a copy of ``repro.kernels.quant_collective.ops``
 with torch dtypes (the port imports nothing of the JAX package):
@@ -23,15 +25,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.quant_collective.ref import (chunk_amax_ref,
-                                                      chunk_dequantize_ref,
-                                                      chunk_quantize_ref,
-                                                      nibble_pack_ref,
-                                                      nibble_unpack_ref)
+from repro_torch.kernels.quant_collective.ref import (
+    chunk_amax_ref, chunk_dequantize_ref, chunk_quantize_pack_ref,
+    chunk_quantize_ref, nibble_reduce_requant_ref,
+    nibble_unpack_dequantize_ref)
 
-# int4 has no torch dtype: values live in int8 storage (|q| <= 7) and
-# ``nibble_pack``/``nibble_unpack`` convert to and from the two-per-byte
-# uint8 wire form the packed all-to-all ships.
+# int4 has no torch dtype: its values lie on the int8 grid (|q| <= 7) and
+# travel packed two per uint8 byte; the fused int4 passes pack and unpack
+# them without an int8 tensor in between.
 QUANT_DTYPES = {
     "int8": torch.int8,
     "fp8": torch.float8_e4m3fn,
@@ -121,18 +122,28 @@ def chunk_dequantize(q, scales, chunk: int = DEFAULT_CHUNK,
     return chunk_dequantize_cuda(q, scales, chunk, out_dtype)
 
 
-def nibble_pack(q):
-    """int4 values (int8 storage, |q| <= 7) -> two-per-byte uint8."""
-    if q.device.type == "cpu":
-        return nibble_pack_ref(q)
-    return nibble_pack_cuda(q)
+def chunk_quantize_pack(x, scales, chunk: int = DEFAULT_CHUNK):
+    """int4 pre-pass: quantize onto the int8 grid, pack the low nibbles:
+    [..., h] -> uint8 [..., h // 2]."""
+    if x.device.type == "cpu":
+        return chunk_quantize_pack_ref(x, scales, chunk)
+    return chunk_quantize_pack_cuda(x, scales, chunk)
 
 
-def nibble_unpack(b):
-    """Two-per-byte uint8 -> sign-extended int8 values."""
+def nibble_reduce_requant(packed, t: int):
+    """int4 reduce: t packed source blocks [..., m] -> their requantized
+    sum, uint8 [..., m // t]."""
+    if packed.device.type == "cpu":
+        return nibble_reduce_requant_ref(packed, t)
+    return nibble_reduce_requant_cuda(packed, t)
+
+
+def nibble_unpack_dequantize(b, scales, chunk: int = DEFAULT_CHUNK,
+                             out_dtype=torch.float32):
+    """int4 post-pass: uint8 [..., m] -> ``out_dtype`` [..., 2m]."""
     if b.device.type == "cpu":
-        return nibble_unpack_ref(b)
-    return nibble_unpack_cuda(b)
+        return nibble_unpack_dequantize_ref(b, scales, chunk, out_dtype)
+    return nibble_unpack_dequantize_cuda(b, scales, chunk, out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -152,10 +163,12 @@ def _check_input(name, x, dtypes):
     return _build.dtype_code(x.dtype, dtypes)
 
 
-def _check_scales(name, x, scales, chunk):
+def _check_scales(name, x, scales, chunk, h=None):
+    """scales [..., K] f32 over x's rows, K chunks of an h-wide row (h:
+    x's last axis unless given)."""
     if chunk < 1:
         raise ValueError(f"{name}: chunk must be >= 1, got {chunk}")
-    k = -(-x.shape[-1] // chunk)
+    k = -(-(x.shape[-1] if h is None else h) // chunk)
     _build.require(name, "scales", scales, x.device, torch.float32,
                    (*x.shape[:-1], k))
 
@@ -216,35 +229,62 @@ def chunk_dequantize_cuda(q, scales, chunk: int = DEFAULT_CHUNK,
     return out
 
 
-def nibble_pack_cuda(q):
-    """Launch B7: int8 [..., h], h even -> uint8 [..., h // 2]."""
-    name = "nibble_pack_cuda"
-    _check_input(name, q, (torch.int8,))
-    h = q.shape[-1]
+def chunk_quantize_pack_cuda(x, scales, chunk: int = DEFAULT_CHUNK):
+    """Launch B6 + B7 fused: x [..., h] (float32 or bfloat16, h even) and
+    f32 scales [..., K] -> uint8 [..., h // 2]."""
+    name = "chunk_quantize_pack_cuda"
+    code = _check_input(name, x, FLOAT_TYPES)
+    _check_scales(name, x, scales, chunk)
+    h = x.shape[-1]
     if h % 2:
         raise ValueError(f"{name}: nibble packing needs an even last axis, "
                          f"got {h}")
-    out = torch.empty((*q.shape[:-1], h // 2), dtype=torch.uint8,
-                      device=q.device)
-    with torch.cuda.device(q.device):
-        rc = _build.lib().repro_nibble_pack(
-            q.data_ptr(), out.data_ptr(), out.numel(),
-            _build.stream_ptr(q.device))
+    out = torch.empty((*x.shape[:-1], h // 2), dtype=torch.uint8,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _build.lib().repro_chunk_quantize_pack(
+            x.data_ptr(), scales.data_ptr(), out.data_ptr(), x.numel() // h,
+            h, chunk, code, _build.stream_ptr(x.device))
     _build.check(rc, name)
-    _build.count("nibble_pack")
+    _build.count("chunk_quantize_pack")
     return out
 
 
-def nibble_unpack_cuda(b):
-    """Launch B8: uint8 [..., m] -> int8 [..., 2m]."""
-    name = "nibble_unpack_cuda"
+def nibble_reduce_requant_cuda(packed, t: int):
+    """Launch B8 + exact sum + requantize + B7 fused: uint8 [..., m], t
+    blocks of m / t bytes -> uint8 [..., m // t]."""
+    name = "nibble_reduce_requant_cuda"
+    _check_input(name, packed, (torch.uint8,))
+    m = packed.shape[-1]
+    if t < 1 or m % t:
+        raise ValueError(f"{name}: the last axis holds t={t} packed blocks: "
+                         f"{m} bytes must divide (h % 2t == 0)")
+    out = torch.empty((*packed.shape[:-1], m // t), dtype=torch.uint8,
+                      device=packed.device)
+    with torch.cuda.device(packed.device):
+        rc = _build.lib().repro_nibble_reduce_requant(
+            packed.data_ptr(), out.data_ptr(), packed.numel() // m, m // t,
+            t, _build.stream_ptr(packed.device))
+    _build.check(rc, name)
+    _build.count("nibble_reduce_requant")
+    return out
+
+
+def nibble_unpack_dequantize_cuda(b, scales, chunk: int = DEFAULT_CHUNK,
+                                  out_dtype=torch.float32):
+    """Launch B8 + B9 fused: uint8 [..., m] and f32 scales [..., K] over
+    h = 2m -> ``out_dtype`` (float32 or bfloat16) [..., 2m]."""
+    name = "nibble_unpack_dequantize_cuda"
     _check_input(name, b, (torch.uint8,))
-    out = torch.empty((*b.shape[:-1], 2 * b.shape[-1]), dtype=torch.int8,
+    m = b.shape[-1]
+    _check_scales(name, b, scales, chunk, h=2 * m)
+    code = _build.dtype_code(out_dtype, FLOAT_TYPES)
+    out = torch.empty((*b.shape[:-1], 2 * m), dtype=out_dtype,
                       device=b.device)
     with torch.cuda.device(b.device):
-        rc = _build.lib().repro_nibble_unpack(
-            b.data_ptr(), out.data_ptr(), b.numel(),
-            _build.stream_ptr(b.device))
+        rc = _build.lib().repro_nibble_unpack_dequantize(
+            b.data_ptr(), scales.data_ptr(), out.data_ptr(), b.numel() // m,
+            m, chunk, code, _build.stream_ptr(b.device))
     _build.check(rc, name)
-    _build.count("nibble_unpack")
+    _build.count("nibble_unpack_dequantize")
     return out

@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the per-chunk collective quantization ops:
-the reference kernels B5–B9 are held to.
+the reference the quantized all-reduce's kernels are held to.
 
 Counterpart of ``repro.kernels.quant_collective.ref``.  The quantized
 two-step all-reduce (``core.parallel_exec.quantized_psum``) needs five
@@ -10,6 +10,14 @@ dense ops on the activation row entering a TP all-reduce:
 * ``nibble_pack_ref``      (B7) two int4 values per byte,
 * ``nibble_unpack_ref``    (B8) the inverse, sign-extending each nibble,
 * ``chunk_dequantize_ref`` (B9) back to the working dtype.
+
+The int4 wire runs them as three fused passes, each the composition of the
+ops above (and of the JAX package's jnp requantize):
+
+* ``chunk_quantize_pack_ref``      B6 (int8 grid) then B7, on every rank,
+* ``nibble_reduce_requant_ref``    B8, the exact sum of the t source blocks,
+  round(r / t) clipped to +-7, then B7, on every rank,
+* ``nibble_unpack_dequantize_ref`` B8 then B9, once.
 
 The hidden axis is zero-padded to a whole number of chunks and sliced
 back, so ``h % chunk != 0`` is exact: the padding can neither raise an
@@ -89,3 +97,33 @@ def nibble_unpack_ref(b):
     hi = ((b >> 4) & 0xF).to(torch.int8)
     pairs = torch.stack([(lo ^ 8) - 8, (hi ^ 8) - 8], dim=-1)
     return pairs.reshape(*b.shape[:-1], b.shape[-1] * 2)
+
+
+def chunk_quantize_pack_ref(x, scales, chunk: int):
+    """The int4 pre-pass: B6 onto the int8 grid (round half to even, clip
+    to +-127), then B7 keeps each value's low 4 bits: [..., h] (h even) ->
+    [..., h // 2] uint8.  Each element takes its own chunk's scale."""
+    return nibble_pack_ref(chunk_quantize_ref(x, scales, chunk, torch.int8))
+
+
+def nibble_reduce_requant_ref(packed, t: int):
+    """The int4 reduce on one rank: ``packed`` [..., m] uint8 holds the t
+    source ranks' copies of this rank's block (m / t bytes each, rank
+    order, as the all-to-all delivers them).  Their values are summed
+    exactly in int32, requantized as round(r / t) (half to even) clipped
+    to +-7, and packed: [..., m // t] uint8."""
+    lead, m = packed.shape[:-1], packed.shape[-1]
+    if t < 1 or m % t:
+        raise ValueError(f"the last axis holds t={t} packed blocks: {m} "
+                         f"bytes must divide (h % 2t == 0)")
+    r = nibble_unpack_ref(packed).to(torch.int32).reshape(
+        *lead, t, 2 * m // t).sum(dim=-2)                # exact: |r| <= 8t
+    rq = torch.clamp(torch.round(r.float() / t), -7, 7)
+    return nibble_pack_ref(rq.to(torch.int8))
+
+
+def nibble_unpack_dequantize_ref(b, scales, chunk: int, out_dtype):
+    """The int4 post-pass: B8 then B9, [..., m] uint8 and f32 scales
+    [..., K] over h = 2m -> ``out_dtype`` [..., 2m]."""
+    return chunk_dequantize_ref(nibble_unpack_ref(b), scales, chunk,
+                                out_dtype)

@@ -10,9 +10,10 @@ Tolerances: bf16 rounds the output once on each side, so the two may land
 one bf16 ulp apart (2^-8 relative); f32 differs only in summation order.
 B10 (the WKV6 recurrence, both its kernels) is held to the same
 tolerances: its f32 state updates are contracted to FMAs and summed in
-another order, about one f32 ulp per step over these short sequences.  The quantization kernels B5–B9 have no tolerance: integer, byte and fp8
-outputs, B5's f32 abs-max and B9's single rounding must be bitwise equal
-to the plain versions.  The shapes are small and ragged on purpose (odd
+another order, about one f32 ulp per step over these short sequences.  The
+quantization kernels (B5, B6, B9 and the int4 wire's fused passes) have
+no tolerance: integer, byte and fp8 outputs, B5's f32 abs-max and the
+dequantize's single rounding must be bitwise equal to the plain versions.  The shapes are small and ragged on purpose (odd
 lengths, partial tiles, a hidden width with no 16-byte vector path, a
 last chunk shorter than the rest); ``chip_smoke.py`` checks the full
 model's shapes.
@@ -268,19 +269,66 @@ def test_chunk_amax_kernel_propagates_nan(cuda):
     assert torch.equal(got[:, :2], qref.chunk_amax_ref(x, 128)[:, :2])
 
 
+# (shape, chunk, t): the decode shape, even and ragged chunks, an odd chunk
+# (pairs straddle two scales) under a 3-d lead, a hidden width with no
+# 16-byte vector path (h % 8 != 0 for bf16)
+INT4_CASES = [((4, 3072), 128, 4), ((3, 256), 128, 2), ((3, 160), 64, 4),
+              ((2, 3, 200), 25, 4), ((2, 12), 5, 2), ((1, 2), 1, 1)]
+
+
 @pytest.mark.gpu
-def test_nibble_kernels_bitwise(cuda):
-    """Every int4 pair packs (B7) as the plain version packs it, and every
-    byte unpacks (B8) to its two sign-extended nibbles."""
-    v = torch.arange(-8, 8, dtype=torch.int8, device=cuda)
-    pairs = torch.stack(torch.meshgrid(v, v, indexing="ij"), -1)
-    q = pairs.reshape(2, -1).contiguous()
-    packed = qops.nibble_pack_cuda(q)
-    assert torch.equal(packed, qref.nibble_pack_ref(q))
-    assert torch.equal(qops.nibble_unpack_cuda(packed), q)
-    b = torch.arange(256, dtype=torch.int32, device=cuda).to(torch.uint8)
-    assert torch.equal(qops.nibble_unpack_cuda(b[None]),
-                       qref.nibble_unpack_ref(b[None]))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,chunk,t", INT4_CASES)
+def test_nibble_kernels_bitwise(cuda, dtype, shape, chunk, t):
+    """The int4 wire's fused kernels against their plain versions, bit for
+    bit: quantize + pack (clipped and off-grid values, a zero scale),
+    reduce + requantize over every sum of t nibbles from -8t to 7t, and
+    unpack + dequantize over every byte value; then the whole int4 branch
+    of ``quantized_psum`` with kernels against it with plain versions."""
+    from repro_torch.core import comm
+    from repro_torch.core.parallel_exec import quantized_psum
+
+    h = shape[-1]
+    x = 3.0 * _rand(cuda, dtype, seed=h)(*shape)
+    scales = qops.scales_from_amax(qops.chunk_amax_cuda(x, chunk), 31.0)
+    scales.view(-1)[0] = 0.0
+    packed = qops.chunk_quantize_pack_cuda(x, scales, chunk)
+    assert torch.equal(packed, qref.chunk_quantize_pack_ref(x, scales, chunk))
+    # random bytes, every byte value where the row block holds 256, read as
+    # t source blocks a row
+    g = torch.Generator(device=cuda).manual_seed(t)
+    b = torch.randint(0, 256, (*shape[:-1], h // 2), generator=g,
+                      device=cuda).to(torch.uint8)
+    n = min(b.numel(), 256)
+    b.view(-1)[:n] = torch.arange(n, device=cuda).to(torch.uint8)
+    assert torch.equal(qops.nibble_reduce_requant_cuda(b, t),
+                       qref.nibble_reduce_requant_ref(b, t))
+    # every sum of t nibbles, -8t .. 7t, spread over the t sources
+    sums = torch.arange(-8 * t, 7 * t + 1)
+    sums = torch.cat([sums, sums[:len(sums) % 2]])   # whole bytes per block
+    left, src = sums, []
+    for _ in range(t):
+        src.append(left.clamp(-8, 7))
+        left = left - src[-1]
+    assert not left.any()
+    every = qref.nibble_pack_ref(
+        torch.stack(src).to(torch.int8).reshape(1, -1)).to(cuda)
+    assert torch.equal(qops.nibble_reduce_requant_cuda(every, t),
+                       qref.nibble_reduce_requant_ref(every, t))
+    for out in (torch.float32, torch.bfloat16):
+        for wire in (packed, b):
+            assert torch.equal(
+                _bits(qops.nibble_unpack_dequantize_cuda(wire, scales, chunk,
+                                                         out)),
+                _bits(qref.nibble_unpack_dequantize_ref(wire, scales, chunk,
+                                                        out)))
+    if t > 1 and h % (2 * t) == 0:
+        xs = [3.0 * _rand(cuda, dtype, seed=h + r)(*shape) for r in range(t)]
+        assert torch.equal(
+            _bits(quantized_psum(xs, comm.VirtualGroup(t), "int4", chunk)),
+            _bits(quantized_psum(xs, comm.VirtualGroup(t), "int4", chunk,
+                                 plain=True)))
 
 
 @pytest.mark.gpu
@@ -324,9 +372,32 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         qops.chunk_amax_cuda(x.half())
     with pytest.raises(ValueError, match="scales"):
         qops.chunk_quantize_cuda(x, torch.ones(4, 3, device=cuda), 32)
+    # the int4 wire's fused kernels: odd h, h % 2t != 0, wrong dtypes,
+    # scales of the wrong shape, a strided input
+    s4 = torch.ones(2, 2, device=cuda)
     with pytest.raises(ValueError, match="even"):
-        qops.nibble_pack_cuda(torch.zeros(2, 7, dtype=torch.int8,
-                                          device=cuda))
+        qops.chunk_quantize_pack_cuda(rnd(2, 7), s4, 4)
+    with pytest.raises(TypeError):
+        qops.chunk_quantize_pack_cuda(rnd(2, 8).half(), s4, 4)
+    with pytest.raises(ValueError, match="scales"):
+        qops.chunk_quantize_pack_cuda(rnd(2, 8), torch.ones(2, 3, device=cuda),
+                                      4)
+    with pytest.raises(ValueError, match="contiguous"):
+        qops.chunk_quantize_pack_cuda(rnd(8, 2).t(), s4, 4)
+    u8 = torch.zeros(2, 6, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="2t"):
+        qops.nibble_reduce_requant_cuda(u8, 4)
+    with pytest.raises(TypeError):
+        qops.nibble_reduce_requant_cuda(u8.to(torch.int8), 2)
+    with pytest.raises(ValueError, match="scales"):
+        qops.nibble_unpack_dequantize_cuda(u8, torch.ones(2, 2, device=cuda),
+                                           4)
+    with pytest.raises(TypeError):
+        qops.nibble_unpack_dequantize_cuda(u8, torch.ones(2, 3, device=cuda),
+                                           4, torch.float16)
+    with pytest.raises(TypeError):
+        qops.nibble_unpack_dequantize_cuda(u8.to(torch.int8),
+                                           torch.ones(2, 3, device=cuda), 4)
     r, k, v, w, u, st = _wkv6_inputs(cuda, torch.float32, 1, 3, 2, 48)
     with pytest.raises(ValueError, match="head size"):
         wops.wkv6_cuda(r, k, v, w, u, st)
@@ -373,7 +444,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     for call in (lambda: qops.chunk_amax_cuda(x),
                  lambda: qops.chunk_quantize_cuda(x, s, 8),
                  lambda: qops.chunk_dequantize_cuda(x.to(torch.int8), s, 8),
-                 lambda: qops.nibble_pack_cuda(x.to(torch.int8)),
-                 lambda: qops.nibble_unpack_cuda(x.to(torch.uint8))):
+                 lambda: qops.chunk_quantize_pack_cuda(x, s, 8),
+                 lambda: qops.nibble_reduce_requant_cuda(x.to(torch.uint8), 2),
+                 lambda: qops.nibble_unpack_dequantize_cuda(
+                     x.to(torch.uint8), torch.ones(2, 2), 8)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
