@@ -5,16 +5,19 @@
 
 Phases:
   1. the card's name and power limit, and the kernels' build time;
-  2. each hand-written kernel (B1 RMSNorm, B2 flash prefill, B3 contiguous
-     and B4 paged flash-decode, B5, B6, B9 the quantized all-reduce's
-     amax, quantize and dequantize, the int4 wire's three fused passes
-     that hold B7 nibble pack and B8 unpack, B10 the RWKV-6 WKV recurrence)
-     against its plain PyTorch version at the main paths' shapes, in bf16
-     and f32 — B1–B4 and B10 within the tolerance stated, the quantization
-     kernels bit for bit; times of the kernel, the plain version and one
-     library call computing the same function (where one exists), beside
-     the card's bound for the work (and the launch floor for the
-     quantization kernels);
+  2. each hand-written kernel (B1 RMSNorm, and B1 with the residual add
+     fused in, add_rms_norm, and on the int8/fp8 wire also the dequantize,
+     dequantize_add_rms_norm; B2 flash prefill, B3 contiguous and B4 paged
+     flash-decode, B5, B6, B9 the quantized all-reduce's amax, quantize and
+     dequantize, the int4 wire's three fused passes that hold B7 nibble
+     pack and B8 unpack, B10 the RWKV-6 WKV recurrence) against its plain
+     PyTorch version at the main paths' shapes, in bf16 and f32 — B1–B4
+     and B10 within the tolerance stated, the quantization kernels and the
+     fused norms' s bit for bit; times of the kernel, the plain version and
+     one library call computing the same function (where one exists),
+     beside the card's bound for the work (and the launch floor for the
+     norms and the quantization kernels; for the fused norms also the
+     unfused chain they replace);
   3. the serving path at the full width of llama32-3b (random weights from
      a seed, made on the card): InferenceEngine.generate, the contiguous
      Scheduler and the paged Scheduler with chunked prefill, one decode
@@ -192,8 +195,6 @@ def kernel_phase(dev, iters: int):
         decode_attention_cuda, paged_decode_attention_cuda)
     from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.kernels.rmsnorm.ops import rms_norm_cuda
-    from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
 
     g = torch.Generator(device=dev).manual_seed(0)
     h, Hq, Hkv, D = FULL["h"], FULL["Hq"], FULL["Hkv"], FULL["D"]
@@ -209,16 +210,6 @@ def kernel_phase(dev, iters: int):
     for dt in (torch.bfloat16, torch.float32):
         dname = str(dt).replace("torch.", "")
         log(f"[kernels] {dname}")
-        # -- B1 RMSNorm: decode rows (4) and a ragged prefill (333) --------
-        err = 0.0
-        for nrow in (4, 333):
-            x = randn((nrow, h), dt)
-            w = randn((h,), dt, 0.1)
-            err = max(err, compare(f"B1 rmsnorm rows={nrow} h={h}",
-                                   rms_norm_cuda(x, w), rms_norm_ref(x, w),
-                                   dname))
-        rows.setdefault("rmsnorm", {})[dname] = dict(
-            err=err, x=x, w=w, shape=f"x[{nrow},{h}]")
         # -- B2 flash prefill: S in {128, 333}, a window, a paged chunk ---
         cases = [(1, 128, 128, [0], [128], None),
                  (1, 333, 333, [0], [333], None),
@@ -307,19 +298,6 @@ def kernel_phase(dev, iters: int):
     for dt in (torch.bfloat16, torch.float32):
         dname = str(dt).replace("torch.", "")
         esz = torch.empty((), dtype=dt).element_size()
-        # B1
-        r = rows["rmsnorm"][dname]
-        x, w = r["x"], r["w"]
-        nbytes = (2 * x.numel() + w.numel()) * esz
-        sets = copies((x, w), nbytes)
-        w1 = [(a, 1.0 + b) for a, b in sets]
-        t = dict(
-            kernel=bench(rms_norm_cuda, sets, iters),
-            plain=bench(rms_norm_ref, sets, iters),
-            library=bench(lambda a, b: F.rms_norm(a, (h,), b, 1e-5), w1,
-                          iters))
-        t["bound"], t["by"] = bound_ms(nbytes, 4.0 * x.numel(), "float32")
-        out.setdefault("rmsnorm", {})[dname] = t
         # B2
         r = rows["flash_attention"][dname]
         q, k, v, off, kl, _ = r["args"]
@@ -404,6 +382,148 @@ def flash_long(args, iters: int):
         f"({flops / tk / 1e9:.1f} TFLOP/s)  library {tl:.4f} ms "
         f"({flops / tl / 1e9:.1f} TFLOP/s)  bound {bound:.4f} ms ({by})  "
         f"[q[{B},{S},{Hq},{D}], causal]")
+
+
+NORM_ROWS = (4, 333)    # a decode step's 4 slots, a 333-token prefill
+# the rows of each kernel's line in the kernel table: B1's and the add's
+# prefill shape; the dequantize variant runs only in decode steps
+NORM_TABLE_ROWS = {"rmsnorm": 333, "add_rms_norm": 333,
+                   "dequantize_add_rms_norm": 4}
+
+
+def norm_kernel_phase(dev, iters: int):
+    """B1, add_rms_norm (B1 with the residual add before it) and
+    dequantize_add_rms_norm (B9, the add and B1, int8 and fp8) against
+    their plain versions: s bit for bit, n within the tolerance, and n bit
+    for bit B1's of s (one reduction tree in the three kernels); at
+    llama32-3b's h (3072) and rwkv6-7b's (4096) on the 16-byte path, an
+    odd h and a row view off a 16-byte boundary on the element path, the
+    last position of each prefill sequence (a row-strided view), in bf16
+    and f32.  Times in bf16 at 4 and 333 rows of 3072, each beside its
+    bound, the launch floor, the unfused chain it replaces (x + y then B1;
+    B9, the add, B1) and, for B1, ``F.rms_norm``."""
+    from repro_torch.kernels.quant_collective import ops as qops
+    from repro_torch.kernels.quant_collective import ref as qref
+    from repro_torch.kernels.rmsnorm.ops import (add_rms_norm_cuda,
+                                                 rms_norm_cuda)
+    from repro_torch.kernels.rmsnorm.ref import add_rms_norm_ref, rms_norm_ref
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    rows, errs = {}, {}
+
+    def randn(shape, dt, scale=1.0):
+        return (scale * torch.randn(shape, generator=g, device=dev)).to(dt)
+
+    def wire(x, chunk, quant):
+        """x's int8/fp8 payload and scales, as quantized_psum makes them."""
+        scales = qops.scales_from_amax(qops.chunk_amax_cuda(x, chunk),
+                                       qops.collective_qmax(quant, TP))
+        return (qops.chunk_quantize_cuda(x, scales, chunk,
+                                         qops.QUANT_DTYPES[quant]), scales)
+
+    def check(name, what, got, want, n_of_s, dname):
+        """s bitwise; n within the tolerance and bitwise B1's of s."""
+        bitwise(f"{name} s {what}", got[0], want[0])
+        errs[name] = max(errs.get(name, 0.0), compare(
+            f"{name} n {what}", got[1], want[1], dname))
+        bitwise(f"{name} n == B1(s) {what}", got[1], n_of_s)
+
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).replace("torch.", "")
+        log(f"[kernels] B1, add_rms_norm, dequantize_add_rms_norm {dname}")
+        # (rows, h, chunk, a view off a 16-byte boundary)
+        for nrow, h, chunk, shifted in ((4, 3072, 128, False),
+                                        (333, 3072, 128, False),
+                                        (4, 4096, 128, False),
+                                        (3, 201, 25, False),
+                                        (5, 200, 25, False),
+                                        (4, 3072, 128, True)):
+            what = f"x[{nrow},{h}]" + (" (off 16 bytes)" if shifted else "")
+            x, y = randn((nrow, h), dt), randn((nrow, h), dt)
+            if shifted:
+                x = randn((nrow * h + 1,), dt)[1:].view(nrow, h)
+            w = randn((h,), dt, 0.1)
+            errs["rmsnorm"] = max(errs.get("rmsnorm", 0.0), compare(
+                f"B1 rmsnorm {what}", rms_norm_cuda(x, w),
+                rms_norm_ref(x, w), dname))
+            got = add_rms_norm_cuda(x, y, w)
+            check("add_rms_norm", what, got, add_rms_norm_ref(x, y, w),
+                  rms_norm_cuda(got[0], w), dname)
+            for quant in ("int8", "fp8"):
+                q, scales = wire(y.contiguous(), chunk, quant)
+                xd = x.contiguous()
+                got = qops.dequantize_add_rms_norm_cuda(q, scales, chunk, xd,
+                                                        w)
+                check("dequantize_add_rms_norm", f"{quant} chunk {chunk} "
+                      f"{what}", got, qref.dequantize_add_rms_norm_ref(
+                          q, scales, chunk, xd, w),
+                      rms_norm_cuda(got[0], w), dname)
+        # the final norm of a prefill pass: the last position of each of 2
+        # sequences, a row-strided view of [2, 333, h]
+        x, y = randn((2, 333, 3072), dt), randn((2, 333, 3072), dt)
+        w = randn((3072,), dt, 0.1)
+        got = add_rms_norm_cuda(x[:, -1], y[:, -1], w)
+        check("add_rms_norm", "last positions of x[2,333,3072]", got,
+              add_rms_norm_ref(x[:, -1], y[:, -1], w),
+              rms_norm_cuda(got[0], w), dname)
+        for name in ("rmsnorm", "add_rms_norm", "dequantize_add_rms_norm"):
+            rows.setdefault(name, {})[dname] = dict(err=errs.pop(name))
+    torch.cuda.synchronize()
+
+    # -- timing in bf16 (the main path's type) at 4 and 333 rows ------------
+    h, chunk, bf16 = 3072, QCHUNK, torch.bfloat16
+    floor = bench(lambda: torch.cuda._sleep(0), [()], iters)
+    log(f"  time launch floor (torch.cuda._sleep(0))  {floor:.6f} ms")
+    out = {}
+    for nrow in NORM_ROWS:
+        x, y = randn((nrow, h), bf16), randn((nrow, h), bf16)
+        w = randn((h,), bf16, 0.1)
+        q, scales = wire(y, chunk, "int8")
+        n, k = nrow * h, nrow * (-(-h // chunk))
+        # name: (kernel, plain, the chain it replaces, args, bytes moved,
+        # operations, library call); bytes: each input read once, each
+        # output written once; operations: the f32 element-wise work
+        specs = {
+            "rmsnorm": (
+                rms_norm_cuda, rms_norm_ref, None, (x, w), 2 * (2 * n + h),
+                4 * n, lambda a, b: F.rms_norm(a, (h,), b, 1e-5)),
+            "add_rms_norm": (
+                add_rms_norm_cuda, add_rms_norm_ref,
+                lambda a, b, c: rms_norm_cuda(a + b, c), (x, y, w),
+                2 * (4 * n + h), 5 * n, None),
+            "dequantize_add_rms_norm": (
+                lambda a, b, c, d: qops.dequantize_add_rms_norm_cuda(
+                    a, b, chunk, c, d),
+                lambda a, b, c, d: qref.dequantize_add_rms_norm_ref(
+                    a, b, chunk, c, d),
+                lambda a, b, c, d: rms_norm_cuda(
+                    c + qops.chunk_dequantize_cuda(a, b, chunk, bf16), d),
+                (q, scales, x, w), n + 4 * k + 2 * (3 * n + h), 7 * n, None),
+        }
+        for name, (kernel, plain, chain, args, nbytes, ops,
+                   library) in specs.items():
+            sets = copies(args, nbytes)
+            # F.rms_norm scales by w, the kernels by 1 + w
+            lib_sets = [(a, 1.0 + b) for a, b in sets] if library else None
+            t = dict(kernel=bench(kernel, sets, iters),
+                     plain=bench(plain, sets, iters),
+                     chain=bench(chain, sets, iters) if chain else None,
+                     library=bench(library, lib_sets, iters) if library
+                     else None, floor=floor, shape=f"x[{nrow},{h}]")
+            t["bound"], t["by"] = bound_ms(nbytes, ops, "float32")
+            if nrow == NORM_TABLE_ROWS[name]:
+                out.setdefault(name, {})["bfloat16"] = t
+                rows[name]["bfloat16"]["shape"] = t["shape"]
+            lib = f"{t['library']:.6f} ms" if library else "none (no one call)"
+            unfused = f"{t['chain']:.6f} ms" if chain else "—"
+            # the same inputs every call, so they stay in the L2: what is
+            # left when device memory costs nothing
+            warm = bench(kernel, [args], iters)
+            log(f"  time {name:<24s} bfloat16 kernel {t['kernel']:.6f} ms  "
+                f"unfused chain {unfused}  plain {t['plain']:.4f} ms  library "
+                f"{lib}  bound {t['bound']:.6f} ms ({t['by']})  launch floor "
+                f"{floor:.6f} ms  L2-warm {warm:.6f} ms  [x[{nrow},{h}]]")
+    return rows, out
 
 
 QDECODE = (4, 3072)     # one rank's rows on the decode path: 4 slots x h
@@ -743,21 +863,26 @@ def require_all_finished(what, trace, report):
 
 def expect_launches(what, counts, L, passes, flash, decode, paged, t=1,
                     quant=None, quant_steps=0, scan=0):
-    """The launches of one run: (2L+1) norms per forward pass (run once on
-    the TP group at any t), one B2 per layer and rank of every prefill
-    pass, one B3/B4 per layer and rank of every decode step, one B10 per
-    layer of every RWKV-6 pass (``scan`` passes).  Each of the 2L layer
-    all-reduces of a quantized decode step adds one B5 per rank; int8 and
-    fp8 then one B6 per rank and one B9; int4 one chunk_quantize_pack
-    (B6 + B7) and one nibble_reduce_requant (B8 + B7) per rank and one
-    nibble_unpack_dequantize (B8 + B9)."""
+    """The launches of one run: 2L+1 norm sites per forward pass (run once
+    on the TP group at any t), layer 0's ln1 a B1 and the other 2L an
+    add_rms_norm (each closes a residual add), one B2 per layer and rank of
+    every prefill pass, one B3/B4 per layer and rank of every decode step,
+    one B10 per layer of every RWKV-6 pass (``scan`` passes).  Each of the
+    2L layer all-reduces of a quantized decode step adds one B5 per rank;
+    int8 and fp8 then one B6 per rank, and the norm site after it is a
+    dequantize_add_rms_norm (B9 + add + B1) in place of the add_rms_norm;
+    int4 one chunk_quantize_pack (B6 + B7) and one nibble_reduce_requant
+    (B8 + B7) per rank and one nibble_unpack_dequantize (B8 + B9).  No
+    standalone B9 runs on these paths."""
     ar = 2 * L * quant_steps if quant else 0
     int4, int8 = (ar, 0) if quant == "int4" else (0, ar)
-    want = {"rmsnorm": (2 * L + 1) * passes, "flash_attention": L * t * flash,
+    want = {"rmsnorm": passes, "add_rms_norm": 2 * L * passes - int8,
+            "dequantize_add_rms_norm": int8,
+            "flash_attention": L * t * flash,
             "decode_attention": L * t * decode,
             "paged_decode_attention": L * t * paged,
             "chunk_amax": ar * t, "chunk_quantize": int8 * t,
-            "chunk_dequantize": int8, "chunk_quantize_pack": int4 * t,
+            "chunk_dequantize": 0, "chunk_quantize_pack": int4 * t,
             "nibble_reduce_requant": int4 * t,
             "nibble_unpack_dequantize": int4, "wkv6": L * scan}
     log(f"  launches {what}: {counts}")
@@ -1455,9 +1580,10 @@ def rwkv_phase(dev, smi):
 # ---------------------------------------------------------------------------
 
 
+_RMS = "src/repro/kernels/rmsnorm/rmsnorm_kernel.py:25"
 REPLACES = {
-    "rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
-                "src/repro/kernels/rmsnorm/rmsnorm_kernel.py:25"),
+    "rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu", _RMS),
+    "add_rms_norm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu", _RMS),
     "flash_attention": (
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_kernel.py:80"),
@@ -1468,12 +1594,14 @@ REPLACES = {
         "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/paged_kernel.py:70"),
     # the int4 wire's fused kernels stand for B7 (nibble_pack_pallas, :113)
-    # and B8 (nibble_unpack_pallas, :141); FUSES names all they cover
+    # and B8 (nibble_unpack_pallas, :141), dequantize_add_rms_norm for B9 on
+    # the main path (the standalone B9 serves quantized_psum's own result,
+    # which no main path calls); FUSES names all they cover
     **{name: ("src/repro_torch/kernels/quant_collective/csrc/"
               "quant_collective.cu",
               f"src/repro/kernels/quant_collective/quant_kernel.py:{line}")
        for name, line in (("chunk_amax", 44), ("chunk_quantize", 75),
-                          ("chunk_dequantize", 167),
+                          ("dequantize_add_rms_norm", 167),
                           ("chunk_quantize_pack", 113),
                           ("nibble_reduce_requant", 141),
                           ("nibble_unpack_dequantize", 141))},
@@ -1484,6 +1612,9 @@ REPLACES = {
 
 _QK = "src/repro/kernels/quant_collective/quant_kernel.py"
 FUSES = {
+    "add_rms_norm": ["src/repro/models/blocks.py:124", _RMS],
+    "dequantize_add_rms_norm": [f"{_QK}:167",
+                                "src/repro/core/parallel_exec.py:211", _RMS],
     "chunk_quantize_pack": [f"{_QK}:75", f"{_QK}:113"],
     "nibble_reduce_requant": [f"{_QK}:141",
                               "src/repro/core/parallel_exec.py:176",
@@ -1524,7 +1655,7 @@ def main(argv=None) -> int:
         f"(nvcc {_build.last_build_seconds} s)")
 
     rows, times = kernel_phase(dev, args.iters)
-    for phase in (quant_kernel_phase, wkv6_kernel_phase):
+    for phase in (norm_kernel_phase, quant_kernel_phase, wkv6_kernel_phase):
         more_rows, more_times = phase(dev, args.iters)
         rows.update(more_rows)
         times.update(more_times)
@@ -1549,6 +1680,7 @@ def main(argv=None) -> int:
             bound_ms=t["bound"], bound_by=t["by"], library_ms=t["library"],
             shape=rows[name]["bfloat16"]["shape"], dtype="bfloat16",
             **({"launch_floor_ms": t["floor"]} if "floor" in t else {}),
+            **({"unfused_chain_ms": t["chain"]} if t.get("chain") else {}),
             **({"fuses": FUSES[name]} if name in FUSES else {})))
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the main path")

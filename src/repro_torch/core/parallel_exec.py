@@ -18,13 +18,18 @@ one card (or the CPU) runs t > 1, and a run's log compares with
     B3 and B4 at Hq/t query and Hkv/t KV heads) and contributes a partial
     sum; the layer keeps the list of the t partials;
   * work whose result is the same on every rank runs once on the group:
-    the norms (B1), the residual adds, the embedding after its all-reduce
-    and the dequantize after the gather;
+    the norms with the residual adds before them (B1, ``add_rms_norm``:
+    each all-reduce's add runs inside the norm after it, as in
+    ``models.blocks``), the embedding after its all-reduce and the
+    dequantize after the gather;
   * ``quantized_psum`` (``quant`` = "int8" | "fp8" | "int4") replaces each
     per-layer all-reduce of a contiguous decode step by the quantized
-    two-step (kernels B5–B9).  Prefill, the paged passes, the embedding
-    all-reduce and the logits gather stay full-width, as in the JAX
-    package.
+    two-step (kernels B5–B9).  On the int8/fp8 wire the layer keeps the
+    gathered payload and its scales (``GatheredSum``) and the next norm
+    site dequantizes, adds and normalises them in one kernel
+    (``dequantize_add_rms_norm``).  Prefill, the paged passes, the
+    embedding all-reduce and the logits gather stay full-width, as in the
+    JAX package.
 
 Parameters of a TP model are a list of t per-rank dicts (``shard_params``);
 caches are a list of t per-rank dicts {k, v: [L, B, W, Hkv/t, D]} (ring
@@ -36,7 +41,7 @@ unscaled embeddings (the JAX ``_head`` and ``_embed_tokens`` ignore
 from __future__ import annotations
 
 import types
-from typing import List
+from typing import List, NamedTuple
 
 import torch
 
@@ -46,12 +51,11 @@ from repro_torch.core.commodel import DEFAULT_QUANT_CHUNK
 from repro_torch.kernels.quant_collective import ref as qref
 from repro_torch.kernels.quant_collective.ops import (
     QUANT_DTYPES, chunk_amax, chunk_dequantize, chunk_quantize,
-    chunk_quantize_pack, collective_qmax, nibble_reduce_requant,
-    nibble_unpack_dequantize, scales_from_amax)
-from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
+    chunk_quantize_pack, collective_qmax, dequantize_add_rms_norm,
+    nibble_reduce_requant, nibble_unpack_dequantize, scales_from_amax)
 from repro_torch.models.blocks import attention_apply
-from repro_torch.models.layers import (decode_positions, mlp_apply,
-                                       rms_norm, torch_dtype)
+from repro_torch.models.layers import (add_norm, decode_positions, mlp_apply,
+                                       torch_dtype)
 from repro_torch.models.transformer import (Model, greedy_decode_loop,
                                             resolve_device)
 
@@ -128,6 +132,7 @@ def _vocab_parallel_embed(embeds, tokens, group: VirtualGroup):
 
 _KERNEL_OPS = types.SimpleNamespace(
     amax=chunk_amax, quantize=chunk_quantize, dequantize=chunk_dequantize,
+    dequantize_add_norm=dequantize_add_rms_norm,
     quantize_pack=chunk_quantize_pack, reduce_requant=nibble_reduce_requant,
     unpack_dequantize=nibble_unpack_dequantize)
 _PLAIN_OPS = types.SimpleNamespace(
@@ -135,9 +140,35 @@ _PLAIN_OPS = types.SimpleNamespace(
     quantize=lambda x, s, chunk, quant: qref.chunk_quantize_ref(
         x, s, chunk, QUANT_DTYPES[quant]),
     dequantize=qref.chunk_dequantize_ref,
+    dequantize_add_norm=qref.dequantize_add_rms_norm_ref,
     quantize_pack=qref.chunk_quantize_pack_ref,
     reduce_requant=qref.nibble_reduce_requant_ref,
     unpack_dequantize=qref.nibble_unpack_dequantize_ref)
+
+
+class GatheredSum(NamedTuple):
+    """The int8/fp8 all-reduce's result before its dequantize: the
+    gathered wire payload [..., h] and the shared scales [..., K] it is
+    dequantized with (``chunk`` wide, ``plain`` for the plain versions)."""
+    q: torch.Tensor
+    scales: torch.Tensor
+    chunk: int
+    plain: bool
+
+    def dequantize(self, dtype):
+        ops = _PLAIN_OPS if self.plain else _KERNEL_OPS
+        return ops.dequantize(self.q, self.scales, self.chunk, dtype)
+
+    def add_norm(self, x, weight, eps: float):
+        """(s, n) = (x + the dequantized sum, rms_norm(s)), one kernel on
+        the card."""
+        ops = _PLAIN_OPS if self.plain else _KERNEL_OPS
+        return ops.dequantize_add_norm(self.q, self.scales, self.chunk, x,
+                                       weight, eps)
+
+    def last(self):
+        """The last position of every sequence ([B, S, ...] -> [B, ...])."""
+        return self._replace(q=self.q[:, -1], scales=self.scales[:, -1])
 
 
 def _check_quant(quant):
@@ -149,14 +180,28 @@ def _check_quant(quant):
 
 def quantized_psum(xs, group: VirtualGroup, quant: str = "int8",
                    chunk: int = DEFAULT_QUANT_CHUNK, plain: bool = False):
+    """Quantized two-step all-reduce of the t rank tensors xs [..., h]
+    (``quantized_psum_gathered``), dequantized: the one tensor every rank
+    holds."""
+    out = quantized_psum_gathered(xs, group, quant, chunk, plain)
+    if isinstance(out, GatheredSum):
+        return out.dequantize(xs[0].dtype)
+    return out
+
+
+def quantized_psum_gathered(xs, group: VirtualGroup, quant: str = "int8",
+                            chunk: int = DEFAULT_QUANT_CHUNK,
+                            plain: bool = False):
     """Quantized two-step all-reduce of the t rank tensors xs [..., h].
 
       1. per-chunk abs-max on every rank (B5), all-reduced with max — the
          shared scales, with ``collective_qmax`` headroom;
       2. int8 / fp8: quantize on every rank (B6) onto the shared scales,
          reduce-scatter of the 1-byte payload (the int8 sum is exact by
-         the headroom), all-gather of the reduced blocks, dequantize once
-         (B9) back to the inputs' dtype;
+         the headroom), all-gather of the reduced blocks; the gathered
+         payload and scales are returned as a ``GatheredSum``, which
+         dequantizes once (B9) back to the inputs' dtype, or with the
+         residual add and the next norm (``GatheredSum.add_norm``);
       3. int4, three fused passes around the two hops: quantize and pack
          on every rank (B6 + B7), all-to-all of the nibbles; on every rank
          unpack, an exact int32 sum of the t copies of the rank's block,
@@ -165,7 +210,8 @@ def quantized_psum(xs, group: VirtualGroup, quant: str = "int8",
 
     ``quant=None`` or a group of one rank is the plain all-reduce.
     ``plain=True`` runs the plain versions of the passes in place of the
-    kernels.  Returns the one tensor every rank holds.
+    kernels.  Returns the one tensor every rank holds, or (int8 / fp8) its
+    ``GatheredSum``.
     """
     t = group.t
     if quant is None or t <= 1:
@@ -190,7 +236,16 @@ def quantized_psum(xs, group: VirtualGroup, quant: str = "int8",
                                      xs[0].dtype)
     qs = [ops.quantize(x, scales, chunk, quant) for x in xs]
     gathered = group.all_gather(group.reduce_scatter(qs))
-    return ops.dequantize(gathered, scales, chunk, xs[0].dtype)
+    return GatheredSum(gathered, scales, chunk, plain)
+
+
+def _add_norm(x, h, weight, eps: float, plain: bool):
+    """A norm site on the TP group: (s, n) with s = x + h, n =
+    rms_norm(s); h is None (no add), an all-reduced tensor, or a
+    ``GatheredSum`` (dequantized inside the same kernel)."""
+    if isinstance(h, GatheredSum):
+        return h.add_norm(x, weight, eps)
+    return add_norm(x, h, weight, eps, plain)
 
 
 def _mask_pad_vocab(logits, vocab: int):
@@ -201,10 +256,17 @@ def _mask_pad_vocab(logits, vocab: int):
     return torch.where(col < vocab, logits, torch.finfo(logits.dtype).min)
 
 
-def _logits_allgather(params, x_last, group: VirtualGroup, vocab: int,
-                      eps: float, norm):
-    """Final norm once, vocab-sharded logits per rank, all-gather."""
-    xn = norm(x_last.contiguous(), params[0]["final_norm"], eps)
+def _logits_allgather(params, carried, group: VirtualGroup, vocab: int,
+                      eps: float, plain: bool):
+    """Final norm once at the last position, closing the last layer's
+    residual add there (``carried`` is the trunk's (h, x)), vocab-sharded
+    logits per rank, all-gather."""
+    h, x = carried
+    if isinstance(h, GatheredSum):
+        h = h.last()
+    elif h is not None:
+        h = h[:, -1]
+    _, xn = _add_norm(x[:, -1], h, params[0]["final_norm"], eps, plain)
     logits = group.all_gather([xn @ p["lm_head"] for p in params])
     return _mask_pad_vocab(logits, vocab)
 
@@ -224,7 +286,9 @@ class TPModel:
     caches.  ``quant`` lowers the per-layer all-reduces of the contiguous
     decode step to ``quantized_psum``; ``plain=True`` runs the plain
     attention, RMSNorm and quantization in place of the kernels.  The
-    collectives are logged on ``self.group``."""
+    collectives are logged on ``self.group``.  The layer loop carries the
+    residual stream as (h, x) (``models.blocks``): h is the last all-reduce
+    of the previous layer, added inside the next norm."""
 
     def __init__(self, cfg: ModelConfig, t: int, quant: str = None,
                  quant_chunk: int = DEFAULT_QUANT_CHUNK, plain: bool = False):
@@ -237,7 +301,6 @@ class TPModel:
         self.heads_t = cfg.num_heads // t
         self.kv_t = cfg.num_kv_heads // t
         self.group = VirtualGroup(t)
-        self._norm = rms_norm_ref if plain else rms_norm
         self._dense = Model(cfg, plain)
 
     # ------------------------------------------------------------- params
@@ -287,22 +350,33 @@ class TPModel:
             new.append(cache)
         return outs, new
 
+    def _tp_layer_in(self, pls, carried):
+        """ln1 on the carried pair (h, x): the previous layer's last
+        all-reduce added, then normalised.  Returns (x, xn)."""
+        h, x = carried
+        return _add_norm(x, h, pls[0]["ln1"], self.cfg.norm_eps, self.plain)
+
+    def _psum(self, xs, quant):
+        return quantized_psum_gathered(xs, self.group, quant,
+                                       self.quant_chunk, self.plain)
+
     def _tp_layer_out(self, pls, x, attns, quant: str = None):
         """The attention-output and MLP residual tail: the layer's two
-        all-reduces (``quantized_psum`` when ``quant`` is set)."""
+        all-reduces (``quantized_psum`` when ``quant`` is set).  The first
+        is added inside ln2; the second is returned unadded, as the carried
+        pair (h, x)."""
         cfg = self.cfg
-        x = x + quantized_psum([a @ p["wo"] for a, p in zip(attns, pls)],
-                               self.group, quant, self.quant_chunk,
-                               self.plain)                      # AR (attn out)
-        xn2 = self._norm(x, pls[0]["ln2"], cfg.norm_eps)
-        return x + quantized_psum(
-            [mlp_apply(p, xn2, cfg.activation) for p in pls], self.group,
-            quant, self.quant_chunk, self.plain)                # AR (mlp down)
+        h = self._psum([a @ p["wo"] for a, p in zip(attns, pls)],
+                       quant)                                   # AR (attn out)
+        x, xn2 = _add_norm(x, h, pls[0]["ln2"], cfg.norm_eps, self.plain)
+        return (self._psum([mlp_apply(p, xn2, cfg.activation) for p in pls],
+                           quant), x)                           # AR (mlp down)
 
     def _tp_layer_full(self, pls, x, positions, cache_w=None):
-        """One layer over a full sequence (the prefill); with ``cache_w``
-        each rank's ring cache of width cache_w is built from its K/V."""
-        xn = self._norm(x, pls[0]["ln1"], self.cfg.norm_eps)
+        """One layer over a full sequence (the prefill), on the carried
+        pair x = (h, x); with ``cache_w`` each rank's ring cache of width
+        cache_w is built from its K/V."""
+        x, xn = self._tp_layer_in(pls, x)
         attns, caches = self._tp_layer_qkv(pls, xn, positions,
                                            build_cache_w=cache_w)
         return self._tp_layer_out(pls, x, attns), caches
@@ -310,7 +384,7 @@ class TPModel:
     def _tp_layer_step(self, pls, x, positions, pos, caches):
         """One decode step against the per-rank ring caches (in place);
         the two all-reduces quantized when the model has ``quant``."""
-        xn = self._norm(x, pls[0]["ln1"], self.cfg.norm_eps)
+        x, xn = self._tp_layer_in(pls, x)
         attns, caches = self._tp_layer_qkv(pls, xn, positions, caches=caches,
                                            pos=pos)
         return self._tp_layer_out(pls, x, attns, self.quant), caches
@@ -320,7 +394,7 @@ class TPModel:
         each rank's K/V rows go into its own page pool at the pages the
         shared block table names.  Paging is data movement, not
         communication: the collectives are the contiguous layer's."""
-        xn = self._norm(x, pls[0]["ln1"], self.cfg.norm_eps)
+        x, xn = self._tp_layer_in(pls, x)
         attns, caches = self._tp_layer_qkv(pls, xn, positions, caches=caches,
                                            pos=pos, block_table=block_table)
         return self._tp_layer_out(pls, x, attns), caches
@@ -329,10 +403,10 @@ class TPModel:
         return _vocab_parallel_embed([p["embed"] for p in params], tokens,
                                      self.group)
 
-    def _head(self, params, x_last):
-        return _logits_allgather(params, x_last, self.group,
+    def _head(self, params, carried):
+        return _logits_allgather(params, carried, self.group,
                                  self.cfg.vocab_size, self.cfg.norm_eps,
-                                 self._norm)
+                                 self.plain)
 
     @staticmethod
     def _layer_caches(cache, l):
@@ -353,6 +427,7 @@ class TPModel:
                 cache = [{key: x.new_zeros((cfg.num_layers, B, cache_w,
                                             self.kv_t, cfg.head_dim))
                           for key in ("k", "v")} for _ in range(self.t)]
+            x = (None, x)
             for l in range(cfg.num_layers):
                 pls = [_layer_slice(p["blocks"], l) for p in params]
                 x, built = self._tp_layer_full(pls, x, positions, cache_w)
@@ -360,7 +435,7 @@ class TPModel:
                     for c, b in zip(cache, built):
                         c["k"][l] = b["k"]
                         c["v"][l] = b["v"]
-            logits = self._head(params, x[:, -1])
+            logits = self._head(params, x)
         return logits, cache
 
     def tp_decode_step(self, params, cache, tokens, pos):
@@ -372,11 +447,12 @@ class TPModel:
             x = self._embed_tokens(params, tokens[:, None])
             pos = torch.as_tensor(pos, device=x.device)
             positions = decode_positions(pos, x.shape[0], device=x.device)
+            x = (None, x)
             for l in range(self.cfg.num_layers):
                 pls = [_layer_slice(p["blocks"], l) for p in params]
                 x, _ = self._tp_layer_step(pls, x, positions, pos,
                                            self._layer_caches(cache, l))
-            logits = self._head(params, x[:, 0])
+            logits = self._head(params, x)
         return logits, cache
 
     def tp_generate(self, params, cache, tokens, pos, num_tokens: int):
@@ -400,12 +476,13 @@ class TPModel:
                                           device=x.device)
             positions = pos[:, None].long() + torch.arange(S,
                                                            device=x.device)
+            x = (None, x)
             for l in range(self.cfg.num_layers):
                 pls = [_layer_slice(p["blocks"], l) for p in params]
                 x, _ = self._tp_layer_paged(pls, x, positions, pos,
                                             self._layer_caches(cache, l),
                                             block_table)
-            logits = self._head(params, x[:, -1])
+            logits = self._head(params, x)
         return logits, cache
 
     # the single-device Model's names

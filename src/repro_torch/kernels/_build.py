@@ -1,9 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every ``kernels/*/csrc/*.cu`` source (plus the shared ``kernels/csrc``) is
-compiled by ONE ``nvcc`` call into ``build/kernels/libkernels.so`` at the
-root of the checkout, at first use and again whenever a source's hash
-changes.  The library has a plain C interface and is loaded with
+compiled by its own ``nvcc`` process, all started together, and the
+objects are linked into ``build/kernels/libkernels.so`` at the root of the
+checkout, at first use and again whenever a source's hash changes.  The library has a plain C interface and is loaded with
 ``ctypes``: every pointer and the stream are ``c_void_p``, every C entry
 point returns ``cudaGetLastError()`` and :func:`check` raises if that is not
 0.  Nothing here runs at import time, so the CPU tests import every module
@@ -31,7 +31,7 @@ _ROOT = _PKG.parent.parent.parent          # src/repro_torch/kernels -> repo
 BUILD_DIR = _ROOT / "build" / "kernels"
 LIB_NAME = "libkernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 # dtype codes of the C entry points (kernels/csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -43,6 +43,9 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
 # C entry point -> argtypes; every one returns a cudaError_t as int
 SIGNATURES = {
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _P],
+    "repro_add_rmsnorm": [_P, _LL, _P, _LL, _P, _P, _P, _LL, _I, _F, _I, _P],
+    "repro_dequantize_add_rmsnorm": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _F,
+                                     _I, _I, _P],
     "repro_flash_prefill": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _I, _F, _I, _P],
     "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -60,7 +63,9 @@ SIGNATURES = {
                    _P],
 }
 
-LAUNCHES: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
+LAUNCHES: Dict[str, int] = {"rmsnorm": 0, "add_rms_norm": 0,
+                            "dequantize_add_rms_norm": 0,
+                            "flash_attention": 0,
                             "decode_attention": 0,
                             "paged_decode_attention": 0, "chunk_amax": 0,
                             "chunk_quantize": 0, "chunk_dequantize": 0,
@@ -107,8 +112,27 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def _run_all(cmds, verbose: bool) -> None:
+    """Run the commands as processes started together; wait for every one,
+    then raise if any failed (with its command and output)."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}\n{err}")
+        elif verbose:
+            print(err, end="")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build(verbose: bool = False) -> pathlib.Path:
-    """Compile the library unless a build of the same sources exists."""
+    """Compile the library unless a build of the same sources exists: one
+    nvcc process per source, in parallel, then one link."""
     global last_build_seconds
     digest = _digest()
     lib = BUILD_DIR / LIB_NAME
@@ -116,18 +140,23 @@ def build(verbose: bool = False) -> pathlib.Path:
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_PKG / "csrc"), "-o", str(tmp),
-           *[str(s) for s in sources()]]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
+    tag = os.getpid()
+    tmp = BUILD_DIR / f".{LIB_NAME}.{tag}"
+    ptxas = ["-Xptxas=-v"] if verbose else []
+    objs, compiles = [], []
+    for src in sources():
+        obj = BUILD_DIR / f".{src.parent.parent.name}_{src.stem}.{tag}.o"
+        objs.append(obj)
+        compiles.append([_nvcc(), *ptxas, *NVCC_FLAGS, "-I",
+                         str(_PKG / "csrc"), "-c", "-o", str(obj), str(src)])
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
+    try:
+        _run_all(compiles, verbose)
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]], False)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, lib)
     stamp.write_text(digest)
     last_build_seconds = time.perf_counter() - t0

@@ -40,6 +40,65 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// x rounded to T and back: the value a T tensor stores for the f32 x
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+// 16 bytes of T as f32 values (8 bf16 or 4 f32), loaded and stored whole;
+// the pointer must be 16-byte aligned.  ``unpack`` turns 16 raw bytes
+// already in registers into the values, so a kernel can issue its loads
+// first and convert after.
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  static constexpr int N = 4;
+  __device__ static void unpack(const uint4& v, float (&f)[N]) {
+    f[0] = __uint_as_float(v.x); f[1] = __uint_as_float(v.y);
+    f[2] = __uint_as_float(v.z); f[3] = __uint_as_float(v.w);
+  }
+  __device__ static void load(const float* p, float (&f)[N]) {
+    unpack(*reinterpret_cast<const uint4*>(p), f);
+  }
+  __device__ static void store(float* p, const float (&f)[N]) {
+    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+  }
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void unpack(const uint4& v, float (&f)[N]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float2 t = __bfloat1622float2(h[i]);
+      f[2 * i] = t.x;
+      f[2 * i + 1] = t.y;
+    }
+  }
+  __device__ static void load(const __nv_bfloat16* p, float (&f)[N]) {
+    unpack(*reinterpret_cast<const uint4*>(p), f);
+  }
+  __device__ static void store(__nv_bfloat16* p, const float (&f)[N]) {
+    uint4 v;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = v;
+  }
+};
+
+__device__ __forceinline__ uint4 load16(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -6,6 +6,10 @@
 //   B5 chunk_amax_kernel        <- chunk_amax_pallas
 //   B6 chunk_quantize_kernel    <- chunk_quantize_pallas (int8, fp8)
 //   B9 chunk_dequantize_kernel  <- chunk_dequantize_pallas (int8, fp8)
+// and, on the int8/fp8 wire of a TP decode step, B9 fused with the residual
+// add and the RMSNorm after it (B1, rownorm.cuh):
+//   B9 + add + B1 dequantize_add_rmsnorm <- chunk_dequantize_pallas, the
+//           add x + ... (src/repro/core/parallel_exec.py), rms_norm_pallas
 // and, on the int4 wire, fused with the work beside them:
 //   B6 + B7 chunk_quantize_pack_kernel       <- chunk_quantize_pallas,
 //                                               nibble_pack_pallas
@@ -51,12 +55,18 @@
 //     t in f32 (IEEE), rounds half to even with rintf (torch.round and
 //     jnp.round do) and clips to [-7, 7]: at t = 2, r = 1 -> 0, 3 -> 2;
 //   * a nibble n sign-extends as (n ^ 8) - 8;
-//   * B9 multiplies in f32 and rounds once to the output type.
+//   * B9 multiplies in f32 and rounds once to the output type;
+//     dequantize_add_rmsnorm rounds that product to x's type as B9 does
+//     (__fmul_rn, so the add after it is not contracted into an FMA), adds
+//     x and rounds again, as the chain's x + d does: s is bit for bit the
+//     chain's, and n is B1's of s.  One launch in place of three, and
+//     neither the dequantized tensor nor s is read back from memory.
 #include <cuda_fp8.h>
 
 #include <algorithm>
 
 #include "common.cuh"
+#include "rownorm.cuh"
 
 namespace repro {
 namespace {
@@ -70,32 +80,6 @@ constexpr int kMaxBlocks = 132 * 16;   // grid-stride cap: 16 blocks per SM
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || a >= b) ? a : b;
 }
-
-// 16 bytes of T as f32
-template <typename T>
-struct Load16;
-template <>
-struct Load16<float> {
-  static constexpr int N = 4;
-  __device__ static void load(const float* p, float (&f)[N]) {
-    float4 v = *reinterpret_cast<const float4*>(p);
-    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
-  }
-};
-template <>
-struct Load16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float (&f)[N]) {
-    uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 t = __bfloat1622float2(h[i]);
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
-    }
-  }
-};
 
 int grid_for(int64_t n) {
   return static_cast<int>(std::min<int64_t>((n + kThreads - 1) / kThreads,
@@ -117,10 +101,10 @@ chunk_amax_kernel(const T* __restrict__ x, float* __restrict__ out,
   const int start = c * chunk, end = min(start + chunk, h);
   float m = 0.f;               // |x| >= 0: the zero padding of the plain version
   if constexpr (kVector) {
-    constexpr int N = Load16<T>::N;
+    constexpr int N = Vec16<T>::N;
     for (int i = start + lane * N; i < end; i += 32 * N) {
       float f[N];
-      Load16<T>::load(xr + i, f);
+      Vec16<T>::load(xr + i, f);
 #pragma unroll
       for (int j = 0; j < N; ++j) m = nan_max(m, fabsf(f[j]));
     }
@@ -142,7 +126,7 @@ cudaError_t launch_amax(const void* x, float* out, int64_t rows, int h,
   const int K = (h + chunk - 1) / chunk;
   const int64_t warps = rows * K;
   const int blocks = static_cast<int>((warps + kWarps - 1) / kWarps);
-  constexpr int N = Load16<T>::N;
+  constexpr int N = Vec16<T>::N;
   const bool vector = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                       h % N == 0 && chunk % N == 0;
   const T* xp = static_cast<const T*>(x);
@@ -249,6 +233,83 @@ cudaError_t launch_dequantize(const void* q, const float* scales, void* out,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------- B9 + add + B1
+// the rows of x + dequantize(q) (x, q and the outputs contiguous), each
+// value as the chain rounds it: d = round(q * scale), s = round(x + d)
+template <typename T, int kMode>
+struct DequantAddSrc {
+  static constexpr bool kStore = true;
+  static constexpr int N = Vec16<T>::N;
+  struct Raw {
+    uint4 x;
+    uint2 q;    // N bytes: all 8 (bf16) or the first 4 (f32)
+    float s;    // the scale of element e
+  };
+  const uint8_t* q;
+  const float* scales;
+  const T* x;
+  int h, chunk, K;
+
+  __device__ float value(float x_e, uint8_t q_e, float scale) const {
+    return round_to<T>(
+        x_e + round_to<T>(__fmul_rn(wire_to_f32<kMode>(q_e), scale)));
+  }
+  // q: N bytes at an N-byte boundary (the launch checks it)
+  __device__ void fetch(int64_t row, int e, Raw& r) const {
+    r.x = load16(x + row * h + e);
+    if constexpr (N == 8)
+      r.q = *reinterpret_cast<const uint2*>(q + row * h + e);
+    else
+      r.q.x = *reinterpret_cast<const uint32_t*>(q + row * h + e);
+    r.s = scales[row * K + e / chunk];
+  }
+  __device__ void values(int64_t row, int e, const Raw& r,
+                         float (&f)[N]) const {
+    Vec16<T>::unpack(r.x, f);
+    uint8_t b[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      b[j] = static_cast<uint8_t>((j < 4 ? r.q.x : r.q.y) >> (8 * (j % 4)));
+    if (chunk % N == 0) {   // the N values share e's chunk
+#pragma unroll
+      for (int j = 0; j < N; ++j) f[j] = value(f[j], b[j], r.s);
+    } else {
+      const float* sr = scales + row * K;
+#pragma unroll
+      for (int j = 0; j < N; ++j) f[j] = value(f[j], b[j], sr[(e + j) / chunk]);
+    }
+  }
+  __device__ float at(int64_t row, int e) const {
+    return value(to_f32(x[row * h + e]), q[row * h + e],
+                 scales[row * K + e / chunk]);
+  }
+};
+
+template <typename T>
+cudaError_t launch_dequantize_add_rmsnorm(const void* q, const float* scales,
+                                          const void* x, const void* w,
+                                          void* s, void* n, int64_t rows,
+                                          int h, int chunk, float eps,
+                                          int qdtype, cudaStream_t stream) {
+  const int K = (h + chunk - 1) / chunk;
+  const uint8_t* qp = static_cast<const uint8_t*>(q);
+  const T* xp = static_cast<const T*>(x);
+  const bool vector =
+      aligned16(x) && reinterpret_cast<uintptr_t>(q) % Vec16<T>::N == 0;
+  const T* wp = static_cast<const T*>(w);
+  T* sp = static_cast<T*>(s);
+  T* np = static_cast<T*>(n);
+  if (qdtype == kInt8)
+    return launch_rownorm<T>(DequantAddSrc<T, kInt8>{qp, scales, xp, h, chunk,
+                                                     K},
+                             vector, wp, sp, np, rows, h, eps, stream);
+  if (qdtype == kFloat8E4M3)
+    return launch_rownorm<T>(
+        DequantAddSrc<T, kFloat8E4M3>{qp, scales, xp, h, chunk, K}, vector,
+        wp, sp, np, rows, h, eps, stream);
+  return cudaErrorInvalidValue;
+}
+
 // ------------------------------------------------- int4: B6+B7, B8+B9
 // The three passes walk a 2-D grid, x over a row's steps and y over rows,
 // so no thread divides a 64-bit flat index by the row width: at the
@@ -282,7 +343,7 @@ chunk_quantize_pack_kernel(const T* __restrict__ x,
                            const float* __restrict__ scales,
                            uint8_t* __restrict__ out, int64_t rows, int h,
                            int chunk, int K) {
-  constexpr int kPer = kVector ? Load16<T>::N : 2;
+  constexpr int kPer = kVector ? Vec16<T>::N : 2;
   const int steps = h / kPer;
   for (int64_t row = blockIdx.y; row < rows; row += gridDim.y) {
     const T* xr = x + row * h;
@@ -293,7 +354,7 @@ chunk_quantize_pack_kernel(const T* __restrict__ x,
       const int j = c * kPer;
       float f[kPer];
       if constexpr (kVector) {
-        Load16<T>::load(xr + j, f);
+        Vec16<T>::load(xr + j, f);
       } else {
         f[0] = to_f32(xr[j]);
         f[1] = to_f32(xr[j + 1]);
@@ -324,7 +385,7 @@ template <typename T, bool kVector>
 void launch_quantize_pack_v(const T* x, const float* scales, uint8_t* out,
                             int64_t rows, int h, int chunk, int K,
                             cudaStream_t stream) {
-  constexpr int kPer = kVector ? Load16<T>::N : 2;
+  constexpr int kPer = kVector ? Vec16<T>::N : 2;
   const dim3 grid = row_grid(rows, h / kPer);
   if (chunk % kPer == 0)
     chunk_quantize_pack_kernel<T, kVector, true>
@@ -340,7 +401,7 @@ cudaError_t launch_quantize_pack(const void* x, const float* scales,
                                  cudaStream_t stream) {
   const int K = (h + chunk - 1) / chunk;
   const T* xp = static_cast<const T*>(x);
-  if (reinterpret_cast<uintptr_t>(x) % 16 == 0 && h % Load16<T>::N == 0)
+  if (reinterpret_cast<uintptr_t>(x) % 16 == 0 && h % Vec16<T>::N == 0)
     launch_quantize_pack_v<T, true>(xp, scales, out, rows, h, chunk, K,
                                     stream);
   else
@@ -536,5 +597,25 @@ REPRO_EXPORT int repro_nibble_unpack_dequantize(const void* b,
   if (dtype == repro::kBFloat16)
     return repro::launch_unpack_dequantize<__nv_bfloat16>(bp, sc, out, rows,
                                                           m, chunk, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+REPRO_EXPORT int repro_dequantize_add_rmsnorm(const void* q,
+                                              const void* scales,
+                                              const void* x, const void* w,
+                                              void* s, void* n, long long rows,
+                                              int h, int chunk, float eps,
+                                              int qdtype, int dtype,
+                                              void* stream) {
+  if (rows <= 0 || h <= 0 || chunk <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scales);
+  if (dtype == repro::kFloat32)
+    return repro::launch_dequantize_add_rmsnorm<float>(
+        q, sc, x, w, s, n, rows, h, chunk, eps, qdtype, st);
+  if (dtype == repro::kBFloat16)
+    return repro::launch_dequantize_add_rmsnorm<__nv_bfloat16>(
+        q, sc, x, w, s, n, rows, h, chunk, eps, qdtype, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,11 +1,12 @@
 """Dispatch and numerics contract of the quantized collectives.
 
-``chunk_amax`` (B5), ``chunk_quantize`` (B6), ``chunk_dequantize`` (B9)
-and the int4 wire's three fused passes, ``chunk_quantize_pack`` (B6 + B7),
-``nibble_reduce_requant`` (B8, exact sum, requantize, B7) and
-``nibble_unpack_dequantize`` (B8 + B9), launch their CUDA kernel on a CUDA
-tensor and run the plain version on a CPU tensor; a ``*_cuda`` wrapper
-raises on anything its kernel does not take.
+``chunk_amax`` (B5), ``chunk_quantize`` (B6), ``chunk_dequantize`` (B9),
+the int8/fp8 wire's ``dequantize_add_rms_norm`` (B9, the residual add and
+the RMSNorm after it, B1), and the int4 wire's three fused passes,
+``chunk_quantize_pack`` (B6 + B7), ``nibble_reduce_requant`` (B8, exact
+sum, requantize, B7) and ``nibble_unpack_dequantize`` (B8 + B9), launch
+their CUDA kernel on a CUDA tensor and run the plain version on a CPU
+tensor; a ``*_cuda`` wrapper raises on anything its kernel does not take.
 
 The numerics contract is a copy of ``repro.kernels.quant_collective.ops``
 with torch dtypes (the port imports nothing of the JAX package):
@@ -27,8 +28,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.quant_collective.ref import (
     chunk_amax_ref, chunk_dequantize_ref, chunk_quantize_pack_ref,
-    chunk_quantize_ref, nibble_reduce_requant_ref,
-    nibble_unpack_dequantize_ref)
+    chunk_quantize_ref, dequantize_add_rms_norm_ref,
+    nibble_reduce_requant_ref, nibble_unpack_dequantize_ref)
 
 # int4 has no torch dtype: its values lie on the int8 grid (|q| <= 7) and
 # travel packed two per uint8 byte; the fused int4 passes pack and unpack
@@ -120,6 +121,15 @@ def chunk_dequantize(q, scales, chunk: int = DEFAULT_CHUNK,
     if q.device.type == "cpu":
         return chunk_dequantize_ref(q, scales, chunk, out_dtype)
     return chunk_dequantize_cuda(q, scales, chunk, out_dtype)
+
+
+def dequantize_add_rms_norm(q, scales, chunk: int, x, weight,
+                            eps: float = 1e-5):
+    """int8/fp8 post-pass with the residual add and the next norm: (s, n),
+    s = x + chunk_dequantize(q) in x's type, n = rms_norm(s)."""
+    if q.device.type == "cpu":
+        return dequantize_add_rms_norm_ref(q, scales, chunk, x, weight, eps)
+    return dequantize_add_rms_norm_cuda(q, scales, chunk, x, weight, eps)
 
 
 def chunk_quantize_pack(x, scales, chunk: int = DEFAULT_CHUNK):
@@ -227,6 +237,34 @@ def chunk_dequantize_cuda(q, scales, chunk: int = DEFAULT_CHUNK,
     _build.check(rc, name)
     _build.count("chunk_dequantize")
     return out
+
+
+def dequantize_add_rms_norm_cuda(q, scales, chunk: int, x, weight,
+                                 eps: float = 1e-5):
+    """Launch B9 + residual add + B1 fused: q [..., h] (int8 or
+    float8_e4m3fn), f32 scales [..., K], x [..., h] (float32 or bfloat16)
+    and weight [h] of x's type -> (s, n), new [..., h] of x's type; all
+    contiguous.  Pointers off a 16-byte boundary (q off an 8-byte one for
+    bf16, 4 for f32) take the kernel's element path."""
+    name = "dequantize_add_rms_norm_cuda"
+    qcode = _check_input(name, q, WIRE_TYPES)
+    _check_scales(name, q, scales, chunk)
+    code = _check_input(name, x, FLOAT_TYPES)
+    if x.device != q.device or x.shape != q.shape:
+        raise ValueError(f"{name}: x is {tuple(x.shape)} on {x.device}, q "
+                         f"{tuple(q.shape)} on {q.device}")
+    h = x.shape[-1]
+    _build.require(name, "weight", weight, x.device, x.dtype, (h,))
+    s = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    n = torch.empty_like(s)
+    with torch.cuda.device(x.device):
+        rc = _build.lib().repro_dequantize_add_rmsnorm(
+            q.data_ptr(), scales.data_ptr(), x.data_ptr(), weight.data_ptr(),
+            s.data_ptr(), n.data_ptr(), x.numel() // h, h, chunk, float(eps),
+            qcode, code, _build.stream_ptr(x.device))
+    _build.check(rc, name)
+    _build.count("dequantize_add_rms_norm")
+    return s, n
 
 
 def chunk_quantize_pack_cuda(x, scales, chunk: int = DEFAULT_CHUNK):

@@ -11,6 +11,10 @@ dense ops on the activation row entering a TP all-reduce:
 * ``nibble_unpack_ref``    (B8) the inverse, sign-extending each nibble,
 * ``chunk_dequantize_ref`` (B9) back to the working dtype.
 
+On the int8/fp8 wire the dequantize is followed by the residual add and
+the next RMSNorm; ``dequantize_add_rms_norm_ref`` is that chain (B9, the
+add, B1), which one kernel runs on the card.
+
 The int4 wire runs them as three fused passes, each the composition of the
 ops above (and of the JAX package's jnp requantize):
 
@@ -27,6 +31,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.rmsnorm.ref import add_rms_norm_ref
 
 FP8_MAX = 448.0            # finfo(float8_e4m3fn).max
 
@@ -76,6 +82,14 @@ def chunk_dequantize_ref(q, scales, chunk: int, out_dtype):
     qp, k = _pad_to_chunks(q.float(), chunk)
     xc = qp.reshape(*q.shape[:-1], k, chunk) * scales[..., None]
     return xc.reshape(*q.shape[:-1], k * chunk)[..., :h].to(out_dtype)
+
+
+def dequantize_add_rms_norm_ref(q, scales, chunk: int, x, weight,
+                                eps: float = 1e-5):
+    """B9, the residual add and B1: (s, n) with d = chunk_dequantize_ref(q)
+    in the type of x, s = x + d and n = rms_norm_ref(s)."""
+    d = chunk_dequantize_ref(q, scales, chunk, x.dtype)
+    return add_rms_norm_ref(x, d, weight, eps)
 
 
 def nibble_pack_ref(q):

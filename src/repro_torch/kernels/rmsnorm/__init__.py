@@ -1,1 +1,1 @@
-from repro_torch.kernels.rmsnorm.ops import rms_norm  # noqa: F401
+from repro_torch.kernels.rmsnorm.ops import add_rms_norm, rms_norm  # noqa: F401

@@ -4,10 +4,17 @@ Counterpart of ``repro.models.blocks`` (dense family).  Block API, as the
 trunk in ``transformer.py`` calls it per layer:
 
     dense_block_apply(cfg, p_l, x, positions, cache=None, pos=None,
-                      build_cache_w=None, block_table=None, plain=False)
+                      build_cache_w=None, block_table=None, plain=False,
+                      carry=False)
         -> (y, cache_out)
 
-``p_l`` is one layer's slice of the stacked [L, ...] parameters.  The
+``p_l`` is one layer's slice of the stacked [L, ...] parameters.  With
+``carry=True`` the trunk hands the residual stream over as a pair
+(h, x), the layer's input being x + h: the add that closes the previous
+layer runs inside this layer's ln1 (one ``add_rms_norm`` kernel on the
+card; h is None at layer 0), the attention add inside ln2, and the layer
+returns ((mlp_out, s), cache_out), its own closing add left to the next
+norm site (the next layer's ln1, or the final norm).  The
 attention branches go through the hand-written kernels (``plain=False``):
 
   * full-sequence prefill            -> B2 (offset 0, kv_len = S)
@@ -17,8 +24,8 @@ attention branches go through the hand-written kernels (``plain=False``):
                                         offsets pos[b] and kv_len pos[b] + S
 
 ``plain=True`` runs the JAX package's own path instead — the materialised
-masks and ``layers.gqa_attention``, and the plain RMSNorm — which is what
-the kernel path is held to on the whole model.
+masks and ``layers.gqa_attention``, and the plain RMSNorm and residual
+adds — which is what the kernel path is held to on the whole model.
 """
 from __future__ import annotations
 
@@ -28,7 +35,6 @@ from repro_torch.config.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                       paged_decode_attention)
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
 from repro_torch.models import layers
 from repro_torch.models.layers import apply_rope, gqa_attention, mlp_apply
 
@@ -132,12 +138,13 @@ def init_dense_blocks(gen, cfg: ModelConfig, L: int, dtype):
 
 def dense_block_apply(cfg: ModelConfig, p, x, positions, cache=None,
                       pos=None, build_cache_w=None, block_table=None,
-                      plain: bool = False):
-    norm = rms_norm_ref if plain else layers.rms_norm
+                      plain: bool = False, carry: bool = False):
+    h, x = x if carry else (None, x)
+    x, xn = layers.add_norm(x, h, p["ln1"], cfg.norm_eps, plain)
     attn_out, cache_out = attention_apply(
-        cfg, p, norm(x, p["ln1"], cfg.norm_eps), positions, cache=cache,
-        pos=pos, build_cache_w=build_cache_w, block_table=block_table,
-        plain=plain)
-    x = x + attn_out @ p["wo"]
-    x = x + mlp_apply(p, norm(x, p["ln2"], cfg.norm_eps), cfg.activation)
-    return x, cache_out
+        cfg, p, xn, positions, cache=cache, pos=pos,
+        build_cache_w=build_cache_w, block_table=block_table, plain=plain)
+    x, xn = layers.add_norm(x, attn_out @ p["wo"], p["ln2"], cfg.norm_eps,
+                            plain)
+    out = mlp_apply(p, xn, cfg.activation)
+    return ((out, x) if carry else x + out), cache_out

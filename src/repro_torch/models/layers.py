@@ -2,8 +2,10 @@
 updates, the plain GQA attention and the SwiGLU/GeGLU MLP.
 
 Counterpart of ``repro.models.layers`` (dense subset).  ``rms_norm`` goes
-through kernel B1 on a CUDA tensor; ``gqa_attention`` and the mask builders
-are the plain path the attention kernels are held to on the whole model.
+through kernel B1 on a CUDA tensor, ``add_norm`` (a norm site of the
+trunk, with the residual add before it) through ``add_rms_norm``;
+``gqa_attention`` and the mask builders are the plain path the attention
+kernels are held to on the whole model.
 The cache updates write in place (the JAX package donated the buffer and
 rebuilt it functionally).
 """
@@ -15,7 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.kernels.rmsnorm.ops import rms_norm  # noqa: F401  (B1)
+from repro_torch.kernels.rmsnorm.ops import add_rms_norm, rms_norm  # (B1)
+from repro_torch.kernels.rmsnorm.ref import add_rms_norm_ref, rms_norm_ref
 
 NEG_INF = torch.finfo(torch.float32).min
 
@@ -39,6 +42,18 @@ def dense_init(gen: torch.Generator, shape, dtype, scale=None):
     x = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
     return (x * scale).to(dtype)
+
+
+def add_norm(x, y, weight, eps: float, plain: bool = False):
+    """A norm site of the trunk: (s, n) with s = x + y, the residual stream
+    once the add that closes the branch y is done (s = x when y is None),
+    and n = rms_norm(s).  On the card one kernel runs both
+    (``add_rms_norm``; B1 alone when y is None); ``plain=True`` runs the
+    plain versions, which are the unfused chain."""
+    if y is None:
+        x = x.contiguous()
+        return x, (rms_norm_ref if plain else rms_norm)(x, weight, eps)
+    return (add_rms_norm_ref if plain else add_rms_norm)(x, y, weight, eps)
 
 
 # ---------------------------------------------------------------------------

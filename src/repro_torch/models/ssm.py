@@ -15,7 +15,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
 from repro_torch.kernels.rwkv6_scan.chunked import wkv6_chunked
 from repro_torch.kernels.rwkv6_scan.ops import wkv6
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
@@ -126,11 +125,15 @@ def init_ssm_cache(cfg: ModelConfig, L: int, batch: int, dtype, device):
 
 
 def ssm_block_apply(cfg: ModelConfig, p, x, positions, cache=None, pos=None,
-                    build_cache_w=None, plain: bool = False, scan=None):
+                    build_cache_w=None, plain: bool = False, scan=None,
+                    carry: bool = False):
     """One RWKV-6 layer.  ``positions`` and ``pos`` are unused (the block
     has no positional encoding), as in JAX.  With ``cache`` (one layer's
     {state, tm_prev, cm_prev}) the cache is updated in place and returned;
-    with ``build_cache_w`` a new one is returned; else None."""
+    with ``build_cache_w`` a new one is returned; else None.  ``carry``
+    passes the residual stream as the pair (h, x) in and out, the residual
+    adds fused into the norm sites, as ``blocks.dense_block_apply`` does."""
+    h_in, x = x if carry else (None, x)
     B = x.shape[0]
     H, hs, h = cfg.num_heads, cfg.ssm.head_size, cfg.d_model
     if cache is None:
@@ -140,16 +143,14 @@ def ssm_block_apply(cfg: ModelConfig, p, x, positions, cache=None, pos=None,
     else:
         state, tm_prev, cm_prev = (cache["state"], cache["tm_prev"],
                                    cache["cm_prev"])
-    norm = rms_norm_ref if plain else layers.rms_norm
-
+    x, xn = layers.add_norm(x, h_in, p["ln1"], cfg.norm_eps, plain)
     y, tm_last, new_state = rwkv_time_mix(
-        cfg, p, norm(x, p["ln1"], cfg.norm_eps), tm_prev, state,
+        cfg, p, xn, tm_prev, state,
         state_out=state if cache is not None else None, plain=plain,
         scan=scan)
-    x = x + y
-    y2, cm_last = rwkv_channel_mix(cfg, p, norm(x, p["ln2"], cfg.norm_eps),
-                                   cm_prev)
-    x = x + y2
+    x, xn = layers.add_norm(x, y, p["ln2"], cfg.norm_eps, plain)
+    y2, cm_last = rwkv_channel_mix(cfg, p, xn, cm_prev)
+    x = (y2, x) if carry else x + y2
 
     if cache is not None:
         if new_state is not state:

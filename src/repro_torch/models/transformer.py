@@ -8,7 +8,10 @@ Parameters keep the JAX package's layout — a dict with ``blocks`` stacked
 on a leading [L, ...] axis, ``embed`` [V_pad, h], ``lm_head`` [h, V_pad]
 and ``final_norm`` [h] — so ``repro_torch.bridge`` carries JAX weights
 over unchanged.  The layer loop is a Python loop (the JAX package scanned
-it), and caches are updated in place (the JAX package donated them).
+it), and caches are updated in place (the JAX package donated them).  The
+loop carries the residual stream as a pair (h, x), so every residual add
+runs inside the norm after it (``blocks`` module doc); the values are the
+JAX package's chain, add then norm.
 
 Entry points:
   prefill(params, tokens, max_len)       last-position logits + cache (a
@@ -27,11 +30,10 @@ import math
 import torch
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
 from repro_torch.models import blocks as blocks_lib
 from repro_torch.models import layers as layers_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import dense_init, rms_norm, torch_dtype
+from repro_torch.models.layers import add_norm, dense_init, torch_dtype
 
 _BLOCKS = {
     "dense": (blocks_lib.init_dense_blocks, blocks_lib.dense_block_apply),
@@ -81,7 +83,6 @@ class Model:
         self.cfg = cfg
         self.plain = bool(plain)
         self._init_blocks, self._block_apply = _BLOCKS[cfg.family]
-        self._norm = rms_norm_ref if plain else rms_norm
 
     # ------------------------------------------------------------- params
     def init(self, seed: int = 0, device=None) -> dict:
@@ -115,9 +116,14 @@ class Model:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
         return x
 
-    def _head(self, params, x):
+    def _head(self, params, carried):
+        """Logits [B, v] of the last position.  ``carried`` is the trunk's
+        (h, x) after the last layer: the final norm runs the last layer's
+        closing residual add, at the last position only."""
         cfg = self.cfg
-        x = self._norm(x.contiguous(), params["final_norm"], cfg.norm_eps)
+        h, x = carried
+        _, x = add_norm(x[:, -1], None if h is None else h[:, -1],
+                        params["final_norm"], cfg.norm_eps, self.plain)
         if cfg.tie_embeddings:
             logits = x @ params["embed"].T
         else:
@@ -137,8 +143,9 @@ class Model:
         return {name: w[l] for name, w in params["blocks"].items()}
 
     def _block(self, p_l, x, positions, **kw):
+        """One layer on the carried pair (h, x) (``blocks`` module doc)."""
         return self._block_apply(self.cfg, p_l, x, positions,
-                                 plain=self.plain, **kw)
+                                 plain=self.plain, carry=True, **kw)
 
     # ---------------------------------------------------------- interface
     def prefill(self, params, tokens, max_len: int):
@@ -153,6 +160,7 @@ class Model:
         positions = torch.arange(S, device=x.device).expand(B, S)
         w = self.cache_width(max_len)
         cache = None
+        x = (None, x)
         for l in range(L):
             x, c = self._block(self._layer(params, l), x, positions,
                                build_cache_w=w)
@@ -161,7 +169,7 @@ class Model:
                          for key, val in c.items()}
             for key, val in c.items():
                 cache[key][l] = val
-        return self._head(params, x[:, -1:, :])[:, 0], cache, S
+        return self._head(params, x), cache, S
 
     def init_cache(self, batch: int, max_len: int, device=None):
         """An empty cache for ``batch`` sequences: the ring KV cache
@@ -206,12 +214,13 @@ class Model:
         block_table = torch.as_tensor(block_table, dtype=torch.int32,
                                       device=x.device)
         positions = pos[:, None].long() + torch.arange(S, device=x.device)
+        x = (None, x)
         for l in range(self.cfg.num_layers):
             layer_cache = {key: cache[key][l] for key in ("k", "v")}
             x, _ = self._block(self._layer(params, l), x, positions,
                                cache=layer_cache, pos=pos,
                                block_table=block_table)
-        return self._head(params, x[:, -1:, :])[:, 0], cache
+        return self._head(params, x), cache
 
     def decode_step(self, params, cache, tokens, pos):
         """One step: tokens [B]; ``pos`` a scalar (every sequence at one
@@ -221,11 +230,12 @@ class Model:
         B = x.shape[0]
         pos = torch.as_tensor(pos, device=x.device)
         positions = layers_lib.decode_positions(pos, B, device=x.device)
+        x = (None, x)
         for l in range(self.cfg.num_layers):
             layer_cache = {key: val[l] for key, val in cache.items()}
             x, _ = self._block(self._layer(params, l), x, positions,
                                cache=layer_cache, pos=pos)
-        return self._head(params, x)[:, 0], cache
+        return self._head(params, x), cache
 
     def decode_steps(self, params, cache, tokens, pos, num_tokens: int):
         """Greedy multi-token decode (see ``greedy_decode_loop``)."""

@@ -8,6 +8,9 @@ JAX nor the JAX package, so it runs on a machine with only PyTorch:
 
 Tolerances: bf16 rounds the output once on each side, so the two may land
 one bf16 ulp apart (2^-8 relative); f32 differs only in summation order.
+The fused norms (``add_rms_norm``, ``dequantize_add_rms_norm``) hold their
+s output, the new residual stream, bit for bit to the plain add, and n to
+B1's tolerance and bit for bit to ``rms_norm_cuda(s)`` (one reduction tree).
 B10 (the WKV6 recurrence, both its kernels) is held to the same
 tolerances: its f32 state updates are contracted to FMAs and summed in
 another order, about one f32 ulp per step over these short sequences.  The
@@ -64,6 +67,56 @@ def test_rmsnorm_kernel(cuda, dtype, tol, rows, h):
     rnd = _rand(cuda, dtype)
     x, w = rnd(rows, h), 0.1 * rnd(h)
     _close(rops.rms_norm_cuda(x, w), rref.rms_norm_ref(x, w), tol)
+
+
+# rows: one, a decode step's 4 slots, a ragged prefill, more rows than the
+# card holds CTAs at once (each CTA takes several); h: llama32-3b's and
+# rwkv6-7b's widths (the 16-byte path) and an odd one (the element path);
+# "shifted": x off a 16-byte boundary (the element path, which sums in the
+# 16-byte path's order); "last": the last position of each of two
+# sequences, a row-strided view (the final norm of a prefill pass)
+NORM_CASES = [pytest.param(r, h, "", id=f"{r}x{h}")
+              for r in (1, 4, 333, 2048) for h in (3072, 4096)]
+NORM_CASES += [pytest.param(5, 1001, "", id="5x1001"),
+               pytest.param(4, 3072, "shifted", id="4x3072-shifted"),
+               pytest.param(2, 3072, "last", id="2x3072-last")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("rows,h,view", NORM_CASES)
+def test_fused_norm_kernels(cuda, dtype, tol, rows, h, view):
+    """B1, add_rms_norm and dequantize_add_rms_norm (int8, fp8) against
+    their plain versions: s bit for bit, n within the tolerance, and n bit
+    for bit the redesigned B1's of s."""
+    rnd = _rand(cuda, dtype, seed=rows + h)
+    x, y, w = rnd(rows, h), rnd(rows, h), 0.1 * rnd(h)
+    if view == "shifted":
+        x = rnd(rows * h + 1)[1:].view(rows, h)
+    elif view == "last":
+        x, y = rnd(rows, 33, h)[:, -1], rnd(rows, 33, h)[:, -1]
+    if view != "last":
+        _close(rops.rms_norm_cuda(x, w), rref.rms_norm_ref(x, w), tol)
+    s, n = rops.add_rms_norm_cuda(x, y, w)
+    want_s, want_n = rref.add_rms_norm_ref(x, y, w)
+    assert torch.equal(_bits(s), _bits(want_s))
+    _close(n, want_n, tol)
+    assert torch.equal(_bits(n), _bits(rops.rms_norm_cuda(s, w)))
+    if view == "last":
+        return
+    chunk = 128 if h % 128 == 0 else 77
+    y = y.contiguous()
+    for quant in ("int8", "fp8"):
+        scales = qops.scales_from_amax(qops.chunk_amax_cuda(y, chunk),
+                                       qops.collective_qmax(quant, 4))
+        q = qops.chunk_quantize_cuda(y, scales, chunk,
+                                     qops.QUANT_DTYPES[quant])
+        s, n = qops.dequantize_add_rms_norm_cuda(q, scales, chunk, x, w)
+        want_s, want_n = qref.dequantize_add_rms_norm_ref(q, scales, chunk,
+                                                          x, w)
+        assert torch.equal(_bits(s), _bits(want_s))
+        _close(n, want_n, tol)
+        assert torch.equal(_bits(n), _bits(rops.rms_norm_cuda(s, w)))
 
 
 # B2 across its tiling: S below, at and off one 64-query tile, a paged
@@ -339,6 +392,30 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         rops.rms_norm_cuda(x.half(), rnd(64).half())
     with pytest.raises(ValueError, match="contiguous"):
         rops.rms_norm_cuda(x.t(), rnd(4))
+    # the fused norms: y unlike x, rows at no one stride, a strided last
+    # axis; a wire payload of another shape than x, scales of the wrong
+    # shape, a strided payload
+    with pytest.raises(ValueError, match="y is"):
+        rops.add_rms_norm_cuda(x, rnd(4, 32), rnd(64))
+    with pytest.raises(TypeError):
+        rops.add_rms_norm_cuda(x.half(), x.half(), rnd(64).half())
+    uneven = rnd(4, 6, 64)[:, :3, :32]
+    with pytest.raises(ValueError, match="one stride"):
+        rops.add_rms_norm_cuda(uneven, uneven, rnd(32))
+    with pytest.raises(ValueError, match="last axis"):
+        rops.add_rms_norm_cuda(x.t(), x.t(), rnd(4))
+    q8 = torch.zeros(4, 64, dtype=torch.int8, device=cuda)
+    s2 = torch.ones(4, 2, device=cuda)
+    with pytest.raises(ValueError, match="x is"):
+        qops.dequantize_add_rms_norm_cuda(q8, s2, 32, rnd(4, 32), rnd(32))
+    with pytest.raises(ValueError, match="scales"):
+        qops.dequantize_add_rms_norm_cuda(q8, s2[:, :1].contiguous(), 32, x,
+                                          rnd(64))
+    with pytest.raises(ValueError, match="contiguous"):
+        qops.dequantize_add_rms_norm_cuda(q8.t(), s2, 32, x.t(), rnd(4))
+    with pytest.raises(TypeError):
+        qops.dequantize_add_rms_norm_cuda(q8.to(torch.uint8), s2, 32, x,
+                                          rnd(64))
     q, k = rnd(1, 8, 3, 48), rnd(1, 8, 1, 48)
     with pytest.raises(ValueError, match="head_dim"):
         fops.flash_attention_cuda(q, k, k, _i32(cuda, [0]), _i32(cuda, [8]))
@@ -425,6 +502,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     x = torch.ones(2, 8)
     with pytest.raises(ValueError, match="CUDA"):
         rops.rms_norm_cuda(x, torch.zeros(8))
+    with pytest.raises(ValueError, match="CUDA"):
+        rops.add_rms_norm_cuda(x, x, torch.zeros(8))
     q = torch.ones(1, 4, 2, 32)
     with pytest.raises(ValueError, match="CUDA"):
         fops.flash_attention_cuda(q, q, q, torch.zeros(1, dtype=torch.int32),
@@ -444,6 +523,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     for call in (lambda: qops.chunk_amax_cuda(x),
                  lambda: qops.chunk_quantize_cuda(x, s, 8),
                  lambda: qops.chunk_dequantize_cuda(x.to(torch.int8), s, 8),
+                 lambda: qops.dequantize_add_rms_norm_cuda(
+                     x.to(torch.int8), s, 8, x, torch.zeros(8)),
                  lambda: qops.chunk_quantize_pack_cuda(x, s, 8),
                  lambda: qops.nibble_reduce_requant_cuda(x.to(torch.uint8), 2),
                  lambda: qops.nibble_unpack_dequantize_cuda(
