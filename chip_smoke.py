@@ -9,15 +9,17 @@ Phases:
      fused in, add_rms_norm, and on the int8/fp8 wire also the dequantize,
      dequantize_add_rms_norm; B2 flash prefill, B3 contiguous and B4 paged
      flash-decode, B5, B6, B9 the quantized all-reduce's amax, quantize and
-     dequantize, the int4 wire's three fused passes that hold B7 nibble
-     pack and B8 unpack, B10 the RWKV-6 WKV recurrence) against its plain
-     PyTorch version at the main paths' shapes, in bf16 and f32 — B1–B4
-     and B10 within the tolerance stated, the quantization kernels and the
-     fused norms' s bit for bit; times of the kernel, the plain version and
-     one library call computing the same function (where one exists),
-     beside the card's bound for the work (and the launch floor for the
-     norms and the quantization kernels; for the fused norms also the
-     unfused chain they replace);
+     dequantize — B6 from the scales and from the all-reduced abs-max, its
+     written scales against scales_from_amax —, the int4 wire's three fused
+     passes that hold B7 nibble pack and B8 unpack, B10 the RWKV-6 WKV
+     recurrence) against its plain PyTorch version at the main paths'
+     shapes, in bf16 and f32 — B1–B4 and B10 within the tolerance stated,
+     the quantization kernels and the fused norms' s bit for bit; times of
+     the kernel, the plain version and one library call computing the same
+     function (where one exists), beside the card's bound for the work (and
+     the launch floor for the norms and the quantization kernels, an empty
+     kernel at B5's and B6's grids; for the fused norms and B6 from the
+     abs-max also the chain they replace);
   3. the serving path at the full width of llama32-3b (random weights from
      a seed, made on the card): InferenceEngine.generate, the contiguous
      Scheduler and the paged Scheduler with chunked prefill, one decode
@@ -546,10 +548,20 @@ def quant_kernel_phase(dev, iters: int):
     (chunk_quantize_pack = B6 + B7, nibble_reduce_requant = B8 + exact sum
     + requantize + B7, nibble_unpack_dequantize = B8 + B9) against their
     plain versions, bit for bit, at the decode shape, a ragged h = 160,
-    chunk = 64 and an odd chunk (pairs straddle two scales), bf16 and f32
-    inputs, at t = 4: the fused kernels on t ranks' rows through the comm
-    layer's all-to-all and all-gather, as ``quantized_psum`` runs them.
-    Times at the decode shape in bf16, beside the launch floor."""
+    chunk = 64 and an odd chunk (B6's pairs straddle two scales), bf16 and f32 inputs, at t = 4.  B6 and the int4 pre-pass run
+    from the scales and from the all-reduced abs-max, as quantized_psum
+    runs them (the shared scale computed in the kernel; rank 0's launch
+    writes the scales, times t on int4, which are checked against
+    scales_from_amax too); the fused int4 kernels on t ranks' rows through
+    the comm layer's all-to-all and all-gather.  Times at the decode shape
+    in bf16, beside the launch floor, an empty kernel at B5's and B6's
+    grids, and the chain the abs-max source replaced (scales_from_amax,
+    then B6 from the scales).  B5 and B6 (and the empty kernel) launch by
+    programmatic dependent launch, so ``bench``'s back-to-back launches
+    overlap each other's tails, as the t launches of each do on the step;
+    ``torch.cuda._sleep(0)`` launches as usual.  So B6's and the int4
+    pre-pass's rows also time the whole int8 and int4 all-reduce at t
+    ranks that they sit in (``allreduce_ms``)."""
     from repro_torch.core import comm
     from repro_torch.kernels.quant_collective import ops as qops
     from repro_torch.kernels.quant_collective import ref as qref
@@ -568,48 +580,67 @@ def quant_kernel_phase(dev, iters: int):
             amax = qops.chunk_amax_cuda(x, chunk)
             bitwise(f"B5 chunk_amax {where}", amax,
                     qref.chunk_amax_ref(x, chunk))
+            group = comm.VirtualGroup(TP)
+            shared = group.all_reduce([qops.chunk_amax_cuda(a, chunk)
+                                       for a in xs], op="max")
             for quant in ("int8", "fp8"):
-                scales = qops.scales_from_amax(
-                    amax, qops.collective_qmax(quant, TP))
+                qmax = qops.collective_qmax(quant, TP)
+                scales = qops.scales_from_amax(amax, qmax)
                 qdt = qops.QUANT_DTYPES[quant]
                 q = qops.chunk_quantize_cuda(x, scales, chunk, qdt)
                 bitwise(f"B6 chunk_quantize {quant} {where}", q,
                         qref.chunk_quantize_ref(x, scales, chunk, qdt))
+                q, s = qops.chunk_quantize_shared_cuda(x, shared, qmax, chunk,
+                                                       qdt, True)
+                want = qref.chunk_quantize_shared_ref(x, shared, qmax, chunk,
+                                                      qdt, True)
+                bitwise(f"B6 from the abs-max {quant} {where}", q, want[0])
+                bitwise(f"B6 its scales == scales_from_amax {quant} {where}",
+                        s, qops.scales_from_amax(shared, qmax))
                 bitwise(f"B9 chunk_dequantize {quant} {where}",
-                        qops.chunk_dequantize_cuda(q, scales, chunk, dt),
-                        qref.chunk_dequantize_ref(q, scales, chunk, dt))
-            # the int4 wire on t ranks, shared scales as quantized_psum
-            # makes them
-            group = comm.VirtualGroup(TP)
-            scales = qops.scales_from_amax(
-                group.all_reduce([qops.chunk_amax_cuda(a, chunk)
-                                  for a in xs], op="max"),
-                qops.collective_qmax("int4", TP))
+                        qops.chunk_dequantize_cuda(q, s, chunk, dt),
+                        qref.chunk_dequantize_ref(q, s, chunk, dt))
+            # the int4 wire on t ranks from the shared abs-max, as
+            # quantized_psum runs it: rank 0 writes the scales times t
+            qmax = qops.collective_qmax("int4", TP)
+            scales = qops.scales_from_amax(shared, qmax)
+            bitwise(f"chunk_quantize_pack from the scales {where}",
+                    qops.chunk_quantize_pack_cuda(x, scales, chunk),
+                    qref.chunk_quantize_pack_ref(x, scales, chunk))
             packed = []
             for r, a in enumerate(xs):
-                packed.append(qops.chunk_quantize_pack_cuda(a, scales, chunk))
-                bitwise(f"chunk_quantize_pack rank {r} {where}", packed[-1],
-                        qref.chunk_quantize_pack_ref(a, scales, chunk))
+                p, st = qops.chunk_quantize_pack_shared_cuda(
+                    a, shared, qmax, chunk, TP, r == 0)
+                packed.append(p)
+                bitwise(f"chunk_quantize_pack rank {r} {where}", p,
+                        qref.chunk_quantize_pack_shared_ref(
+                            a, shared, qmax, chunk, TP)[0])
+                if r == 0:
+                    bitwise(f"chunk_quantize_pack its scales == "
+                            f"scales_from_amax * t {where}", st, scales * TP)
+                    scales_t = st
             reduced = []
             for r, p in enumerate(group.all_to_all(packed, values_per_item=2)):
                 reduced.append(qops.nibble_reduce_requant_cuda(p, TP))
                 bitwise(f"nibble_reduce_requant rank {r} {where}",
                         reduced[-1], qref.nibble_reduce_requant_ref(p, TP))
             gathered = group.all_gather(reduced, values_per_item=2)
-            st = scales * TP
             bitwise(f"nibble_unpack_dequantize {where}",
-                    qops.nibble_unpack_dequantize_cuda(gathered, st, chunk,
-                                                       dt),
-                    qref.nibble_unpack_dequantize_ref(gathered, st, chunk,
-                                                      dt))
+                    qops.nibble_unpack_dequantize_cuda(gathered, scales_t,
+                                                       chunk, dt),
+                    qref.nibble_unpack_dequantize_ref(gathered, scales_t,
+                                                      chunk, dt))
         rws, h = QDECODE
         shapes = {
             "chunk_amax": f"x[{rws},{h}] {dname}, chunk {QCHUNK}",
-            "chunk_quantize": f"x[{rws},{h}] {dname} -> int8, chunk {QCHUNK}",
+            "chunk_quantize": f"x[{rws},{h}] {dname} + amax[{rws},"
+                              f"{h // QCHUNK}] -> int8 + scales, chunk "
+                              f"{QCHUNK}",
             "chunk_dequantize": f"q[{rws},{h}] int8 -> {dname}, chunk "
                                 f"{QCHUNK}",
-            "chunk_quantize_pack": f"x[{rws},{h}] {dname} -> uint8"
-                                   f"[{rws},{h // 2}], chunk {QCHUNK}",
+            "chunk_quantize_pack": f"x[{rws},{h}] {dname} + amax -> uint8"
+                                   f"[{rws},{h // 2}] + scales * t, chunk "
+                                   f"{QCHUNK}",
             "nibble_reduce_requant": f"uint8[{rws},{h // 2}] (t={TP} blocks)"
                                      f" -> uint8[{rws},{h // (2 * TP)}]",
             "nibble_unpack_dequantize": f"uint8[{rws},{h // 2}] -> {dname}"
@@ -623,8 +654,9 @@ def quant_kernel_phase(dev, iters: int):
     n, K = rws * h, -(-h // QCHUNK)
     x = (3 * torch.randn(QDECODE, generator=g, device=dev)).to(torch.bfloat16)
     amax = qops.chunk_amax_cuda(x, QCHUNK)
-    s8 = qops.scales_from_amax(amax, qops.collective_qmax("int8", TP))
-    s4 = qops.scales_from_amax(amax, qops.collective_qmax("int4", TP))
+    q8max, q4max = (qops.collective_qmax(m, TP) for m in ("int8", "int4"))
+    s8 = qops.scales_from_amax(amax, q8max)
+    s4 = qops.scales_from_amax(amax, q4max)
     q8 = qops.chunk_quantize_cuda(x, s8, QCHUNK, torch.int8)
     packed = qops.chunk_quantize_pack_cuda(x, s4, QCHUNK)
     # one rank's all-to-all row: t source blocks of this rank's packed block
@@ -633,7 +665,7 @@ def quant_kernel_phase(dev, iters: int):
             (3 * torch.randn(QDECODE, generator=g, device=dev)).to(
                 torch.bfloat16), s4, QCHUNK) for _ in range(TP)],
         values_per_item=2)[0]
-    bf16 = torch.bfloat16
+    bf16, kb = torch.bfloat16, 4 * rws * K      # kb: one f32 [rows, K]
     # name: (kernel, plain, args, bytes moved, operations, library call);
     # bytes: each input read once, each output written once; operations:
     # the f32 / integer element-wise work the function needs
@@ -641,22 +673,29 @@ def quant_kernel_phase(dev, iters: int):
         "chunk_amax": (
             lambda a: qops.chunk_amax_cuda(a, QCHUNK),
             lambda a: qref.chunk_amax_ref(a, QCHUNK), (x,),
-            2 * n + 4 * rws * K, 2 * n,
+            2 * n + kb, 2 * n,
             lambda a: torch.linalg.vector_norm(a.view(rws, K, QCHUNK),
                                                ord=float("inf"), dim=-1)),
+        # from the abs-max, with the scales write (rank 0's launch):
+        # compare, multiply, select per chunk; divide, round, clip per value
         "chunk_quantize": (
-            lambda a, s: qops.chunk_quantize_cuda(a, s, QCHUNK, torch.int8),
-            lambda a, s: qref.chunk_quantize_ref(a, s, QCHUNK, torch.int8),
-            (x, s8), 2 * n + 4 * rws * K + n, 3 * n, None),
+            lambda a, m: qops.chunk_quantize_shared_cuda(a, m, q8max, QCHUNK,
+                                                         torch.int8, True),
+            lambda a, m: qref.chunk_quantize_shared_ref(a, m, q8max, QCHUNK,
+                                                        torch.int8, True),
+            (x, amax), 2 * n + kb + n + kb, 3 * n + 3 * rws * K, None),
         "chunk_dequantize": (
             lambda q, s: qops.chunk_dequantize_cuda(q, s, QCHUNK, bf16),
             lambda q, s: qref.chunk_dequantize_ref(q, s, QCHUNK, bf16),
-            (q8, s8), n + 4 * rws * K + 2 * n, n, None),
-        # divide, round, clip per element; mask and shift-or per element
+            (q8, s8), n + kb + 2 * n, n, None),
+        # divide, round, clip per element; mask and shift-or per element;
+        # the scale rule and the times t per chunk
         "chunk_quantize_pack": (
-            lambda a, s: qops.chunk_quantize_pack_cuda(a, s, QCHUNK),
-            lambda a, s: qref.chunk_quantize_pack_ref(a, s, QCHUNK),
-            (x, s4), 2 * n + 4 * rws * K + n // 2, 5 * n, None),
+            lambda a, m: qops.chunk_quantize_pack_shared_cuda(
+                a, m, q4max, QCHUNK, TP, True),
+            lambda a, m: qref.chunk_quantize_pack_shared_ref(
+                a, m, q4max, QCHUNK, TP, True),
+            (x, amax), 2 * n + kb + n // 2 + kb, 5 * n + 4 * rws * K, None),
         # sign-extend and add per received value; divide, round, clip and
         # pack per reduced value
         "nibble_reduce_requant": (
@@ -669,12 +708,31 @@ def quant_kernel_phase(dev, iters: int):
                                                             bf16),
             lambda b, s: qref.nibble_unpack_dequantize_ref(b, s, QCHUNK,
                                                            bf16),
-            (packed, s4 * TP), n // 2 + 4 * rws * K + 2 * n, 2 * n, None),
+            (packed, s4 * TP), n // 2 + kb + 2 * n, 2 * n, None),
     }
     # the launch floor: the emptiest kernel, torch.cuda._sleep(0), timed
     # as a kernel is; no kernel goes below it, whatever its bytes bound says
     floor = bench(lambda: torch.cuda._sleep(0), [()], iters)
     log(f"  time launch floor (torch.cuda._sleep(0))  {floor:.6f} ms")
+    # the grid floor: an empty kernel at B5's and B6's grids
+    grid_floor = {}
+    for name in ("chunk_amax", "chunk_quantize", "chunk_quantize_pack"):
+        grid = qops.quant_grid_cuda(name, x, QCHUNK)
+        grid_floor[name] = bench(
+            lambda: qops.quant_grid_cuda(name, x, QCHUNK, launch=True), [()],
+            iters)
+        log(f"  time empty kernel at {name}'s grid {grid} (blocks x, y; "
+            f"threads)  {grid_floor[name]:.6f} ms")
+    # the chains the abs-max source replaced: scales_from_amax's torch
+    # launches, then B6 from the scales (and the times t on int4)
+    def unfused_pack(a, m):
+        s = qops.scales_from_amax(m, q4max)
+        return qops.chunk_quantize_pack_cuda(a, s, QCHUNK), s * TP
+
+    chains = {
+        "chunk_quantize": lambda a, m: qops.chunk_quantize_cuda(
+            a, qops.scales_from_amax(m, q8max), QCHUNK, torch.int8),
+        "chunk_quantize_pack": unfused_pack}
     out = {}
     for name, (kernel, plain, args, nbytes, ops, library) in specs.items():
         sets = copies(args, nbytes)
@@ -682,14 +740,71 @@ def quant_kernel_phase(dev, iters: int):
                  plain=bench(plain, sets, iters),
                  library=bench(library, sets, iters) if library else None,
                  floor=floor)
+        if name in grid_floor:
+            t["grid_floor"] = grid_floor[name]
+        if name in chains:
+            t["chain"] = bench(chains[name], sets, iters)
+        if name in PDL_KERNELS:
+            t["overlapped"] = True
+        if name in ALLREDUCE_OF:
+            t["allreduce"] = allreduce_ms(dev, ALLREDUCE_OF[name])
         t["bound"], t["by"] = bound_ms(nbytes, ops, "float32")
         out[name] = {"bfloat16": t}
         lib = f"{t['library']:.4f} ms" if library else "none (no one call)"
+        more = (f"  unfused chain (scales_from_amax + B6 from the scales) "
+                f"{t['chain']:.6f} ms" if "chain" in t else "")
+        if "allreduce" in t:
+            more += (f"  one {ALLREDUCE_OF[name]} all-reduce at t={TP} "
+                     f"(matmuls, B5, max, B6, the hops) {t['allreduce']:.6f}"
+                     f" ms")
+        if name in PDL_KERNELS:
+            more += "  (kernel: back to back, overlapped by PDL)"
         log(f"  time {name:<24s} bfloat16 kernel {t['kernel']:.6f} ms  "
             f"plain {t['plain']:.4f} ms  library {lib}  bound "
-            f"{t['bound']:.6f} ms ({t['by']})  launch floor {floor:.6f} ms  "
-            f"[{rows[name]['bfloat16']['shape']}]")
+            f"{t['bound']:.6f} ms ({t['by']})  launch floor {floor:.6f} ms"
+            f"{more}  [{rows[name]['bfloat16']['shape']}]")
+    # B6 from the abs-max without the scales write (ranks 1..t-1)
+    sets = copies((x, amax), 2 * n + kb + n)
+    t = bench(lambda a, m: qops.chunk_quantize_shared_cuda(
+        a, m, q8max, QCHUNK, torch.int8), sets, iters)
+    out["chunk_quantize"]["bfloat16"]["no_scales_ms"] = t
+    log(f"  time chunk_quantize from the abs-max, no scales write  "
+        f"{t:.6f} ms")
     return rows, out
+
+
+# B5 and B6 (and the int4 pre-pass, B6's template) launch by programmatic
+# dependent launch: ``bench``'s back-to-back launches of one of them overlap
+# each other's tails, so their kernel time is a throughput, not comparable
+# with a kernel launched as usual: the time to compare is that of the
+# quantized all-reduce they sit in (``allreduce_ms``), on either side
+PDL_KERNELS = ("chunk_amax", "chunk_quantize", "chunk_quantize_pack")
+ALLREDUCE_OF = {"chunk_quantize": "int8", "chunk_quantize_pack": "int4"}
+
+
+def allreduce_ms(dev, quant: str, iters: int = 20) -> float:
+    """Device ms of one quantized all-reduce at t = TP virtual ranks as the
+    TP decode step issues it at 4 slots: each rank's output projection
+    (x[4, 768] @ wo[768, 3072], bf16), then ``quantized_psum_gathered``
+    (B5 on each rank, the max all-reduce, B6 on each rank, the two hops;
+    int4 also its requantize and dequantize).  Only the package's public
+    entry points are called, so the same function times any checkout of
+    the port on the path.  ``iters`` all-reduces (~25 launches each) stay
+    inside the launch queue, so they wait on the device, not the host."""
+    from repro_torch.core import comm
+    from repro_torch.core.parallel_exec import quantized_psum_gathered
+
+    g = torch.Generator(dev).manual_seed(4)
+    acts = [torch.randn(4, 768, generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(TP)]
+    wos = [(0.02 * torch.randn(768, 3072, generator=g, device=dev)).to(
+        torch.bfloat16) for _ in range(TP)]
+
+    def allreduce():
+        return quantized_psum_gathered([a @ w for a, w in zip(acts, wos)],
+                                       comm.VirtualGroup(TP), quant)
+
+    return bench(allreduce, [()], iters)
 
 
 # B10 at rwkv6-7b's widths (64 heads of 64): a full-width prefill and a
@@ -988,9 +1103,9 @@ def serving_phase(dev, smi):
 def decode_breakdown(dev, model, params, smi, what: str, steps: int = 8):
     """Where one decode step's time goes at 4 slots: host wall per step
     (synchronised, no profiler), the device's busy time per step from
-    torch.profiler's kernel records (idle share = 1 - busy / wall), the
-    hand-written kernels' launches per step and the device kernels per
-    step the profiler saw."""
+    torch.profiler's kernel records (``device_busy_us``; idle share = 1 -
+    busy / wall), the hand-written kernels' launches per step and the
+    device kernels per step the profiler saw."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import _build
 
@@ -1020,7 +1135,7 @@ def decode_breakdown(dev, model, params, smi, what: str, steps: int = 8):
             cache, tok = run(steps, cache, tok, 130 + steps)
             torch.cuda.synchronize()
     events = device_events(prof)
-    busy_us = sum(e.self_device_time_total for e in events)
+    busy_us, summed_us = device_busy_us(prof)
     kernels = sum(e.count for e in events) / steps
     pair = sum(e.self_device_time_total for e in events
                if "split_kernel" in e.key or "combine_kernel" in e.key)
@@ -1031,7 +1146,9 @@ def decode_breakdown(dev, model, params, smi, what: str, steps: int = 8):
     busy_ms = busy_us / 1e3 / steps
     log(f"[decode step {what}] 4 slots at pos ~130: host wall "
         f"{wall_ms:.3f} ms/step (no profiler), device busy {busy_ms:.3f} "
-        f"ms/step (profiler), device idle share {1 - busy_ms / wall_ms:.3f}, "
+        f"ms/step (profiler, union of kernel intervals; their sum "
+        f"{summed_us / 1e3 / steps:.3f}), device idle share "
+        f"{1 - busy_ms / wall_ms:.3f}, "
         f"hand-written kernel launches {ours:.0f}/step, device kernels "
         f"{kernels:.0f}/step (profiler), split-KV decode pair (split + "
         f"combine) {pair / 1e3 / steps:.3f} ms/step ({smi})")
@@ -1046,19 +1163,38 @@ def decode_breakdown(dev, model, params, smi, what: str, steps: int = 8):
             f"ms/step {e.count // steps:5d}/step  {e.key[:90]}")
 
 
+def _on_card(e) -> bool:
+    return (getattr(e, "device_type", None) is not None
+            and str(e.device_type).endswith("CUDA"))
+
+
 def device_events(prof):
     """The profiler's per-kernel records that ran on the card."""
-    return [e for e in prof.key_averages()
-            if getattr(e, "device_type", None) is not None
-            and str(e.device_type).endswith("CUDA")]
+    return [e for e in prof.key_averages() if _on_card(e)]
+
+
+def device_busy_us(prof):
+    """(busy, summed) us of the card in the profiled window: busy is the
+    union of the intervals of the records that ran on it (kernels, copies),
+    so records that overlap — B5 and B6 start while their predecessor
+    drains, by programmatic dependent launch — count once; summed adds
+    their durations, as the breakdowns before the union did."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if _on_card(e))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy, sum(b - a for a, b in spans)
 
 
 def prefill_breakdown(dev, model, params, smi, S: int = 333,
                       kernel: str = "flash_prefill", label: str = "B2"):
     """One full-width prefill pass of one S-token prompt: host wall
     (synchronised, no profiler), device busy from torch.profiler's kernel
-    records, and one kernel's share of it (the records whose name holds
-    ``kernel``: B2's flash_prefill by default)."""
+    records (``device_busy_us``), and one kernel's share of it (the
+    records whose name holds ``kernel``: B2's flash_prefill by default)."""
     from torch.profiler import ProfilerActivity, profile
 
     prompt = torch.randint(2, model.cfg.vocab_size, (1, S), device=dev,
@@ -1075,7 +1211,8 @@ def prefill_breakdown(dev, model, params, smi, S: int = 333,
             model.prefill(params, prompt, 1024)
             torch.cuda.synchronize()
     events = device_events(prof)
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    busy_us, summed_us = device_busy_us(prof)
+    busy_ms = busy_us / 1e3
     if busy_ms <= 0:
         log(f"[prefill pass] S={S}: host wall {wall_ms:.3f} ms; device busy: "
             "not measured (profiler recorded no device time)")
@@ -1084,7 +1221,7 @@ def prefill_breakdown(dev, model, params, smi, S: int = 333,
     mine_ms = sum(e.self_device_time_total for e in mine) / 1e3
     log(f"[prefill pass] {model.cfg.name} S={S}, 1 prompt: host wall "
         f"{wall_ms:.3f} ms (no profiler), device busy {busy_ms:.3f} ms "
-        f"(profiler), {label} {mine_ms:.3f} ms in "
+        f"(profiler, union; sum {summed_us / 1e3:.3f}), {label} {mine_ms:.3f} ms in "
         f"{sum(e.count for e in mine)} launches = {mine_ms / busy_ms:.3f} "
         f"of device busy, device idle share {1 - busy_ms / wall_ms:.3f} "
         f"({smi})")
@@ -1611,11 +1748,14 @@ REPLACES = {
 
 
 _QK = "src/repro/kernels/quant_collective/quant_kernel.py"
+_QO = "src/repro/kernels/quant_collective/ops.py"     # scales_from_amax
 FUSES = {
     "add_rms_norm": ["src/repro/models/blocks.py:124", _RMS],
     "dequantize_add_rms_norm": [f"{_QK}:167",
                                 "src/repro/core/parallel_exec.py:211", _RMS],
-    "chunk_quantize_pack": [f"{_QK}:75", f"{_QK}:113"],
+    "chunk_quantize": [f"{_QK}:75", f"{_QO}:103"],
+    "chunk_quantize_pack": [f"{_QK}:75", f"{_QK}:113", f"{_QO}:103",
+                            "src/repro/core/parallel_exec.py:183"],
     "nibble_reduce_requant": [f"{_QK}:141",
                               "src/repro/core/parallel_exec.py:176",
                               f"{_QK}:113"],
@@ -1681,6 +1821,13 @@ def main(argv=None) -> int:
             shape=rows[name]["bfloat16"]["shape"], dtype="bfloat16",
             **({"launch_floor_ms": t["floor"]} if "floor" in t else {}),
             **({"unfused_chain_ms": t["chain"]} if t.get("chain") else {}),
+            **({"grid_floor_ms": t["grid_floor"]} if "grid_floor" in t
+               else {}),
+            **({"no_scales_write_ms": t["no_scales_ms"]}
+               if "no_scales_ms" in t else {}),
+            **({"allreduce_ms": t["allreduce"]} if "allreduce" in t else {}),
+            **({"ms_overlapped_by_pdl": True} if t.get("overlapped")
+               else {}),
             **({"fuses": FUSES[name]} if name in FUSES else {})))
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the main path")

@@ -50,9 +50,9 @@ from repro_torch.core.comm import VirtualGroup
 from repro_torch.core.commodel import DEFAULT_QUANT_CHUNK
 from repro_torch.kernels.quant_collective import ref as qref
 from repro_torch.kernels.quant_collective.ops import (
-    QUANT_DTYPES, chunk_amax, chunk_dequantize, chunk_quantize,
-    chunk_quantize_pack, collective_qmax, dequantize_add_rms_norm,
-    nibble_reduce_requant, nibble_unpack_dequantize, scales_from_amax)
+    QUANT_DTYPES, chunk_amax, chunk_dequantize, chunk_quantize_pack_shared,
+    chunk_quantize_shared, collective_qmax, dequantize_add_rms_norm,
+    nibble_reduce_requant, nibble_unpack_dequantize)
 from repro_torch.models.blocks import attention_apply
 from repro_torch.models.layers import (add_norm, decode_positions, mlp_apply,
                                        torch_dtype)
@@ -131,17 +131,19 @@ def _vocab_parallel_embed(embeds, tokens, group: VirtualGroup):
 
 
 _KERNEL_OPS = types.SimpleNamespace(
-    amax=chunk_amax, quantize=chunk_quantize, dequantize=chunk_dequantize,
-    dequantize_add_norm=dequantize_add_rms_norm,
-    quantize_pack=chunk_quantize_pack, reduce_requant=nibble_reduce_requant,
+    amax=chunk_amax, quantize_shared=chunk_quantize_shared,
+    dequantize=chunk_dequantize, dequantize_add_norm=dequantize_add_rms_norm,
+    quantize_pack_shared=chunk_quantize_pack_shared,
+    reduce_requant=nibble_reduce_requant,
     unpack_dequantize=nibble_unpack_dequantize)
 _PLAIN_OPS = types.SimpleNamespace(
     amax=qref.chunk_amax_ref,
-    quantize=lambda x, s, chunk, quant: qref.chunk_quantize_ref(
-        x, s, chunk, QUANT_DTYPES[quant]),
+    quantize_shared=lambda x, amax, qmax, chunk, quant, write:
+        qref.chunk_quantize_shared_ref(x, amax, qmax, chunk,
+                                       QUANT_DTYPES[quant], write),
     dequantize=qref.chunk_dequantize_ref,
     dequantize_add_norm=qref.dequantize_add_rms_norm_ref,
-    quantize_pack=qref.chunk_quantize_pack_ref,
+    quantize_pack_shared=qref.chunk_quantize_pack_shared_ref,
     reduce_requant=qref.nibble_reduce_requant_ref,
     unpack_dequantize=qref.nibble_unpack_dequantize_ref)
 
@@ -194,8 +196,11 @@ def quantized_psum_gathered(xs, group: VirtualGroup, quant: str = "int8",
                             plain: bool = False):
     """Quantized two-step all-reduce of the t rank tensors xs [..., h].
 
-      1. per-chunk abs-max on every rank (B5), all-reduced with max — the
-         shared scales, with ``collective_qmax`` headroom;
+      1. per-chunk abs-max on every rank (B5), all-reduced with max; the
+         shared scales follow from it (``scales_from_amax`` with
+         ``collective_qmax`` headroom) inside the quantize, on every rank,
+         and rank 0's quantize also writes them for the dequantize (on a
+         group of processes each rank would write its own);
       2. int8 / fp8: quantize on every rank (B6) onto the shared scales,
          reduce-scatter of the 1-byte payload (the int8 sum is exact by
          the headroom), all-gather of the reduced blocks; the gathered
@@ -203,10 +208,11 @@ def quantized_psum_gathered(xs, group: VirtualGroup, quant: str = "int8",
          dequantizes once (B9) back to the inputs' dtype, or with the
          residual add and the next norm (``GatheredSum.add_norm``);
       3. int4, three fused passes around the two hops: quantize and pack
-         on every rank (B6 + B7), all-to-all of the nibbles; on every rank
-         unpack, an exact int32 sum of the t copies of the rank's block,
-         requantize by t and pack again (B8 + B7); all-gather; unpack and
-         dequantize once (B8 + B9) with the shared scales times t.
+         on every rank (B6 + B7; rank 0's writes the shared scales times
+         t), all-to-all of the nibbles; on every rank unpack, an exact
+         int32 sum of the t copies of the rank's block, requantize by t
+         and pack again (B8 + B7); all-gather; unpack and dequantize once
+         (B8 + B9) with the shared scales times t.
 
     ``quant=None`` or a group of one rank is the plain all-reduce.
     ``plain=True`` runs the plain versions of the passes in place of the
@@ -222,21 +228,23 @@ def quantized_psum_gathered(xs, group: VirtualGroup, quant: str = "int8",
                          f"t={t}: h={h} must divide")
     ops = _PLAIN_OPS if plain else _KERNEL_OPS
     amax = group.all_reduce([ops.amax(x, chunk) for x in xs], op="max")
-    scales = scales_from_amax(amax, collective_qmax(quant, t))
+    qmax = collective_qmax(quant, t)
     if quant == "int4":
         if h % (2 * t):
             raise ValueError(f"int4 packs two values per byte and ships "
                              f"h/t-element blocks: h={h} must divide 2t="
                              f"{2 * t}")
-        packed = [ops.quantize_pack(x, scales, chunk) for x in xs]
-        received = group.all_to_all(packed, values_per_item=2)
+        out = [ops.quantize_pack_shared(x, amax, qmax, chunk, t, r == 0)
+               for r, x in enumerate(xs)]
+        received = group.all_to_all([p for p, _ in out], values_per_item=2)
         reduced = [ops.reduce_requant(p, t) for p in received]
         gathered = group.all_gather(reduced, values_per_item=2)
-        return ops.unpack_dequantize(gathered, scales * t, chunk,
+        return ops.unpack_dequantize(gathered, out[0][1], chunk,
                                      xs[0].dtype)
-    qs = [ops.quantize(x, scales, chunk, quant) for x in xs]
-    gathered = group.all_gather(group.reduce_scatter(qs))
-    return GatheredSum(gathered, scales, chunk, plain)
+    out = [ops.quantize_shared(x, amax, qmax, chunk, quant, r == 0)
+           for r, x in enumerate(xs)]
+    gathered = group.all_gather(group.reduce_scatter([q for q, _ in out]))
+    return GatheredSum(gathered, out[0][1], chunk, plain)
 
 
 def _add_norm(x, h, weight, eps: float, plain: bool):

@@ -54,11 +54,12 @@ SIGNATURES = {
                                      _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                      _LL, _LL, _LL, _F, _I, _P],
     "repro_chunk_amax": [_P, _P, _LL, _I, _I, _I, _P],
-    "repro_chunk_quantize": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "repro_chunk_quantize": [_P, _P, _P, _P, _LL, _I, _I, _I, _F, _F, _I,
+                             _I, _P],
     "repro_chunk_dequantize": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
-    "repro_chunk_quantize_pack": [_P, _P, _P, _LL, _I, _I, _I, _P],
     "repro_nibble_reduce_requant": [_P, _P, _LL, _I, _I, _P],
     "repro_nibble_unpack_dequantize": [_P, _P, _P, _LL, _I, _I, _I, _P],
+    "repro_quant_grid": [_P, _I, _LL, _I, _I, _I, _I, _I, _P, _P],
     "repro_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                    _P],
 }

@@ -4,15 +4,14 @@
 //
 // Replaces, in src/repro/kernels/quant_collective/quant_kernel.py:
 //   B5 chunk_amax_kernel        <- chunk_amax_pallas
-//   B6 chunk_quantize_kernel    <- chunk_quantize_pallas (int8, fp8)
+//   B6 chunk_quantize_kernel    <- chunk_quantize_pallas (int8, fp8), and on
+//           the int4 wire B6 + B7 <- chunk_quantize_pallas, nibble_pack_pallas
 //   B9 chunk_dequantize_kernel  <- chunk_dequantize_pallas (int8, fp8)
 // and, on the int8/fp8 wire of a TP decode step, B9 fused with the residual
 // add and the RMSNorm after it (B1, rownorm.cuh):
 //   B9 + add + B1 dequantize_add_rmsnorm <- chunk_dequantize_pallas, the
 //           add x + ... (src/repro/core/parallel_exec.py), rms_norm_pallas
 // and, on the int4 wire, fused with the work beside them:
-//   B6 + B7 chunk_quantize_pack_kernel       <- chunk_quantize_pallas,
-//                                               nibble_pack_pallas
 //   B8 + B7 nibble_reduce_requant_kernel     <- nibble_unpack_pallas, the
 //           jnp sum / round / clip (src/repro/core/parallel_exec.py:176–180),
 //           nibble_pack_pallas
@@ -23,34 +22,56 @@
 // and writes its output once with a few operations per element, far below
 // the card's ~295 operations per byte.  On the decode path a call sees one
 // rank's rows, [4, 3072] bf16 (24 KB): the bound is nanoseconds and the
-// launch sets the time.  So the design is plain and exact, and the int4
-// wire, which launched B6, B7, B8, the torch ops of the sum and the
-// requantize, and B7 again on every rank, then B8 and B9 once, launches
-// three fused kernels: no int8 intermediate and no int32 sum goes through
-// device memory.
-//   * B5: one warp per (row, chunk), 16-byte loads when h and chunk are
-//     multiples of the vector width, a scalar loop otherwise (a ragged
-//     last chunk, h % chunk != 0, reads nothing past h);
-//   * B6, B9: a grid-stride loop, one element per thread per step; the
-//     scale of element j of a row is scales[row, j / chunk];
-//   * the three int4 passes: a 2-D grid (row steps x rows), no 64-bit
-//     index division; chunk_quantize_pack reads 16 bytes of x per thread
-//     per step (8 bf16 or 4 f32 values -> 4 or 2 packed bytes) when x is
-//     16-byte aligned and h a multiple of the vector width, one pair -> one
-//     byte otherwise; nibble_reduce_requant and nibble_unpack_dequantize
-//     take one packed byte per thread per step.  Every element uses its own
-//     chunk's scale (looked up once a step where the step lies in one
-//     chunk), so with an odd chunk a pair may straddle two scales.
+// launch sets the time.  So the design keeps every thread's work short and
+// the launches few: no int8 intermediate and no int32 sum goes through
+// device memory on the int4 wire, and nothing runs between the abs-max's
+// all-reduce and the quantize, which computes the shared scale itself.
+//   * B5: a group of lanes per chunk, each lane one 16-byte vector of x at a
+//     time (16 lanes a 128-wide bf16 chunk, two chunks a warp; 32 lanes
+//     for f32), log2(group) shuffle levels of a NaN-keeping max, no
+//     barrier; a 2-D grid (chunk groups x rows) with int32 indices in the
+//     row.  A scalar path (32 lanes a chunk, one element a lane) takes
+//     views off 16 bytes and widths that are no multiple of the vector; a
+//     ragged last chunk (h % chunk != 0) reads nothing past h.
+//   * B6: one template, chunk_quantize_kernel, over the wire (int8, fp8,
+//     and int4 = the int8 value's low nibble, two a byte) and over the
+//     source of the scale: the scales themselves (a zero scale taken as 1,
+//     as the JAX package's Pallas wrapper does, quant_kernel.py:83), or
+//     the all-reduced abs-max with the host's f32 1/qmax, the scale then
+//     amax > 0 ? amax * inv_qmax : 1 (ops.scales_from_amax bit for bit: a
+//     NaN abs-max gives 1, the comparison being false).  From the abs-max,
+//     the step holding the first element of each chunk may also write its
+//     scale times ``mult`` (1 for int8/fp8, t for int4, whose dequantize
+//     undoes the requantize by t) for the dequantizing pass: the torch ops
+//     that made the scales between the all-reduce and B6 are gone.  A 2-D
+//     grid (row steps x rows), a step two values of x per thread loaded as
+//     one word (4 bytes of bf16, 8 of f32 -> 2 bytes, int4 1) when x is
+//     aligned to it and h even, one element (int4: one pair) otherwise; a
+//     step's scale is looked up once where the step lies in one chunk,
+//     else every element takes its own chunk's.  Why two values and not
+//     16 bytes: at the decode shape the work is a few thousand threads on
+//     one warp per scheduler, so nothing hides a thread's chain of IEEE
+//     divisions (each a branch to a slow path the compiler will not
+//     interleave); 16-byte steps (8 divisions) were 0.3 us slower on an
+//     H100 (PERF.md);
+//   * B5 and B6 launch by programmatic dependent launch: each grid starts
+//     as its predecessor's blocks exit and waits for its memory before the
+//     first load, which the t back-to-back launches of each on the step
+//     turn into overlapped launch latency;
+//   * B9: a grid-stride loop, one element per thread per step; the scale of
+//     element j of a row is scales[row, j / chunk];
+//   * the int4 reduce and post-pass: the 2-D grid, one packed byte per
+//     thread per step.
 // Numerics are those of the plain versions (ref.py), bit for bit:
 //   * B5 propagates NaN (torch.amax and jnp.max do; fmaxf would drop it);
+//   * the shared scale is the f32 product __fmul_rn(amax, inv_qmax), never
+//     contracted into an FMA, as torch computes amax * f32(1 / qmax);
 //   * B6 divides x / scale as written (IEEE division: the library is built
 //     without --use_fast_math), rounds half to even with rintf, then clips
 //     to [-127, 127] for int8 (and for int4, whose nibble is then the low 4
 //     bits, so an out-of-grid value packs as the unfused chain packs it);
 //     for fp8 it clips to +-448 first and rounds once to e4m3 with
 //     __nv_cvt_float_to_fp8(..., __NV_SATFINITE, E4M3);
-//   * B6 takes every zero scale as 1, as the JAX package's Pallas wrapper
-//     does (quant_kernel.py:83) — its jnp reference divides by the zero;
 //   * the requantize sums the t source nibbles exactly in int32, divides by
 //     t in f32 (IEEE), rounds half to even with rintf (torch.round and
 //     jnp.round do) and clips to [-7, 7]: at t = 2, r = 1 -> 0, 3 -> 2;
@@ -72,8 +93,12 @@ namespace repro {
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBlocks = 132 * 16;   // grid-stride cap: 16 blocks per SM
+// the passes on a 2-D grid (B5, B6 and the int4 wire's): threads a block
+constexpr int kRowThreads = 128;
+// B6's wire mode for int4: the int8 value's low nibble, two a byte (the
+// int8 and fp8 modes are their dtype codes, common.cuh)
+constexpr int kNibble = 5;
 
 // max that keeps a NaN from either side (a != a only for NaN: the library
 // is built without fast math)
@@ -86,56 +111,140 @@ int grid_for(int64_t n) {
                                             kMaxBlocks));
 }
 
+// A launch's shape, computed once on the host for the kernel and for the
+// empty kernel that times its grid (repro_quant_grid).
+struct Plan {
+  dim3 grid;
+  bool vector;     // B5: 16 bytes a lane; B6: kStep values a step
+  int group;       // B5: lanes a chunk
+  bool one_scale;  // B6: every step lies in one chunk
+};
+
+unsigned rows_y(int64_t rows) {
+  return static_cast<unsigned>(std::min<int64_t>(rows, 65535));
+}
+
+// B5 and B6 launch by Hopper's programmatic dependent launch: a launch
+// asks the stream to start the grid as soon as its predecessor's blocks
+// have exited, and the kernel waits for the predecessor's memory
+// (griddepcontrol.wait) before its first load, so the grid's launch
+// overlaps the predecessor's tail.  On the step the t launches of B5 and
+// those of B6 run back to back, after a matmul and the max all-reduce:
+// that chain of one all-reduce at t = 4 took 0.0417-0.0426 ms without it
+// and 0.0341-0.0355 ms with it on an H100 (PERF.md).  Kernels
+// after B5 and B6 launch as usual and wait for them whole.
+__device__ __forceinline__ void wait_for_predecessor() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// launch ``kernel`` at ``grid`` x kRowThreads on ``stream`` with the
+// programmatic-serialization attribute
+template <typename... Params, typename... Args>
+void launch_row_pass(void (*kernel)(Params...), dim3 grid,
+                     cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kRowThreads);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}
+
+// the 2-D grid of the row passes: x over a row's steps, y over rows (a
+// block loops over rows past 65535)
+dim3 row_grid(int64_t rows, int steps) {
+  return dim3(std::min((steps + kRowThreads - 1) / kRowThreads, kMaxBlocks),
+              rows_y(rows));
+}
+
 // ---------------------------------------------------------------- B5
-template <typename T, bool kVector>
-__global__ void __launch_bounds__(kThreads)
+// kGroup lanes (a power of two) take a chunk: lane l reads the chunk's
+// vectors l, l + kGroup, ... (elements, on the scalar path), then the
+// group's max runs over log2(kGroup) xor-shuffles, which stay inside the
+// group.  Every lane of the warp reaches the shuffles: a group past the
+// row's last chunk loads nothing and stores nothing.
+template <typename T, bool kVector, int kGroup>
+__global__ void __launch_bounds__(kRowThreads)
 chunk_amax_kernel(const T* __restrict__ x, float* __restrict__ out,
                   int64_t rows, int h, int chunk, int K) {
-  const int64_t w = static_cast<int64_t>(blockIdx.x) * kWarps +
-                    threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  if (w >= rows * K) return;   // uniform over the warp
-  const int64_t row = w / K;
-  const int c = static_cast<int>(w - row * K);
-  const T* xr = x + row * h;
-  const int start = c * chunk, end = min(start + chunk, h);
-  float m = 0.f;               // |x| >= 0: the zero padding of the plain version
-  if constexpr (kVector) {
-    constexpr int N = Vec16<T>::N;
-    for (int i = start + lane * N; i < end; i += 32 * N) {
-      float f[N];
-      Vec16<T>::load(xr + i, f);
+  constexpr int N = kVector ? Vec16<T>::N : 1;
+  const int lane = threadIdx.x % kGroup;
+  const int c = blockIdx.x * (kRowThreads / kGroup) + threadIdx.x / kGroup;
+  const bool live = c < K;
+  const int start = c * chunk;
+  const int end = live ? min(start + chunk, h) : start;
+  wait_for_predecessor();
+  for (int64_t row = blockIdx.y; row < rows; row += gridDim.y) {
+    const T* xr = x + row * h;
+    float m = 0.f;             // |x| >= 0: the zero padding of the plain version
+    for (int i = start + lane * N; i < end; i += kGroup * N) {
+      if constexpr (kVector) {
+        float f[N];
+        Vec16<T>::load(xr + i, f);
 #pragma unroll
-      for (int j = 0; j < N; ++j) m = nan_max(m, fabsf(f[j]));
+        for (int j = 0; j < N; ++j) m = nan_max(m, fabsf(f[j]));
+      } else {
+        m = nan_max(m, fabsf(to_f32(xr[i])));
+      }
     }
-  } else {
-    for (int i = start + lane; i < end; i += 32) {
-      m = nan_max(m, fabsf(to_f32(xr[i])));
-    }
-  }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, o));
+    for (int o = kGroup / 2; o > 0; o >>= 1)
+      m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (live && lane == 0) out[row * K + c] = m;
   }
-  if (lane == 0) out[row * K + c] = m;
+}
+
+// the vector path when x is 16-byte aligned and h and chunk are multiples
+// of the vector width; the group is the chunk's vectors rounded up to a
+// power of two, at most 32 (a lane then reads several)
+template <typename T>
+Plan amax_plan(const void* x, int64_t rows, int h, int chunk) {
+  constexpr int N = Vec16<T>::N;
+  Plan p{};
+  p.vector = aligned16(x) && h % N == 0 && chunk % N == 0;
+  p.group = 32;
+  if (p.vector) {
+    const int vecs = chunk / N;
+    p.group = 1;
+    while (p.group < vecs && p.group < 32) p.group *= 2;
+  }
+  const int K = (h + chunk - 1) / chunk;
+  const int per_block = kRowThreads / p.group;
+  p.grid = dim3((K + per_block - 1) / per_block, rows_y(rows));
+  return p;
+}
+
+template <typename T, bool kVector, int kGroup>
+void launch_amax_g(const Plan& p, const T* x, float* out, int64_t rows,
+                   int h, int chunk, cudaStream_t stream) {
+  const int K = (h + chunk - 1) / chunk;
+  launch_row_pass(chunk_amax_kernel<T, kVector, kGroup>, p.grid, stream, x,
+                  out, rows, h, chunk, K);
 }
 
 template <typename T>
 cudaError_t launch_amax(const void* x, float* out, int64_t rows, int h,
                         int chunk, cudaStream_t stream) {
-  const int K = (h + chunk - 1) / chunk;
-  const int64_t warps = rows * K;
-  const int blocks = static_cast<int>((warps + kWarps - 1) / kWarps);
-  constexpr int N = Vec16<T>::N;
-  const bool vector = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                      h % N == 0 && chunk % N == 0;
+  const Plan p = amax_plan<T>(x, rows, h, chunk);
   const T* xp = static_cast<const T*>(x);
-  if (vector)
-    chunk_amax_kernel<T, true><<<blocks, kThreads, 0, stream>>>(
-        xp, out, rows, h, chunk, K);
+  if (!p.vector)
+    launch_amax_g<T, false, 32>(p, xp, out, rows, h, chunk, stream);
+  else if (p.group == 1)
+    launch_amax_g<T, true, 1>(p, xp, out, rows, h, chunk, stream);
+  else if (p.group == 2)
+    launch_amax_g<T, true, 2>(p, xp, out, rows, h, chunk, stream);
+  else if (p.group == 4)
+    launch_amax_g<T, true, 4>(p, xp, out, rows, h, chunk, stream);
+  else if (p.group == 8)
+    launch_amax_g<T, true, 8>(p, xp, out, rows, h, chunk, stream);
+  else if (p.group == 16)
+    launch_amax_g<T, true, 16>(p, xp, out, rows, h, chunk, stream);
   else
-    chunk_amax_kernel<T, false><<<blocks, kThreads, 0, stream>>>(
-        xp, out, rows, h, chunk, K);
+    launch_amax_g<T, true, 32>(p, xp, out, rows, h, chunk, stream);
   return cudaGetLastError();
 }
 
@@ -144,48 +253,183 @@ __device__ __forceinline__ float clip(float v, float lo, float hi) {
   return v < lo ? lo : (v > hi ? hi : v);   // keeps a NaN, as jnp.clip does
 }
 
-template <typename T, int kMode>
-__global__ void __launch_bounds__(kThreads)
-chunk_quantize_kernel(const T* __restrict__ x,
-                      const float* __restrict__ scales,
-                      uint8_t* __restrict__ out, int64_t n, int h, int chunk,
-                      int K) {
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       i < n; i += static_cast<int64_t>(gridDim.x) * kThreads) {
-    const int64_t row = i / h;
-    const int j = static_cast<int>(i - row * h);
-    float s = scales[row * K + j / chunk];
-    if (s == 0.f) s = 1.f;
-    float v = to_f32(x[i]) / s;
-    if constexpr (kMode == kInt8) {
-      v = clip(rintf(v), -127.f, 127.f);
-      out[i] = static_cast<uint8_t>(static_cast<int8_t>(v));
-    } else {
-      v = clip(v, -448.f, 448.f);
-      out[i] = __nv_cvt_float_to_fp8(v, __NV_SATFINITE, __NV_E4M3);
+// a chunk's scale from its source: the scale itself, or the shared scale
+// from the all-reduced abs-max (scales_from_amax)
+template <bool kFromAmax>
+__device__ __forceinline__ float chunk_scale(float v, float inv_qmax) {
+  if constexpr (kFromAmax)
+    return v > 0.f ? __fmul_rn(v, inv_qmax) : 1.f;
+  else
+    return v;
+}
+
+// the wire bits of x / s (s != 0): an int8 byte, an e4m3 byte, or the low
+// nibble of the int8 value
+template <int kMode>
+__device__ __forceinline__ uint32_t quantize_one(float x, float s) {
+  const float v = x / s;
+  if constexpr (kMode == kFloat8E4M3) {
+    return __nv_cvt_float_to_fp8(clip(v, -448.f, 448.f), __NV_SATFINITE,
+                                 __NV_E4M3);
+  } else {
+    const int q = static_cast<int>(clip(rintf(v), -127.f, 127.f));
+    return static_cast<uint32_t>(q) & (kMode == kNibble ? 0xFu : 0xFFu);
+  }
+}
+
+// B6's vector step: two values of x a thread, loaded as one word (4 bytes
+// of bf16, 8 of f32); an int4 step is a pair on either path
+constexpr int kStep = 2;
+
+template <typename T>
+__device__ __forceinline__ void load_pair(const T* p, float (&f)[kStep]) {
+  alignas(kStep * sizeof(T)) T buf[kStep];
+  if constexpr (sizeof(T) == 4)
+    *reinterpret_cast<uint2*>(buf) = *reinterpret_cast<const uint2*>(p);
+  else
+    *reinterpret_cast<uint32_t*>(buf) = *reinterpret_cast<const uint32_t*>(p);
+  f[0] = to_f32(buf[0]);
+  f[1] = to_f32(buf[1]);
+}
+
+// a step: kPer elements of x (kStep as one word, or one element, or one
+// int4 pair) -> kPer wire values of kBits each, element k at bit kBits * k
+// of the step's output (int4: element 2i in the low nibble of byte i).
+// From the abs-max, the step holding element c * chunk writes chunk c's
+// scale times ``mult`` to ``scales_out`` when that is given.
+template <typename T, int kMode, bool kFromAmax, bool kVector, bool kOneScale>
+__global__ void __launch_bounds__(kRowThreads)
+chunk_quantize_kernel(const T* __restrict__ x, const float* __restrict__ src,
+                      float inv_qmax, float mult,
+                      float* __restrict__ scales_out,
+                      uint8_t* __restrict__ out, int64_t rows, int h,
+                      int chunk, int K) {
+  constexpr int kPer = kVector || kMode == kNibble ? kStep : 1;
+  constexpr int kBits = kMode == kNibble ? 4 : 8;
+  const int steps = h / kPer;
+  const int out_w = kMode == kNibble ? h / 2 : h;
+  wait_for_predecessor();
+  for (int64_t row = blockIdx.y; row < rows; row += gridDim.y) {
+    const T* xr = x + row * h;
+    const float* sr = src + row * K;
+    float* so = scales_out ? scales_out + row * K : nullptr;
+    uint8_t* orow = out + row * out_w;
+    for (int c = blockIdx.x * kRowThreads + threadIdx.x; c < steps;
+         c += gridDim.x * kRowThreads) {
+      const int j = c * kPer;
+      float f[kPer];
+      if constexpr (kVector) {
+        load_pair(xr + j, f);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) f[k] = to_f32(xr[j + k]);
+      }
+      uint32_t bits = 0;
+      if constexpr (kOneScale) {
+        const int ci = j / chunk;
+        float s = chunk_scale<kFromAmax>(sr[ci], inv_qmax);
+        if (kFromAmax && so && j == ci * chunk) so[ci] = __fmul_rn(s, mult);
+        if (s == 0.f) s = 1.f;
+#pragma unroll
+        for (int k = 0; k < kPer; ++k)
+          bits |= quantize_one<kMode>(f[k], s) << (kBits * k);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) {
+          const int ci = (j + k) / chunk;
+          float s = chunk_scale<kFromAmax>(sr[ci], inv_qmax);
+          if (kFromAmax && so && j + k == ci * chunk) so[ci] = __fmul_rn(s, mult);
+          if (s == 0.f) s = 1.f;
+          bits |= quantize_one<kMode>(f[k], s) << (kBits * k);
+        }
+      }
+      uint8_t* o = orow + j * kBits / 8;
+      if constexpr (kPer * kBits == 16)
+        *reinterpret_cast<uint16_t*>(o) = static_cast<uint16_t>(bits);
+      else
+        *o = static_cast<uint8_t>(bits);
     }
   }
 }
 
+// the vector path when x is aligned to the step's bytes and h a multiple
+// of its values; int4 needs an even h (the entry point checks it)
 template <typename T>
-cudaError_t launch_quantize(const void* x, const float* scales, void* out,
-                            int64_t rows, int h, int chunk, int qdtype,
+Plan quantize_plan(const void* x, int64_t rows, int h, int chunk, int mode) {
+  Plan p{};
+  p.vector = reinterpret_cast<uintptr_t>(x) % (kStep * sizeof(T)) == 0 &&
+             h % kStep == 0;
+  const int per = p.vector || mode == kNibble ? kStep : 1;
+  p.one_scale = chunk % per == 0;
+  p.grid = row_grid(rows, h / per);
+  return p;
+}
+
+struct QuantizeArgs {
+  const void* x;
+  const float* src;
+  float inv_qmax, mult;
+  float* scales_out;
+  uint8_t* out;
+  int64_t rows;
+  int h, chunk;
+};
+
+template <typename T, int kMode, bool kFromAmax, bool kVector>
+void launch_quantize_v(const Plan& p, const QuantizeArgs& a,
+                       cudaStream_t stream) {
+  const int K = (a.h + a.chunk - 1) / a.chunk;
+  const T* xp = static_cast<const T*>(a.x);
+  constexpr int kPer = kVector || kMode == kNibble ? kStep : 1;
+  auto* one = &chunk_quantize_kernel<T, kMode, kFromAmax, kVector, true>;
+  if constexpr (kPer == 1) {   // one element a step: in one chunk
+    launch_row_pass(one, p.grid, stream, xp, a.src, a.inv_qmax, a.mult,
+                    a.scales_out, a.out, a.rows, a.h, a.chunk, K);
+  } else {
+    launch_row_pass(p.one_scale ? one
+                                : &chunk_quantize_kernel<T, kMode, kFromAmax,
+                                                         kVector, false>,
+                    p.grid, stream, xp, a.src, a.inv_qmax, a.mult,
+                    a.scales_out, a.out, a.rows, a.h, a.chunk, K);
+  }
+}
+
+template <typename T, int kMode, bool kFromAmax>
+void launch_quantize_m(const Plan& p, const QuantizeArgs& a,
+                       cudaStream_t stream) {
+  if (p.vector)
+    launch_quantize_v<T, kMode, kFromAmax, true>(p, a, stream);
+  else
+    launch_quantize_v<T, kMode, kFromAmax, false>(p, a, stream);
+}
+
+template <typename T, int kMode>
+void launch_quantize_s(const Plan& p, const QuantizeArgs& a, bool from_amax,
+                       cudaStream_t stream) {
+  if (from_amax)
+    launch_quantize_m<T, kMode, true>(p, a, stream);
+  else
+    launch_quantize_m<T, kMode, false>(p, a, stream);
+}
+
+template <typename T>
+cudaError_t launch_quantize(const QuantizeArgs& a, bool from_amax, int mode,
                             cudaStream_t stream) {
-  const int K = (h + chunk - 1) / chunk;
-  const int64_t n = rows * h;
-  const T* xp = static_cast<const T*>(x);
-  uint8_t* op = static_cast<uint8_t*>(out);
-  if (qdtype == kInt8)
-    chunk_quantize_kernel<T, kInt8><<<grid_for(n), kThreads, 0, stream>>>(
-        xp, scales, op, n, h, chunk, K);
-  else if (qdtype == kFloat8E4M3)
-    chunk_quantize_kernel<T, kFloat8E4M3>
-        <<<grid_for(n), kThreads, 0, stream>>>(xp, scales, op, n, h, chunk,
-                                               K);
+  const Plan p = quantize_plan<T>(a.x, a.rows, a.h, a.chunk, mode);
+  if (mode == kInt8)
+    launch_quantize_s<T, kInt8>(p, a, from_amax, stream);
+  else if (mode == kFloat8E4M3)
+    launch_quantize_s<T, kFloat8E4M3>(p, a, from_amax, stream);
+  else if (mode == kNibble)
+    launch_quantize_s<T, kNibble>(p, a, from_amax, stream);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
+
+// the grid floor: a kernel that does nothing but wait for its
+// predecessor, launched at another's grid as B5 and B6 are launched
+__global__ void empty_kernel() { wait_for_predecessor(); }
 
 // ---------------------------------------------------------------- B9
 template <int kMode>
@@ -310,104 +554,14 @@ cudaError_t launch_dequantize_add_rmsnorm(const void* q, const float* scales,
   return cudaErrorInvalidValue;
 }
 
-// ------------------------------------------------- int4: B6+B7, B8+B9
-// The three passes walk a 2-D grid, x over a row's steps and y over rows,
-// so no thread divides a 64-bit flat index by the row width: at the
-// decode shape a step is a few hundred cycles and such a division would
-// be a large share of it.  A step's scale is looked up once where the
-// step lies inside one chunk.
-constexpr int kRowThreads = 128;
-
-dim3 row_grid(int64_t rows, int steps) {
-  return dim3(std::min((steps + kRowThreads - 1) / kRowThreads, kMaxBlocks),
-              static_cast<unsigned>(std::min<int64_t>(rows, 65535)));
-}
-
-// the low 4 bits of B6's int8 value of x / s
-__device__ __forceinline__ uint32_t quantize_nibble(float x, float s) {
-  if (s == 0.f) s = 1.f;
-  const float v = clip(rintf(x / s), -127.f, 127.f);
-  return static_cast<uint32_t>(static_cast<int>(v)) & 0xFu;
-}
+// ------------------------------------------------- int4: B8+B7, B8+B9
+// Both passes walk the 2-D grid of the row passes, so no thread divides a
+// 64-bit flat index by the row width: at the decode shape a step is a few
+// hundred cycles and such a division would be a large share of it.
 
 // the nibble at bit ``shift`` of b, sign-extended
 __device__ __forceinline__ int nibble_value(uint32_t b, int shift) {
   return static_cast<int>(((b >> shift) & 0xFu) ^ 8u) - 8;
-}
-
-// a step: kPer elements (16 bytes of T, or one pair) -> kPer / 2 packed
-// bytes; element 2i in the low nibble of byte i, 2i + 1 in the high one
-template <typename T, bool kVector, bool kOneScale>
-__global__ void __launch_bounds__(kRowThreads)
-chunk_quantize_pack_kernel(const T* __restrict__ x,
-                           const float* __restrict__ scales,
-                           uint8_t* __restrict__ out, int64_t rows, int h,
-                           int chunk, int K) {
-  constexpr int kPer = kVector ? Vec16<T>::N : 2;
-  const int steps = h / kPer;
-  for (int64_t row = blockIdx.y; row < rows; row += gridDim.y) {
-    const T* xr = x + row * h;
-    const float* sr = scales + row * K;
-    uint8_t* orow = out + row * (h / 2);
-    for (int c = blockIdx.x * kRowThreads + threadIdx.x; c < steps;
-         c += gridDim.x * kRowThreads) {
-      const int j = c * kPer;
-      float f[kPer];
-      if constexpr (kVector) {
-        Vec16<T>::load(xr + j, f);
-      } else {
-        f[0] = to_f32(xr[j]);
-        f[1] = to_f32(xr[j + 1]);
-      }
-      uint32_t word = 0;
-      if constexpr (kOneScale) {
-        const float s = sr[j / chunk];
-#pragma unroll
-        for (int k = 0; k < kPer; ++k)
-          word |= quantize_nibble(f[k], s) << (4 * k);
-      } else {
-#pragma unroll
-        for (int k = 0; k < kPer; ++k)
-          word |= quantize_nibble(f[k], sr[(j + k) / chunk]) << (4 * k);
-      }
-      uint8_t* o = orow + j / 2;
-      if constexpr (kPer == 8)
-        *reinterpret_cast<uint32_t*>(o) = word;
-      else if constexpr (kPer == 4)
-        *reinterpret_cast<uint16_t*>(o) = static_cast<uint16_t>(word);
-      else
-        *o = static_cast<uint8_t>(word);
-    }
-  }
-}
-
-template <typename T, bool kVector>
-void launch_quantize_pack_v(const T* x, const float* scales, uint8_t* out,
-                            int64_t rows, int h, int chunk, int K,
-                            cudaStream_t stream) {
-  constexpr int kPer = kVector ? Vec16<T>::N : 2;
-  const dim3 grid = row_grid(rows, h / kPer);
-  if (chunk % kPer == 0)
-    chunk_quantize_pack_kernel<T, kVector, true>
-        <<<grid, kRowThreads, 0, stream>>>(x, scales, out, rows, h, chunk, K);
-  else
-    chunk_quantize_pack_kernel<T, kVector, false>
-        <<<grid, kRowThreads, 0, stream>>>(x, scales, out, rows, h, chunk, K);
-}
-
-template <typename T>
-cudaError_t launch_quantize_pack(const void* x, const float* scales,
-                                 uint8_t* out, int64_t rows, int h, int chunk,
-                                 cudaStream_t stream) {
-  const int K = (h + chunk - 1) / chunk;
-  const T* xp = static_cast<const T*>(x);
-  if (reinterpret_cast<uintptr_t>(x) % 16 == 0 && h % Vec16<T>::N == 0)
-    launch_quantize_pack_v<T, true>(xp, scales, out, rows, h, chunk, K,
-                                    stream);
-  else
-    launch_quantize_pack_v<T, false>(xp, scales, out, rows, h, chunk, K,
-                                     stream);
-  return cudaGetLastError();
 }
 
 // requantize an exact sum r of t int4 values: rint(r / t) clipped to +-7
@@ -520,20 +674,28 @@ REPRO_EXPORT int repro_chunk_amax(const void* x, void* out, long long rows,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-REPRO_EXPORT int repro_chunk_quantize(const void* x, const void* scales,
-                                      void* out, long long rows, int h,
-                                      int chunk, int dtype, int qdtype,
+// B6 on every wire: mode int8 (2), fp8-e4m3 (4) or int4 (5, packed two a
+// byte, h even).  ``src`` holds the scales (from_amax = 0) or the
+// all-reduced abs-max (from_amax = 1: scale = amax > 0 ? amax * inv_qmax :
+// 1); from the abs-max, a non-null ``scales_out`` [rows, K] receives every
+// chunk's scale times ``mult``.
+REPRO_EXPORT int repro_chunk_quantize(const void* x, const void* src,
+                                      void* scales_out, void* out,
+                                      long long rows, int h, int chunk,
+                                      int from_amax, float inv_qmax,
+                                      float mult, int dtype, int mode,
                                       void* stream) {
-  if (rows <= 0 || h <= 0 || chunk <= 0)
+  if (rows <= 0 || h <= 0 || chunk <= 0 || (mode == repro::kNibble && h % 2) ||
+      (scales_out && !from_amax))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* sc = static_cast<const float*>(scales);
+  const repro::QuantizeArgs a{x, static_cast<const float*>(src), inv_qmax,
+                              mult, static_cast<float*>(scales_out),
+                              static_cast<uint8_t*>(out), rows, h, chunk};
   if (dtype == repro::kFloat32)
-    return repro::launch_quantize<float>(x, sc, out, rows, h, chunk, qdtype,
-                                         s);
+    return repro::launch_quantize<float>(a, from_amax != 0, mode, s);
   if (dtype == repro::kBFloat16)
-    return repro::launch_quantize<__nv_bfloat16>(x, sc, out, rows, h, chunk,
-                                                 qdtype, s);
+    return repro::launch_quantize<__nv_bfloat16>(a, from_amax != 0, mode, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -551,23 +713,6 @@ REPRO_EXPORT int repro_chunk_dequantize(const void* q, const void* scales,
   if (dtype == repro::kBFloat16)
     return repro::launch_dequantize<__nv_bfloat16>(q, sc, out, rows, h, chunk,
                                                    qdtype, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-REPRO_EXPORT int repro_chunk_quantize_pack(const void* x, const void* scales,
-                                           void* out, long long rows, int h,
-                                           int chunk, int dtype,
-                                           void* stream) {
-  if (rows <= 0 || h <= 0 || h % 2 || chunk <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* sc = static_cast<const float*>(scales);
-  uint8_t* o = static_cast<uint8_t*>(out);
-  if (dtype == repro::kFloat32)
-    return repro::launch_quantize_pack<float>(x, sc, o, rows, h, chunk, s);
-  if (dtype == repro::kBFloat16)
-    return repro::launch_quantize_pack<__nv_bfloat16>(x, sc, o, rows, h,
-                                                      chunk, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -618,4 +763,33 @@ REPRO_EXPORT int repro_dequantize_add_rmsnorm(const void* q,
     return repro::launch_dequantize_add_rmsnorm<__nv_bfloat16>(
         q, sc, x, w, s, n, rows, h, chunk, eps, qdtype, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The grid of B5 (kernel 0) or B6 (kernel 1, wire ``mode``) on x [rows, h]
+// of ``dtype`` into grid[0..2] (blocks in x and y, threads a block); with
+// ``launch`` set, an empty kernel runs at that grid: what B5's and B6's
+// launches cost before their first instruction.
+REPRO_EXPORT int repro_quant_grid(const void* x, int kernel, long long rows,
+                                  int h, int chunk, int dtype, int mode,
+                                  int launch, int* grid, void* stream) {
+  if (rows <= 0 || h <= 0 || chunk <= 0 ||
+      (dtype != repro::kFloat32 && dtype != repro::kBFloat16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool f32 = dtype == repro::kFloat32;
+  repro::Plan p;
+  if (kernel == 0)
+    p = f32 ? repro::amax_plan<float>(x, rows, h, chunk)
+            : repro::amax_plan<__nv_bfloat16>(x, rows, h, chunk);
+  else if (kernel == 1)
+    p = f32 ? repro::quantize_plan<float>(x, rows, h, chunk, mode)
+            : repro::quantize_plan<__nv_bfloat16>(x, rows, h, chunk, mode);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  grid[0] = static_cast<int>(p.grid.x);
+  grid[1] = static_cast<int>(p.grid.y);
+  grid[2] = repro::kRowThreads;
+  if (launch)
+    repro::launch_row_pass(repro::empty_kernel, p.grid,
+                           static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -8,6 +8,17 @@ sum, requantize, B7) and ``nibble_unpack_dequantize`` (B8 + B9), launch
 their CUDA kernel on a CUDA tensor and run the plain version on a CPU
 tensor; a ``*_cuda`` wrapper raises on anything its kernel does not take.
 
+B6 is one kernel template over the wire (int8, fp8, int4 packed two a
+byte) and over the source of its scale:
+
+* the scales themselves (``chunk_quantize``, ``chunk_quantize_pack``), a
+  zero scale taken as 1 as the JAX package's Pallas wrapper does;
+* the all-reduced abs-max and ``qmax`` (``chunk_quantize_shared``,
+  ``chunk_quantize_pack_shared``): the kernel computes
+  ``scales_from_amax`` itself, bit for bit, and on request writes the
+  scales (times t on int4) for the dequantizing pass, so nothing runs
+  between the abs-max's all-reduce and the quantize.
+
 The numerics contract is a copy of ``repro.kernels.quant_collective.ops``
 with torch dtypes (the port imports nothing of the JAX package):
 
@@ -16,20 +27,24 @@ with torch dtypes (the port imports nothing of the JAX package):
   (``floor(127/t)`` for int8, ``448/t`` for fp8-e4m3, the full +-7 for
   int4), so the t-way sum cannot overflow the wire dtype,
 * ``scales_from_amax`` the shared scale from the all-reduced abs-max, 1.0
-  where a chunk is all zeros,
+  where a chunk is all zeros (``ref.py``, re-exported here),
 * ``QUANT_TOLERANCE``  the accuracy contract per mode: greedy token match
   against the unquantized path >= ``token_match_floor`` and max logit
   drift <= ``logit_drift_ceiling``.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.quant_collective.ref import (
+from repro_torch.kernels.quant_collective.ref import (  # noqa: F401
     chunk_amax_ref, chunk_dequantize_ref, chunk_quantize_pack_ref,
-    chunk_quantize_ref, dequantize_add_rms_norm_ref,
-    nibble_reduce_requant_ref, nibble_unpack_dequantize_ref)
+    chunk_quantize_pack_shared_ref, chunk_quantize_ref,
+    chunk_quantize_shared_ref, dequantize_add_rms_norm_ref, inv_qmax,
+    nibble_reduce_requant_ref, nibble_unpack_dequantize_ref,
+    scales_from_amax)
 
 # int4 has no torch dtype: its values lie on the int8 grid (|q| <= 7) and
 # travel packed two per uint8 byte; the fused int4 passes pack and unpack
@@ -84,19 +99,6 @@ def collective_qmax(quant: str, t: int) -> float:
     return 448.0 / t
 
 
-def scales_from_amax(amax, qmax: float):
-    """Per-chunk scale from the shared abs-max, 1.0 for all-zero chunks.
-
-    The JAX package writes ``amax / qmax``; XLA compiles a division by a
-    constant as a multiply by its f32 reciprocal, which can land one f32
-    ulp away.  The port computes what the compiled engine computes,
-    ``amax * f32(1 / qmax)``, so its shared scales are bitwise the
-    engine's."""
-    amax = amax.float()
-    inv = torch.tensor(1.0) / torch.tensor(float(qmax))   # f32 reciprocal
-    return torch.where(amax > 0.0, amax * inv.item(), torch.ones_like(amax))
-
-
 # ---------------------------------------------------------------------------
 # dispatch: the plain version on a CPU tensor, the kernel on a CUDA tensor
 # ---------------------------------------------------------------------------
@@ -114,6 +116,18 @@ def chunk_quantize(x, scales, chunk: int = DEFAULT_CHUNK,
     if x.device.type == "cpu":
         return chunk_quantize_ref(x, scales, chunk, qdtype)
     return chunk_quantize_cuda(x, scales, chunk, qdtype)
+
+
+def chunk_quantize_shared(x, amax, qmax: float, chunk: int = DEFAULT_CHUNK,
+                          quant: str = "int8", write_scales: bool = False):
+    """int8/fp8 B6 from the all-reduced abs-max [..., K]: (q, the shared
+    scales f32 [..., K] when ``write_scales``, else None)."""
+    qdtype = _wire_dtype(quant)
+    if x.device.type == "cpu":
+        return chunk_quantize_shared_ref(x, amax, qmax, chunk, qdtype,
+                                         write_scales)
+    return chunk_quantize_shared_cuda(x, amax, qmax, chunk, qdtype,
+                                      write_scales)
 
 
 def chunk_dequantize(q, scales, chunk: int = DEFAULT_CHUNK,
@@ -140,6 +154,19 @@ def chunk_quantize_pack(x, scales, chunk: int = DEFAULT_CHUNK):
     return chunk_quantize_pack_cuda(x, scales, chunk)
 
 
+def chunk_quantize_pack_shared(x, amax, qmax: float,
+                               chunk: int = DEFAULT_CHUNK, t: int = 1,
+                               write_scales: bool = False):
+    """int4 pre-pass from the all-reduced abs-max: (packed uint8
+    [..., h // 2], the shared scales times t when ``write_scales``, else
+    None)."""
+    if x.device.type == "cpu":
+        return chunk_quantize_pack_shared_ref(x, amax, qmax, chunk, t,
+                                              write_scales)
+    return chunk_quantize_pack_shared_cuda(x, amax, qmax, chunk, t,
+                                           write_scales)
+
+
 def nibble_reduce_requant(packed, t: int):
     """int4 reduce: t packed source blocks [..., m] -> their requantized
     sum, uint8 [..., m // t]."""
@@ -162,6 +189,19 @@ def nibble_unpack_dequantize(b, scales, chunk: int = DEFAULT_CHUNK,
 
 FLOAT_TYPES = _build.FLOAT_TYPES
 WIRE_TYPES = (torch.int8, torch.float8_e4m3fn)
+# B6's wire modes: int8 and fp8 by their dtype codes, int4 (the int8
+# value's low nibble, two a byte) as kNibble in quant_collective.cu
+_NIBBLE = 5
+
+
+def _wire_dtype(quant: str):
+    """The 1-byte wire dtype of an int8/fp8 mode (int4 packs: see
+    ``chunk_quantize_pack_shared``)."""
+    if quant not in ("int8", "fp8"):
+        raise ValueError(f"chunk_quantize_shared takes quant 'int8' or "
+                         f"'fp8', got {quant!r} (int4: "
+                         "chunk_quantize_pack_shared)")
+    return QUANT_DTYPES[quant]
 
 
 def _check_input(name, x, dtypes):
@@ -173,13 +213,13 @@ def _check_input(name, x, dtypes):
     return _build.dtype_code(x.dtype, dtypes)
 
 
-def _check_scales(name, x, scales, chunk, h=None):
-    """scales [..., K] f32 over x's rows, K chunks of an h-wide row (h:
+def _check_scales(name, x, scales, chunk, h=None, what="scales"):
+    """``what`` [..., K] f32 over x's rows, K chunks of an h-wide row (h:
     x's last axis unless given)."""
     if chunk < 1:
         raise ValueError(f"{name}: chunk must be >= 1, got {chunk}")
     k = -(-(x.shape[-1] if h is None else h) // chunk)
-    _build.require(name, "scales", scales, x.device, torch.float32,
+    _build.require(name, what, scales, x.device, torch.float32,
                    (*x.shape[:-1], k))
 
 
@@ -201,23 +241,52 @@ def chunk_amax_cuda(x, chunk: int = DEFAULT_CHUNK):
     return out
 
 
+def _quantize(name, x, src, chunk, mode, out, count, from_amax=False,
+              qmax=None, mult=1.0, write_scales=False):
+    """Launch B6 (``repro_chunk_quantize``) on x [..., h] into ``out``:
+    ``src`` holds the scales, or with ``from_amax`` the all-reduced
+    abs-max (then ``qmax`` is given); returns the scales times ``mult``
+    [..., K] when ``write_scales``, else None."""
+    code = _check_input(name, x, FLOAT_TYPES)
+    _check_scales(name, x, src, chunk, what="amax" if from_amax else "scales")
+    scales = torch.empty_like(src) if write_scales else None
+    h = x.shape[-1]
+    with torch.cuda.device(x.device):
+        rc = _build.lib().repro_chunk_quantize(
+            x.data_ptr(), src.data_ptr(),
+            scales.data_ptr() if write_scales else None, out.data_ptr(),
+            x.numel() // h, h, chunk, int(from_amax),
+            inv_qmax(qmax) if from_amax else 0.0, float(mult), code, mode,
+            _build.stream_ptr(x.device))
+    _build.check(rc, name)
+    _build.count(count)
+    return scales
+
+
 def chunk_quantize_cuda(x, scales, chunk: int = DEFAULT_CHUNK,
                         qdtype=torch.int8):
     """Launch B6: x [..., h] (float32 or bfloat16) and f32 scales
     [..., K] -> ``qdtype`` (int8 or float8_e4m3fn) [..., h]."""
-    name = "chunk_quantize_cuda"
-    code = _check_input(name, x, FLOAT_TYPES)
-    _check_scales(name, x, scales, chunk)
-    qcode = _build.dtype_code(qdtype, WIRE_TYPES)
+    mode = _build.dtype_code(qdtype, WIRE_TYPES)
     out = torch.empty(x.shape, dtype=qdtype, device=x.device)
-    h = x.shape[-1]
-    with torch.cuda.device(x.device):
-        rc = _build.lib().repro_chunk_quantize(
-            x.data_ptr(), scales.data_ptr(), out.data_ptr(), x.numel() // h,
-            h, chunk, code, qcode, _build.stream_ptr(x.device))
-    _build.check(rc, name)
-    _build.count("chunk_quantize")
+    _quantize("chunk_quantize_cuda", x, scales, chunk, mode, out,
+              "chunk_quantize")
     return out
+
+
+def chunk_quantize_shared_cuda(x, amax, qmax: float,
+                               chunk: int = DEFAULT_CHUNK, qdtype=torch.int8,
+                               write_scales: bool = False):
+    """Launch B6 from the all-reduced abs-max: x [..., h] (float32 or
+    bfloat16) and f32 amax [..., K] -> (``qdtype`` [..., h], f32 scales
+    [..., K] or None); every scale is ``scales_from_amax(amax, qmax)``,
+    computed in the kernel."""
+    mode = _build.dtype_code(qdtype, WIRE_TYPES)
+    out = torch.empty(x.shape, dtype=qdtype, device=x.device)
+    scales = _quantize("chunk_quantize_shared_cuda", x, amax, chunk, mode,
+                       out, "chunk_quantize", from_amax=True, qmax=qmax,
+                       write_scales=write_scales)
+    return out, scales
 
 
 def chunk_dequantize_cuda(q, scales, chunk: int = DEFAULT_CHUNK,
@@ -267,25 +336,38 @@ def dequantize_add_rms_norm_cuda(q, scales, chunk: int, x, weight,
     return s, n
 
 
-def chunk_quantize_pack_cuda(x, scales, chunk: int = DEFAULT_CHUNK):
-    """Launch B6 + B7 fused: x [..., h] (float32 or bfloat16, h even) and
-    f32 scales [..., K] -> uint8 [..., h // 2]."""
-    name = "chunk_quantize_pack_cuda"
-    code = _check_input(name, x, FLOAT_TYPES)
-    _check_scales(name, x, scales, chunk)
+def _packed_out(name, x):
     h = x.shape[-1]
     if h % 2:
         raise ValueError(f"{name}: nibble packing needs an even last axis, "
                          f"got {h}")
-    out = torch.empty((*x.shape[:-1], h // 2), dtype=torch.uint8,
-                      device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _build.lib().repro_chunk_quantize_pack(
-            x.data_ptr(), scales.data_ptr(), out.data_ptr(), x.numel() // h,
-            h, chunk, code, _build.stream_ptr(x.device))
-    _build.check(rc, name)
-    _build.count("chunk_quantize_pack")
+    return torch.empty((*x.shape[:-1], h // 2), dtype=torch.uint8,
+                       device=x.device)
+
+
+def chunk_quantize_pack_cuda(x, scales, chunk: int = DEFAULT_CHUNK):
+    """Launch B6 + B7 fused: x [..., h] (float32 or bfloat16, h even) and
+    f32 scales [..., K] -> uint8 [..., h // 2]."""
+    name = "chunk_quantize_pack_cuda"
+    _check_input(name, x, FLOAT_TYPES)
+    out = _packed_out(name, x)
+    _quantize(name, x, scales, chunk, _NIBBLE, out, "chunk_quantize_pack")
     return out
+
+
+def chunk_quantize_pack_shared_cuda(x, amax, qmax: float,
+                                    chunk: int = DEFAULT_CHUNK, t: int = 1,
+                                    write_scales: bool = False):
+    """Launch B6 + B7 fused from the all-reduced abs-max: x [..., h]
+    (float32 or bfloat16, h even) and f32 amax [..., K] -> (uint8
+    [..., h // 2], f32 scales times t [..., K] or None)."""
+    name = "chunk_quantize_pack_shared_cuda"
+    _check_input(name, x, FLOAT_TYPES)
+    out = _packed_out(name, x)
+    scales = _quantize(name, x, amax, chunk, _NIBBLE, out,
+                       "chunk_quantize_pack", from_amax=True, qmax=qmax,
+                       mult=float(t), write_scales=write_scales)
+    return out, scales
 
 
 def nibble_reduce_requant_cuda(packed, t: int):
@@ -326,3 +408,29 @@ def nibble_unpack_dequantize_cuda(b, scales, chunk: int = DEFAULT_CHUNK,
     _build.check(rc, name)
     _build.count("nibble_unpack_dequantize")
     return out
+
+
+_GRID_KERNELS = {"chunk_amax": (0, 0), "chunk_quantize": (1, 2),
+                 "chunk_quantize_pack": (1, _NIBBLE)}
+
+
+def quant_grid_cuda(kernel: str, x, chunk: int = DEFAULT_CHUNK,
+                    launch: bool = False):
+    """The launch grid (blocks in x, blocks in y, threads a block) of
+    ``kernel`` (B5 ``chunk_amax``, B6 ``chunk_quantize`` or
+    ``chunk_quantize_pack``) on x; with ``launch``, an empty kernel runs
+    at that grid on the current stream, launched as B5 and B6 are (by
+    programmatic dependent launch, waiting for its predecessor): the
+    grid's own launch cost, which ``chip_smoke.py`` times beside the
+    kernels (not a kernel of any path: it counts no launch)."""
+    name = "quant_grid_cuda"
+    code = _check_input(name, x, FLOAT_TYPES)
+    which, mode = _GRID_KERNELS[kernel]
+    h = x.shape[-1]
+    grid = (ctypes.c_int * 3)()
+    with torch.cuda.device(x.device):
+        rc = _build.lib().repro_quant_grid(
+            x.data_ptr(), which, x.numel() // h, h, chunk, code, mode,
+            int(launch), grid, _build.stream_ptr(x.device))
+    _build.check(rc, name)
+    return tuple(grid)

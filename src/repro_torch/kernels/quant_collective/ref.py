@@ -11,6 +11,12 @@ dense ops on the activation row entering a TP all-reduce:
 * ``nibble_unpack_ref``    (B8) the inverse, sign-extending each nibble,
 * ``chunk_dequantize_ref`` (B9) back to the working dtype.
 
+The all-reduce quantizes every rank's row onto the shared scales, which
+``scales_from_amax`` makes from the all-reduced abs-max.  On the card that
+rule runs inside B6: ``chunk_quantize_shared_ref`` (int8, fp8) and
+``chunk_quantize_pack_shared_ref`` (int4) are ``scales_from_amax`` and the
+quantize in one, and hand back the scales the dequantizing pass takes.
+
 On the int8/fp8 wire the dequantize is followed by the residual add and
 the next RMSNorm; ``dequantize_add_rms_norm_ref`` is that chain (B9, the
 add, B1), which one kernel runs on the card.
@@ -54,6 +60,26 @@ def chunk_amax_ref(x, chunk: int):
     return xp.reshape(*x.shape[:-1], k, chunk).amax(dim=-1)
 
 
+def scales_from_amax(amax, qmax: float):
+    """Per-chunk scale from the shared abs-max, 1.0 for all-zero chunks
+    (and for a NaN abs-max: ``amax > 0`` is false).
+
+    The JAX package writes ``amax / qmax``; XLA compiles a division by a
+    constant as a multiply by its f32 reciprocal, which can land one f32
+    ulp away.  The port computes what the compiled engine computes,
+    ``amax * f32(1 / qmax)``, so its shared scales are bitwise the
+    engine's; B6 computes the same product from ``inv_qmax``."""
+    amax = amax.float()
+    return torch.where(amax > 0.0, amax * inv_qmax(qmax),
+                       torch.ones_like(amax))
+
+
+def inv_qmax(qmax: float) -> float:
+    """f32(1 / qmax), the reciprocal the shared scale multiplies by (a
+    Python float holding the f32 value exactly)."""
+    return (torch.tensor(1.0) / torch.tensor(float(qmax))).item()
+
+
 def chunk_quantize_ref(x, scales, chunk: int, qdtype):
     """Symmetric quantize, q = x / scale per chunk: round half to even and
     clip to [-127, 127] for int8, clip to +-448 then round to e4m3 for
@@ -61,7 +87,8 @@ def chunk_quantize_ref(x, scales, chunk: int, qdtype):
 
     Every zero scale is taken as 1, as the JAX package's Pallas kernel does
     (``quant_kernel.chunk_quantize_pallas``; its jnp reference divides by
-    the zero).  ``ops.scales_from_amax`` never yields a zero scale."""
+    the zero).  ``scales_from_amax`` yields a zero scale only where
+    amax * (1 / qmax) underflows."""
     h = x.shape[-1]
     xp, k = _pad_to_chunks(x.float(), chunk)
     s = torch.where(scales == 0, torch.ones_like(scales), scales)
@@ -118,6 +145,27 @@ def chunk_quantize_pack_ref(x, scales, chunk: int):
     to +-127), then B7 keeps each value's low 4 bits: [..., h] (h even) ->
     [..., h // 2] uint8.  Each element takes its own chunk's scale."""
     return nibble_pack_ref(chunk_quantize_ref(x, scales, chunk, torch.int8))
+
+
+def chunk_quantize_shared_ref(x, amax, qmax: float, chunk: int, qdtype,
+                              write_scales: bool = False):
+    """B6 onto the shared scales: ``scales_from_amax(amax, qmax)``, then
+    ``chunk_quantize_ref``.  Returns (q, the scales when ``write_scales``,
+    else None)."""
+    scales = scales_from_amax(amax, qmax)
+    q = chunk_quantize_ref(x, scales, chunk, qdtype)
+    return q, (scales if write_scales else None)
+
+
+def chunk_quantize_pack_shared_ref(x, amax, qmax: float, chunk: int,
+                                   t: int = 1, write_scales: bool = False):
+    """The int4 pre-pass onto the shared scales: ``scales_from_amax``, then
+    ``chunk_quantize_pack_ref``.  Returns (packed, the scales times t when
+    ``write_scales``, else None): what ``nibble_unpack_dequantize`` takes
+    after the reduce has requantized the sum of t ranks by t."""
+    scales = scales_from_amax(amax, qmax)
+    packed = chunk_quantize_pack_ref(x, scales, chunk)
+    return packed, (scales * t if write_scales else None)
 
 
 def nibble_reduce_requant_ref(packed, t: int):

@@ -15,8 +15,9 @@ B10 (the WKV6 recurrence, both its kernels) is held to the same
 tolerances: its f32 state updates are contracted to FMAs and summed in
 another order, about one f32 ulp per step over these short sequences.  The
 quantization kernels (B5, B6, B9 and the int4 wire's fused passes) have
-no tolerance: integer, byte and fp8 outputs, B5's f32 abs-max and the
-dequantize's single rounding must be bitwise equal to the plain versions.  The shapes are small and ragged on purpose (odd
+no tolerance: integer, byte and fp8 outputs, B5's f32 abs-max, the shared
+scales B6 computes from the abs-max and the dequantize's single rounding
+must be bitwise equal to the plain versions.  The shapes are small and ragged on purpose (odd
 lengths, partial tiles, a hidden width with no 16-byte vector path, a
 last chunk shorter than the rest); ``chip_smoke.py`` checks the full
 model's shapes.
@@ -322,6 +323,110 @@ def test_chunk_amax_kernel_propagates_nan(cuda):
     assert torch.equal(got[:, :2], qref.chunk_amax_ref(x, 128)[:, :2])
 
 
+# B5's lane groups: a 16-byte vector a lane, the group the chunk's vectors
+# rounded up to a power of two (at most 32): bf16 chunk 8 -> 1 lane, 16 ->
+# 2, 64 -> 8, 128 -> 16, 512 -> 32 lanes of two vectors; f32 chunk 128 ->
+# 32; ragged last chunks, and h or a view with no vector path (scalar path)
+AMAX_CASES = [((4, 3072), 128), ((3, 160), 64), ((2, 72), 8), ((5, 48), 16),
+              ((2, 1100), 512), ((3, 200), 25), ((2, 5, 257), 128),
+              ((70000, 16), 8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,chunk", AMAX_CASES)
+@pytest.mark.parametrize("view", [False, True], ids=["aligned", "offset"])
+def test_chunk_amax_lane_groups_bitwise(cuda, dtype, shape, chunk, view):
+    """B5 on every lane-group size, bit for bit; ``offset``: x a view one
+    element past a 16-byte boundary (the scalar path); 70000 rows pass the
+    grid's 65535 in y."""
+    n = 1
+    for d in shape:
+        n *= d
+    flat = 3.0 * _rand(cuda, dtype, seed=shape[-1] + chunk)(n + 1)
+    x = (flat[1:] if view else flat[:-1]).view(shape)
+    got = qops.chunk_amax_cuda(x, chunk)
+    assert torch.equal(_bits(got), _bits(qref.chunk_amax_ref(x, chunk)))
+
+
+# (shape, chunk): the decode shape, ragged h = 160 / chunk 64, an odd chunk
+# (a 16-byte step straddles two scales), h with no vector path
+SHARED_CASES = [((4, 3072), 128), ((3, 160), 64), ((2, 200), 25),
+                ((2, 5, 258), 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("t", [2, 4, 8])
+@pytest.mark.parametrize("quant", ["int8", "fp8", "int4"])
+@pytest.mark.parametrize("shape,chunk", SHARED_CASES)
+def test_shared_scale_quantize_kernels_bitwise(cuda, dtype, shape, chunk,
+                                               quant, t):
+    """B6 from the all-reduced abs-max (int8, fp8) and the int4 pre-pass
+    from it, against their plain versions, bit for bit, with and without
+    the scales write (times t on int4), on x and on a view of x off a
+    16-byte boundary: an all-zero chunk, a NaN, an infinite and a subnormal
+    abs-max (its scale underflows to 0, which the quantize takes as 1),
+    and chunks whose abs-max is below their values' (the clips bind).
+    Then ``quantized_psum`` with kernels against it with plain versions."""
+    from repro_torch.core import comm
+    from repro_torch.core.parallel_exec import quantized_psum
+
+    h = shape[-1]
+    n = 1
+    for d in shape:
+        n *= d
+    flat = 3.0 * _rand(cuda, dtype, seed=h + t)(n + 1)
+    qmax = qops.collective_qmax(quant, t)
+    for x in (flat[:-1].view(shape), flat[1:].view(shape)):
+        x.reshape(-1, h)[0, :chunk] = 0.0
+        amax = qref.chunk_amax_ref(x, chunk)
+        amax[..., 1::3] /= 40.0
+        flat_a = amax.view(-1)
+        flat_a[1], flat_a[-1] = float("nan"), float("inf")
+        flat_a[2 % flat_a.numel()] = 1e-45
+        for write in (True, False):
+            if quant == "int4":
+                got = qops.chunk_quantize_pack_shared_cuda(
+                    x, amax, qmax, chunk, t, write)
+                want = qref.chunk_quantize_pack_shared_ref(
+                    x, amax, qmax, chunk, t, write)
+            else:
+                qdt = qops.QUANT_DTYPES[quant]
+                got = qops.chunk_quantize_shared_cuda(x, amax, qmax, chunk,
+                                                      qdt, write)
+                want = qref.chunk_quantize_shared_ref(x, amax, qmax, chunk,
+                                                      qdt, write)
+            assert torch.equal(_bits(got[0]), _bits(want[0]))
+            if write:
+                assert torch.equal(_bits(got[1]), _bits(want[1]))
+            else:
+                assert got[1] is None
+    if h % (2 * t) == 0:
+        xs = [3.0 * _rand(cuda, dtype, seed=h + r)(*shape) for r in range(t)]
+        assert torch.equal(
+            _bits(quantized_psum(xs, comm.VirtualGroup(t), quant, chunk)),
+            _bits(quantized_psum(xs, comm.VirtualGroup(t), quant, chunk,
+                                 plain=True)))
+
+
+@pytest.mark.gpu
+def test_quant_grid_floor(cuda):
+    """The empty kernel runs at B5's and B6's grids: at the decode shape
+    B5 takes 16 lanes a bf16 chunk (8 chunks a 128-thread block), B6 a
+    step of two values a thread."""
+    x = _rand(cuda, torch.bfloat16)(4, 3072)
+    assert qops.quant_grid_cuda("chunk_amax", x, 128, launch=True) \
+        == (3, 4, 128)
+    assert qops.quant_grid_cuda("chunk_quantize", x, 128, launch=True) \
+        == (12, 4, 128)
+    assert qops.quant_grid_cuda("chunk_quantize_pack", x, 128) \
+        == (12, 4, 128)
+    torch.cuda.synchronize()
+
+
 # (shape, chunk, t): the decode shape, even and ragged chunks, an odd chunk
 # (pairs straddle two scales) under a 3-d lead, a hidden width with no
 # 16-byte vector path (h % 8 != 0 for bf16)
@@ -449,6 +554,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         qops.chunk_amax_cuda(x.half())
     with pytest.raises(ValueError, match="scales"):
         qops.chunk_quantize_cuda(x, torch.ones(4, 3, device=cuda), 32)
+    # B6 from the abs-max: the abs-max of the wrong shape or type, an odd h
+    # for the int4 wrapper
+    with pytest.raises(ValueError, match="amax"):
+        qops.chunk_quantize_shared_cuda(x, torch.ones(4, 3, device=cuda),
+                                        7.0, 32)
+    with pytest.raises(TypeError, match="amax"):
+        qops.chunk_quantize_pack_shared_cuda(
+            x, torch.ones(4, 2, device=cuda, dtype=torch.float64), 7.0, 32)
+    with pytest.raises(ValueError, match="even"):
+        qops.chunk_quantize_pack_shared_cuda(rnd(2, 7),
+                                             torch.ones(2, 2, device=cuda),
+                                             7.0, 4)
     # the int4 wire's fused kernels: odd h, h % 2t != 0, wrong dtypes,
     # scales of the wrong shape, a strided input
     s4 = torch.ones(2, 2, device=cuda)
@@ -526,6 +643,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                  lambda: qops.dequantize_add_rms_norm_cuda(
                      x.to(torch.int8), s, 8, x, torch.zeros(8)),
                  lambda: qops.chunk_quantize_pack_cuda(x, s, 8),
+                 lambda: qops.chunk_quantize_shared_cuda(x, s, 7.0, 8),
+                 lambda: qops.chunk_quantize_pack_shared_cuda(x, s, 7.0, 8),
+                 lambda: qops.quant_grid_cuda("chunk_amax", x, 8),
                  lambda: qops.nibble_reduce_requant_cuda(x.to(torch.uint8), 2),
                  lambda: qops.nibble_unpack_dequantize_cuda(
                      x.to(torch.uint8), torch.ones(2, 2), 8)):
