@@ -46,7 +46,21 @@ Phases:
      model (bf16 teacher-forced; f32 greedy tokens at L = 4), (e) one
      decode step's time breakdown, (f) one 512-token prefill pass's, with
      B10's chunked kernel and with its per-step kernel;
-  7. one JSON line with the kernel table, then the ok line.
+  7. the pipeline and hybrid engines on virtual stages, full width of
+     llama32-3b, (t, p) = (1, 4) and (2, 2): (a) PipelineEngine
+     prefill + generate on 4 prompts of the trace, tokens and logits
+     bitwise the single-stage path's (Model, TPModel t = 2); (b) its
+     transfers equal the send rows of commodel.pp_comm_ops /
+     hybrid_comm_ops and each stage's comm log
+     hybrid_stage_collectives; (c) PPBackend through the Scheduler over
+     the trace ((1, 4) contiguous at inflight 1 and 4, (2, 2) paged at
+     inflight 2, (2, 2) contiguous int8), every logit finite, the
+     schedule clock of a one-wave trace equal to pp_schedule_stats, f32
+     streams at L = 4 equal across depths and to the single device;
+     (d) every run's launches equal their formula (the standalone B9
+     at each boundary of a quantized step); (e) one decode round's time
+     breakdown per layout, with the boundary hops' device time;
+  8. one JSON line with the kernel table, then the ok line.
 
 It imports nothing of JAX, exits non-zero with no ok line when there is no
 card or when it is not inside a checkout of the repository, and lets every
@@ -977,7 +991,7 @@ def require_all_finished(what, trace, report):
 
 
 def expect_launches(what, counts, L, passes, flash, decode, paged, t=1,
-                    quant=None, quant_steps=0, scan=0):
+                    quant=None, quant_steps=0, scan=0, p=1):
     """The launches of one run: 2L+1 norm sites per forward pass (run once
     on the TP group at any t), layer 0's ln1 a B1 and the other 2L an
     add_rms_norm (each closes a residual add), one B2 per layer and rank of
@@ -987,17 +1001,20 @@ def expect_launches(what, counts, L, passes, flash, decode, paged, t=1,
     int8 and fp8 then one B6 per rank, and the norm site after it is a
     dequantize_add_rms_norm (B9 + add + B1) in place of the add_rms_norm;
     int4 one chunk_quantize_pack (B6 + B7) and one nibble_reduce_requant
-    (B8 + B7) per rank and one nibble_unpack_dequantize (B8 + B9).  No
-    standalone B9 runs on these paths."""
+    (B8 + B7) per rank and one nibble_unpack_dequantize (B8 + B9).  On p
+    pipeline stages an int8/fp8 step dequantizes the sum it ships at each
+    of the p - 1 boundaries with the standalone B9 (chunk_dequantize), and
+    the next stage's first norm is then an add_rms_norm."""
     ar = 2 * L * quant_steps if quant else 0
     int4, int8 = (ar, 0) if quant == "int4" else (0, ar)
-    want = {"rmsnorm": passes, "add_rms_norm": 2 * L * passes - int8,
-            "dequantize_add_rms_norm": int8,
+    hops = (p - 1) * quant_steps if int8 else 0
+    want = {"rmsnorm": passes, "add_rms_norm": 2 * L * passes - int8 + hops,
+            "dequantize_add_rms_norm": int8 - hops,
             "flash_attention": L * t * flash,
             "decode_attention": L * t * decode,
             "paged_decode_attention": L * t * paged,
             "chunk_amax": ar * t, "chunk_quantize": int8 * t,
-            "chunk_dequantize": 0, "chunk_quantize_pack": int4 * t,
+            "chunk_dequantize": hops, "chunk_quantize_pack": int4 * t,
             "nibble_reduce_requant": int4 * t,
             "nibble_unpack_dequantize": int4, "wkv6": L * scan}
     log(f"  launches {what}: {counts}")
@@ -1713,6 +1730,327 @@ def rwkv_phase(dev, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the pipeline and hybrid engines on virtual stages, full width
+# ---------------------------------------------------------------------------
+
+PP_LAYOUTS = ((1, 4), (2, 2))       # (t, p)
+PP_PROMPTS = 4                      # prompts of the smoke trace in (a)
+PP_NEW = 16                         # greedy tokens per prompt in (a)
+# (c): (t, p, inflight, paged, quant) over the smoke trace, 4 slots
+PP_SERVE = ((1, 4, 1, False, None), (1, 4, 4, False, None),
+            (2, 2, 2, True, None), (2, 2, 1, False, "int8"))
+# (e): (kind, t, p, inflight); the single-stage rounds first, through the
+# same backend and queue machinery, as the layouts' baselines
+PP_BREAKDOWN = (("gspmd", 1, 1, 1), ("pp", 1, 4, 1), ("pp", 1, 4, 4),
+                ("tp", 2, 1, 1), ("pp", 2, 2, 1))
+
+
+def pp_reference(cfg, params, t):
+    """The single-stage path a layout is bitwise held to: ``Model`` at
+    t = 1, ``TPModel`` on its own shards at t > 1."""
+    from repro_torch.core.parallel_exec import TPModel, shard_params
+    from repro_torch.models.transformer import get_model
+    if t == 1:
+        return get_model(cfg), params
+    return TPModel(cfg, t), shard_params(cfg, params, t)
+
+
+def pp_greedy(prompt, n: int, prefill, generate, step):
+    """(prefill logits, n greedy tokens, the logits of one more step):
+    ``prefill(prompt)``, ``generate(cache, tok, pos, n - 1)``, then
+    ``step(cache, tok, pos)``."""
+    S = prompt.shape[1]
+    logits, cache = prefill(prompt)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    gen, cache = generate(cache, tok, S, n - 1)
+    last, _ = step(cache, gen[:, -1], S + n - 1)
+    return logits, torch.cat([tok[:, None], gen], dim=1), last
+
+
+def pp_check_stage_logs(what, eng, cfg, t, p, passes, quant=None):
+    """Each stage's logged collectives per phase == ``passes[phase]`` x
+    ``commodel.hybrid_stage_collectives`` (nothing at t = 1)."""
+    from repro_torch.core import comm
+    from repro_torch.core.commodel import hybrid_stage_collectives
+    for s, m in enumerate(eng.stages):
+        for phase, n in passes.items():
+            want = {k: v * n for k, v in hybrid_stage_collectives(
+                cfg, t, p, s, phase=phase,
+                quant=quant if phase == "decode" else None).items()}
+            got = comm.counts_by_collective(m.group.summary(phase))
+            if got != want:
+                raise AssertionError(f"{what}: stage {s} {phase} logged "
+                                     f"{got} != {want}")
+
+
+def pp_phase(dev, smi, params):
+    from repro_torch.configs import get_config
+    from repro_torch.core.commodel import hybrid_comm_ops, pp_comm_ops, \
+        pp_schedule_stats
+    from repro_torch.core.parallel_exec import PipelineEngine
+    from repro_torch.kernels import _build
+    from repro_torch.models.layers import torch_dtype
+    from repro_torch.models.transformer import get_model
+    from repro_torch.runtime.backends import make_backend
+    from repro_torch.runtime.request import Request
+    from repro_torch.runtime.scheduler import Scheduler
+
+    cfg = get_config(ARCH)
+    L = cfg.num_layers
+    b = torch_dtype(cfg.dtype).itemsize
+    totals = {name: 0 for name in _build.LAUNCHES}
+    t_phase = time.perf_counter()
+    prompts = [torch.as_tensor(r.prompt, dtype=torch.int32, device=dev)[None]
+               for r in smoke_trace(cfg)[:PP_PROMPTS]]
+
+    # (a) engine parity, (b) transfers and stage logs, (d) launches
+    for t, p in PP_LAYOUTS:
+        ref, ref_params = pp_reference(cfg, params, t)
+        eng = PipelineEngine(cfg, t=t, p=p, device=dev)
+        staged = eng.prepare(params)
+        w = eng.cache_width(1024)
+        same_logits = same_tokens = True
+        for prompt in prompts:
+            S = prompt.shape[1]
+            eng.transfers.clear()
+            for m in eng.stages:
+                m.group.log.clear()
+            got = drive_counted(
+                f"pp t={t} p={p} S={S} engine", lambda: pp_greedy(
+                    prompt, PP_NEW,
+                    lambda x: eng.prefill_with_cache(staged, x, w),
+                    lambda *a: eng.generate(staged, *a),
+                    lambda *a: eng.decode_once(staged, *a)),
+                totals, L, passes=1 + PP_NEW, flash=1, decode=PP_NEW,
+                paged=0, t=t)
+            with torch.inference_mode():
+                want = pp_greedy(
+                    prompt, PP_NEW,
+                    lambda x: ref.prefill(ref_params, x, 1024)[:2],
+                    lambda *a: ref.decode_steps(ref_params, *a),
+                    lambda *a: ref.decode_step(ref_params, *a))
+            same_logits &= torch.equal(got[0], want[0]) and \
+                torch.equal(got[2], want[2])
+            same_tokens &= torch.equal(got[1], want[1])
+            s_d = PP_NEW + 1
+            ops = (pp_comm_ops(cfg, S, s_d, p, b=b) if t == 1 else
+                   hybrid_comm_ops(cfg, S, s_d, t, p, b=b,
+                                   gather_mode="allgather"))
+            for phase in ("prefill", "decode"):
+                row = [o for o in ops
+                       if o.collective == "send" and o.phase == phase][0]
+                summ = eng.transfer_summary(phase)
+                if summ != {"count": row.count,
+                            "bytes": row.total_msg_bytes}:
+                    raise AssertionError(
+                        f"pp t={t} p={p} S={S} {phase} transfers {summ} != "
+                        f"{row.count} x {row.total_msg_bytes} bytes")
+            pp_check_stage_logs(f"pp t={t} p={p} S={S}", eng, cfg, t, p,
+                                {"prefill": 1, "decode": PP_NEW})
+        what = "Model" if t == 1 else f"TPModel t={t}"
+        log(f"[pp parity] t={t} p={p} {cfg.dtype}, {len(prompts)} prompts of the "
+            f"trace, prefill + {PP_NEW - 1} generated + 1 step: tokens == "
+            f"{what}: {same_tokens}, logits bitwise == {what}: {same_logits}"
+            f"; transfers == {'pp' if t == 1 else 'hybrid'}_comm_ops send "
+            f"rows (b={b}) and stage logs == hybrid_stage_collectives on "
+            f"every prompt")
+        if not (same_tokens and same_logits):
+            raise AssertionError(f"pp t={t} p={p}: not bitwise the "
+                                 f"{what} path")
+        del eng, staged, ref, ref_params
+
+    # (c) serving through Scheduler, (d) launches
+    streams = {}
+    for t, p, d, paged, quant in PP_SERVE:
+        what = (f"pp t={t} p={p} inflight={d} "
+                f"{'paged' if paged else 'contiguous'}"
+                f"{' ' + quant if quant else ''}")
+        trace = smoke_trace(cfg)
+        kw = dict(paged=True, page_size=16) if paged else {}
+        backend = make_backend("pp", cfg, params, num_slots=4, max_len=1024,
+                               t=t, p=p, inflight=d, quant_collectives=quant,
+                               device=dev, **kw)
+        finite = FiniteLogits(backend.engine.stages[-1])
+        scheduler = Scheduler(backend, chunk_size=256 if paged else None)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        report = scheduler.run(trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_build.LAUNCHES)
+        require_all_finished(what, trace, report)
+        dec = [r for r in report.steps if r.phase == "decode"]
+        n_dec = len(dec)
+        n_chunks = sum(1 for r in report.steps if r.phase == "prefill")
+        if paged:
+            expect_launches(what, counts, L, passes=n_chunks + n_dec,
+                            flash=n_chunks, decode=0, paged=n_dec, t=t, p=p)
+        else:
+            expect_launches(what, counts, L, passes=len(trace) + n_dec,
+                            flash=len(trace), decode=n_dec, paged=0, t=t,
+                            quant=quant, quant_steps=n_dec if quant else 0,
+                            p=p)
+        for k in totals:
+            totals[k] += counts[k]
+        pp_check_stage_logs(what, backend.engine, cfg, t, p,
+                            {"decode": n_dec}, quant)
+        send = [o for o in backend.decode_comm_ops(batch=backend.group_size)
+                if o.collective == "send"][0]
+        hops = {"count": send.count, "bytes": send.total_msg_bytes}
+        if any(r.measured_transfers != hops for r in dec):
+            raise AssertionError(f"{what}: a decode round's transfers differ "
+                                 f"from {hops}")
+        n = finite.assert_all(what)
+        occ = report.occupancy()
+        log(f"[pp serve {what}] {len(report.metrics)} requests, "
+            f"{report.total_tokens} tokens, {n_dec} group rounds, {n_chunks} "
+            f"prefill chunks in {wall:.2f} s, {n} logit batches all finite; "
+            f"every round's transfers {hops}; schedule ticks {occ['ticks']}, "
+            f"busy fraction per stage "
+            f"{[round(f, 4) for f in occ['stage_busy_fraction']]} ({smi})")
+        log(f"[pp serve {what}] summary {json.dumps(report.summary())}")
+        streams[(t, p, d, paged, quant)] = report.tokens_by_rid()
+        del backend, scheduler, finite
+    a, b4 = streams[(1, 4, 1, False, None)], streams[(1, 4, 4, False, None)]
+    same = sum(a[r] == b4[r] for r in a)
+    log(f"[pp serve] t=1 p=4 streams at inflight 4 equal to inflight 1: "
+        f"{same}/{len(a)} (bf16; a group of 1 row may take another GEMV "
+        f"than a group of 4)")
+
+    # the schedule clock on a one-wave trace: pp_schedule_stats
+    rng = torch.Generator().manual_seed(8)
+    for d in (1, 4):
+        wave = [Request(rid=i, prompt=torch.randint(
+            2, cfg.vocab_size, (64,), generator=rng).numpy(),
+            max_new_tokens=PP_NEW) for i in range(4)]
+        backend = make_backend("pp", cfg, params, num_slots=4, max_len=1024,
+                               t=1, p=4, inflight=d, device=dev)
+        scheduler = Scheduler(backend)
+        scheduler.run(wave)
+        q = scheduler._queue
+        st = pp_schedule_stats(4, d, PP_NEW - 1)
+        ok = (q.ticks == st.ticks and tuple(q.busy) == st.stage_forwards
+              and q.idle == [st.ticks - x for x in st.stage_forwards])
+        log(f"[pp schedule] one wave of 4 requests x {PP_NEW} tokens, t=1 "
+            f"p=4 inflight={d}: ticks {q.ticks}, busy {q.busy}, idle "
+            f"{q.idle}; pp_schedule_stats ticks {st.ticks}, busy "
+            f"{list(st.stage_forwards)}: {'equal' if ok else 'DIFFERENT'}")
+        if not ok:
+            raise AssertionError("the queue's schedule clock differs from "
+                                 "pp_schedule_stats")
+        del backend, scheduler
+
+    # streams at inflight d == inflight 1 == single device, f32 at L = 4
+    cfg32 = dataclasses.replace(cfg, num_layers=4, dtype="float32")
+    p32 = get_model(cfg32).init(seed=3, device=dev)
+    same = True
+    for paged in (False, True):
+        kw, chunk = (dict(paged=True, page_size=16), 256) if paged else \
+            ({}, None)
+        f32 = {}
+        layouts = ((2, 2, 1), (2, 2, 2)) if paged else ((1, 4, 1), (1, 4, 4))
+        for key, kind, t, p, d in (("one device", "gspmd", 1, 1, 1), *(
+                (f"t={t} p={p} inflight={d}", "pp", t, p, d)
+                for t, p, d in layouts)):
+            backend = make_backend(kind, cfg32, p32, num_slots=4,
+                                   max_len=1024, t=t, p=p, inflight=d,
+                                   device=dev, **kw)
+            f32[key] = Scheduler(backend, chunk_size=chunk).run(
+                smoke_trace(cfg32)[:4]).tokens_by_rid()
+            del backend
+        equal = all(v == f32["one device"] for v in f32.values())
+        log(f"[compare f32] L=4 full width, the first 4 requests' "
+            f"{'paged' if paged else 'contiguous'} streams through PPBackend "
+            f"({', '.join(list(f32)[1:])}) == single device: {equal}")
+        same &= equal
+    if not same:
+        raise AssertionError("f32 PP streams differ across depths or from "
+                             "the single-device path")
+    del p32
+
+    # (e) one decode round's time breakdown
+    log(f"[pp phase] (a)-(d) in {time.perf_counter() - t_phase:.1f} s")
+    for kind, t, p, d in PP_BREAKDOWN:
+        pp_round_breakdown(dev, smi, cfg, params, kind, t, p, d)
+    log(f"[pp phase] {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
+def pp_round_breakdown(dev, smi, cfg, params, kind: str, t: int, p: int,
+                       d: int, rounds: int = 4):
+    """One decode round of all 4 slots at pos ~130 through a backend of
+    ``kind`` and its queue (d group rounds begun together and drained), as
+    the Scheduler drives it: host wall (synchronised, no profiler), device
+    busy (``device_busy_us``), idle share, and on the pipeline the
+    boundary hops' device time: the device records launched inside
+    ``send_boundary`` (the profiler's device time of the host-side range,
+    which leaves out the gaps between the copies that the range's span on
+    the card holds)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.runtime.backends import make_backend
+
+    backend = make_backend(kind, cfg, params, num_slots=4, max_len=1024, t=t,
+                           p=p, inflight=d, device=dev)
+    prompts = torch.randint(2, cfg.vocab_size, (4, 128),
+                            generator=torch.Generator().manual_seed(5))
+    state = {"tok": backend.prefill_into_slots(list(prompts.numpy()),
+                                               range(4)),
+             "pos": np.full(4, 128)}
+    queue = backend.make_queue()
+    if p > 1:
+        send = backend.engine.send_boundary
+
+        def hop(out, s, phase="decode"):
+            with record_function("pp.boundary_hop"):
+                return send(out, s, phase)
+        backend.engine.send_boundary = hop
+
+    def run(n):
+        for _ in range(n):
+            for g in range(d):
+                queue.begin_round(g, state["tok"], state["pos"])
+            for res in queue.sync():
+                state["tok"][res.slots] = res.tokens
+            state["pos"] = state["pos"] + 1
+
+    run(2)                                                   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(rounds)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / rounds
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(rounds)
+        torch.cuda.synchronize()
+    busy_us, summed_us = device_busy_us(prof)
+    what = f"{kind} t={t} p={p} inflight={d}"
+    if busy_us <= 0:
+        log(f"[round {what}] 4 slots: host wall {wall_ms:.3f} ms/round; "
+            "device busy: not measured (profiler recorded no device time)")
+        return
+    hops = [e for e in prof.events() if e.name == "pp.boundary_hop"]
+    hop_us = sum(e.device_time_total for e in hops if not _on_card(e))
+    span_us = sum(e.time_range.elapsed_us() for e in hops if _on_card(e))
+    busy_ms = busy_us / 1e3 / rounds
+    hop_txt = (f"{hop_us / 1e3 / rounds:.4f} ms/round (the range's span on "
+               f"the card {span_us / 1e3 / rounds:.4f})" if hop_us > 0 else
+               "not measured (no device time under the hop)")
+    hop_txt += (f" ({(p - 1) * 2 * d} copies of [{4 // d}, 1, "
+                f"{cfg.d_model // t}] x {t} ranks)")
+    if p == 1:
+        hop_txt = "none (one stage)"
+    log(f"[round {what}] 4 slots at pos ~130: host wall {wall_ms:.3f} "
+        f"ms/round (no profiler), device busy {busy_ms:.3f} ms/round "
+        f"(profiler, union of kernel intervals; their sum "
+        f"{summed_us / 1e3 / rounds:.3f}), device idle share "
+        f"{1 - busy_ms / wall_ms:.3f}, boundary hops' device time "
+        f"{hop_txt} ({smi})")
+    del backend
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1731,13 +2069,14 @@ REPLACES = {
         "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/paged_kernel.py:70"),
     # the int4 wire's fused kernels stand for B7 (nibble_pack_pallas, :113)
-    # and B8 (nibble_unpack_pallas, :141), dequantize_add_rms_norm for B9 on
-    # the main path (the standalone B9 serves quantized_psum's own result,
-    # which no main path calls); FUSES names all they cover
+    # and B8 (nibble_unpack_pallas, :141), dequantize_add_rms_norm for B9 at
+    # the norm sites of the TP path; the standalone B9 dequantizes the sum a
+    # pipeline stage ships on the int8/fp8 step; FUSES names all they cover
     **{name: ("src/repro_torch/kernels/quant_collective/csrc/"
               "quant_collective.cu",
               f"src/repro/kernels/quant_collective/quant_kernel.py:{line}")
        for name, line in (("chunk_amax", 44), ("chunk_quantize", 75),
+                          ("chunk_dequantize", 167),
                           ("dequantize_add_rms_norm", 167),
                           ("chunk_quantize_pack", 113),
                           ("nibble_reduce_requant", 141),
@@ -1805,7 +2144,10 @@ def main(argv=None) -> int:
     prompt, kernel_rows = model_compare_phase(dev, params)
     for name, n in tp_phase(dev, smi, params, prompt, kernel_rows).items():
         launches[name] += n
-    del params, prompt, kernel_rows
+    del prompt, kernel_rows
+    for name, n in pp_phase(dev, smi, params).items():
+        launches[name] += n
+    del params
     for name, n in rwkv_phase(dev, smi).items():
         launches[name] += n
 

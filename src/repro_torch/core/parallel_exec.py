@@ -1,6 +1,7 @@
-"""Explicit tensor-parallel engine of the port, on virtual ranks.
+"""Explicit tensor-parallel and pipeline engines of the port, on virtual
+ranks and stages.
 
-Counterpart of the TP half of ``repro.core.parallel_exec``: the paper's
+Counterpart of ``repro.core.parallel_exec``.  The TP half is the paper's
 hand-placed collective schedule (Section III-A) —
 
   * a vocab-parallel embedding all-reduce (the "+1"),
@@ -37,17 +38,26 @@ cache) or {k, v: [L, P, ps, Hkv/t, D]} (KV pages under one block table).
 Like the JAX engine this covers the dense llama family with untied,
 unscaled embeddings (the JAX ``_head`` and ``_embed_tokens`` ignore
 ``tie_embeddings`` and ``scale_embedding``); other configs raise.
+
+The pipeline half (Section III-B/C) is ``PipelineEngine``: p stages, each
+a ``TPModel`` stage over its own layers and its own t ranks (t = 1: pure
+PP, t > 1: hybrid), with a logged boundary hop between stages.  A TPModel
+pass is the one-stage case of the same stage methods.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+import math
 import types
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.core.comm import VirtualGroup
-from repro_torch.core.commodel import DEFAULT_QUANT_CHUNK
+from repro_torch.core.commodel import (DEFAULT_QUANT_CHUNK,
+                                       stage_layer_partition)
 from repro_torch.kernels.quant_collective import ref as qref
 from repro_torch.kernels.quant_collective.ops import (
     QUANT_DTYPES, chunk_amax, chunk_dequantize, chunk_quantize_pack_shared,
@@ -58,6 +68,7 @@ from repro_torch.models.layers import (add_norm, decode_positions, mlp_apply,
                                        torch_dtype)
 from repro_torch.models.transformer import (Model, greedy_decode_loop,
                                             resolve_device)
+from repro_torch.runtime.engine import check_params_device
 
 # ---------------------------------------------------------------------------
 # parameter sharding (the slicing counterpart of tp_param_specs)
@@ -420,48 +431,107 @@ class TPModel:
     def _layer_caches(cache, l):
         return [{key: c[key][l] for key in ("k", "v")} for c in cache]
 
+    # ------------------------------------------------------------- stages
+    # A stage runs the layers [lo, hi) on per-rank parameters whose blocks
+    # hold exactly those layers (``PipelineEngine.prepare``) and on caches
+    # of those layers.  The stage that owns layer 0 embeds the tokens; a
+    # later one takes the carried pair its predecessor shipped.  The stage
+    # that owns the last layer ends in the head; an earlier one returns the
+    # carried pair for the boundary.  TPModel's own passes are the one
+    # stage [0, L).
+
+    def _stage_in(self, params, inp, lo: int):
+        """The carried pair (h, x) a stage starts from: the embedded tokens
+        (``lo`` = 0), or the pair received at the stage boundary as t
+        per-rank h/t slices of each tensor, all-gathered on the group (two
+        all-gathers at t > 1)."""
+        if lo == 0:
+            return None, self._embed_tokens(params, inp)
+        h, x = inp
+        return self.group.all_gather(h), self.group.all_gather(x)
+
+    def _stage_out(self, params, carried, hi: int):
+        if hi == self.cfg.num_layers:
+            return self._head(params, carried)
+        return carried
+
+    def stage_prefill(self, params, inp, lo: int, hi: int,
+                      cache_w: int = None):
+        """Layers [lo, hi) over whole sequences: (out, per-rank ring caches
+        [hi - lo, B, cache_w, Hkv/t, D], or None without ``cache_w``)."""
+        cfg = self.cfg
+        with self.group.phase("prefill"):
+            carried = self._stage_in(params, inp, lo)
+            x = carried[1]
+            B, S = x.shape[:2]
+            positions = torch.arange(S, device=x.device).expand(B, S)
+            cache = None
+            if cache_w is not None:
+                cache = [{key: x.new_zeros((hi - lo, B, cache_w, self.kv_t,
+                                            cfg.head_dim))
+                          for key in ("k", "v")} for _ in range(self.t)]
+            for l in range(lo, hi):
+                pls = [_layer_slice(p["blocks"], l - lo) for p in params]
+                carried, built = self._tp_layer_full(pls, carried, positions,
+                                                     cache_w)
+                if cache is not None:
+                    for c, b in zip(cache, built):
+                        c["k"][l - lo] = b["k"]
+                        c["v"][l - lo] = b["v"]
+            return self._stage_out(params, carried, hi), cache
+
+    def stage_decode(self, params, cache, inp, pos, lo: int, hi: int):
+        """One decode step through layers [lo, hi): ``inp`` is tokens [B]
+        on the first stage; the stage's ring caches are updated in place."""
+        with self.group.phase("decode"):
+            carried = self._stage_in(params, inp[:, None] if lo == 0 else inp,
+                                     lo)
+            x = carried[1]
+            pos = torch.as_tensor(pos, device=x.device)
+            positions = decode_positions(pos, x.shape[0], device=x.device)
+            for l in range(lo, hi):
+                pls = [_layer_slice(p["blocks"], l - lo) for p in params]
+                carried, _ = self._tp_layer_step(
+                    pls, carried, positions, pos,
+                    self._layer_caches(cache, l - lo))
+            return self._stage_out(params, carried, hi), cache
+
+    def stage_paged(self, params, cache, inp, pos, block_table, lo: int,
+                    hi: int):
+        """One paged pass through layers [lo, hi), logged as a decode step
+        when S == 1 and as prefill otherwise; ``inp`` is tokens [B, S] on
+        the first stage.  The stage's page pools are updated in place."""
+        S = inp.shape[1] if lo == 0 else inp[1][0].shape[1]
+        with self.group.phase("decode" if S == 1 else "prefill"):
+            carried = self._stage_in(params, inp, lo)
+            x = carried[1]
+            pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+            block_table = torch.as_tensor(block_table, dtype=torch.int32,
+                                          device=x.device)
+            positions = pos[:, None].long() + torch.arange(S,
+                                                           device=x.device)
+            for l in range(lo, hi):
+                pls = [_layer_slice(p["blocks"], l - lo) for p in params]
+                carried, _ = self._tp_layer_paged(
+                    pls, carried, positions, pos,
+                    self._layer_caches(cache, l - lo), block_table)
+            return self._stage_out(params, carried, hi), cache
+
     # ---------------------------------------------------------- interface
     def tp_prefill(self, params, tokens, cache_w: int = None):
         """tokens [B, S] -> (last-position logits [B, v], per-rank ring
         caches of width ``cache_w``, or None).  Collectives: (2L+1)
         all-reduce + 1 all-gather (Eq. 1, Table III)."""
-        cfg = self.cfg
-        with self.group.phase("prefill"):
-            x = self._embed_tokens(params, tokens)
-            B, S = x.shape[:2]
-            positions = torch.arange(S, device=x.device).expand(B, S)
-            cache = None
-            if cache_w is not None:
-                cache = [{key: x.new_zeros((cfg.num_layers, B, cache_w,
-                                            self.kv_t, cfg.head_dim))
-                          for key in ("k", "v")} for _ in range(self.t)]
-            x = (None, x)
-            for l in range(cfg.num_layers):
-                pls = [_layer_slice(p["blocks"], l) for p in params]
-                x, built = self._tp_layer_full(pls, x, positions, cache_w)
-                if cache is not None:
-                    for c, b in zip(cache, built):
-                        c["k"][l] = b["k"]
-                        c["v"][l] = b["v"]
-            logits = self._head(params, x)
-        return logits, cache
+        return self.stage_prefill(params, tokens, 0, self.cfg.num_layers,
+                                  cache_w)
 
     def tp_decode_step(self, params, cache, tokens, pos):
         """One decode step: tokens [B]; ``pos`` a scalar or [B] positions.
         Returns (logits [B, v], cache), the caches updated in place.
         Collectives: (2L+1) all-reduce + 1 all-gather; with ``quant`` each
         of the 2L layer all-reduces is the quantized two-step."""
-        with self.group.phase("decode"):
-            x = self._embed_tokens(params, tokens[:, None])
-            pos = torch.as_tensor(pos, device=x.device)
-            positions = decode_positions(pos, x.shape[0], device=x.device)
-            x = (None, x)
-            for l in range(self.cfg.num_layers):
-                pls = [_layer_slice(p["blocks"], l) for p in params]
-                x, _ = self._tp_layer_step(pls, x, positions, pos,
-                                           self._layer_caches(cache, l))
-            logits = self._head(params, x)
-        return logits, cache
+        return self.stage_decode(params, cache, tokens, pos, 0,
+                                 self.cfg.num_layers)
 
     def tp_generate(self, params, cache, tokens, pos, num_tokens: int):
         """Greedy multi-token decode: (tokens [B, num_tokens], cache)."""
@@ -475,23 +545,8 @@ class TPModel:
         decode).  tokens [B, S]; pos [B] start positions; block_table
         [B, n].  Returns (last-position logits [B, v], cache).  Runs
         full-width: the JAX package quantizes only the contiguous step."""
-        phase = "decode" if tokens.shape[1] == 1 else "prefill"
-        with self.group.phase(phase):
-            x = self._embed_tokens(params, tokens)
-            S = x.shape[1]
-            pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
-            block_table = torch.as_tensor(block_table, dtype=torch.int32,
-                                          device=x.device)
-            positions = pos[:, None].long() + torch.arange(S,
-                                                           device=x.device)
-            x = (None, x)
-            for l in range(self.cfg.num_layers):
-                pls = [_layer_slice(p["blocks"], l) for p in params]
-                x, _ = self._tp_layer_paged(pls, x, positions, pos,
-                                            self._layer_caches(cache, l),
-                                            block_table)
-            logits = self._head(params, x)
-        return logits, cache
+        return self.stage_paged(params, cache, tokens, pos, block_table, 0,
+                                self.cfg.num_layers)
 
     # the single-device Model's names
     def prefill(self, params, tokens, max_len: int):
@@ -503,3 +558,225 @@ class TPModel:
     decode_step = tp_decode_step
     decode_steps = tp_generate
     paged_step = tp_paged_step
+
+
+# ---------------------------------------------------------------------------
+# the pipeline (PP) and hybrid (TP x PP) engine, on virtual stages
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class TransferRecord:
+    """One tensor shipped across a stage boundary (the paper's Send)."""
+
+    phase: str
+    count: int                   # tensors moved
+    shape: Tuple[int, ...]       # one worker's tensor: [B, S, h/t]
+    dtype_bytes: int
+
+    @property
+    def bytes(self) -> int:
+        return self.count * math.prod(self.shape) * self.dtype_bytes
+
+
+def stage_layer_range(cfg: ModelConfig, p: int, s: int) -> Tuple[int, int]:
+    """Layer interval [lo, hi) of stage s: ``commodel.stage_layer_partition``,
+    which gives an indivisible remainder to the early stages."""
+    sizes = stage_layer_partition(cfg.num_layers, p)
+    lo = sum(sizes[:s])
+    return lo, lo + sizes[s]
+
+
+class PipelineEngine:
+    """Pipeline (t = 1) or hybrid TP x PP (t > 1) engine: p stages on one
+    device, each a ``TPModel`` over its own t virtual ranks and its own
+    ``VirtualGroup`` (``self.stages[s].group`` logs the stage's
+    collectives, the counterpart of the JAX engine's per-stage HLO).
+
+    Stage s owns the layers ``stage_layer_range(cfg, p, s)``; stage 0 also
+    embeds and the last stage runs the head.  A boundary hop ships the
+    carried residual pair (h, x) — the vLLM (hidden_states, residual)
+    pair; the JAX engine ships x·0.25 and x·0.75, the same bytes — and the
+    receiving stage's first norm adds the two inside its kernel.  At t > 1
+    each rank ships its h/t slice of both tensors and the receiving group
+    all-gathers them.  On the int8/fp8 decode step the sender's last
+    all-reduce is still a ``GatheredSum``: it is dequantized (B9) before
+    the hop, once per boundary.  The hop is a device-to-device copy into
+    the next stage's receive buffers (one pair per boundary and shape,
+    allocated once), standing in for NCCL send/recv, and each of its two
+    tensors is logged as a ``TransferRecord`` in ``self.transfers``.
+
+    ``quant_collectives`` quantizes the contiguous decode step's layer
+    all-reduces, as in ``TPModel``; ``plain=True`` runs the plain versions
+    of the kernels.  Context parallelism (c > 1) is ROADMAP item A7."""
+
+    def __init__(self, cfg: ModelConfig, t: int = 1, p: int = 2, c: int = 1,
+                 quant_collectives: str = None,
+                 quant_chunk: int = DEFAULT_QUANT_CHUNK, plain: bool = False,
+                 device=None):
+        if c > 1:
+            raise NotImplementedError(
+                "context parallelism (c > 1) is ROADMAP item A7")
+        check_tp_config(cfg, t)
+        if not 1 <= p <= cfg.num_layers:
+            raise ValueError(f"p must be in [1, {cfg.num_layers}] for "
+                             f"{cfg.name}, got p={p}")
+        self.cfg, self.t, self.p = cfg, int(t), int(p)
+        self.quant = _check_quant(quant_collectives)
+        self.quant_chunk = int(quant_chunk)
+        self.device = resolve_device(device)
+        self.stages = [TPModel(cfg, t, self.quant, quant_chunk, plain)
+                       for _ in range(p)]
+        self.ranges = [stage_layer_range(cfg, p, s) for s in range(p)]
+        self.transfers: List[TransferRecord] = []
+        self._recv: dict = {}
+
+    # ------------------------------------------------------------- state
+    def prepare(self, params) -> List[List[dict]]:
+        """Per stage, per rank: views of the stage's layers of the rank's
+        shard (``shard_params``); the embedding on stage 0 only, the head
+        and the final norm on the last stage only."""
+        check_params_device(params, self.device)
+        L = self.cfg.num_layers
+        ranks = shard_params(self.cfg, params, self.t)
+        staged = []
+        for lo, hi in self.ranges:
+            stage = []
+            for rank in ranks:
+                part = {"blocks": {k: w[lo:hi]
+                                   for k, w in rank["blocks"].items()}}
+                if lo == 0:
+                    part["embed"] = rank["embed"]
+                if hi == L:
+                    part["lm_head"] = rank["lm_head"]
+                    part["final_norm"] = rank["final_norm"]
+                stage.append(part)
+            staged.append(stage)
+        return staged
+
+    def cache_width(self, max_len: int) -> int:
+        return self.stages[0].cache_width(max_len)
+
+    def init_cache(self, batch: int, max_len: int):
+        """Per stage, the per-rank ring caches [L_s, B, W, Hkv/t, D]."""
+        w = self.cache_width(max_len)
+        return [m._rank_caches((hi - lo, batch, w), self.device)
+                for m, (lo, hi) in zip(self.stages, self.ranges)]
+
+    def init_paged_cache(self, num_pages: int, page_size: int):
+        """Per stage, the per-rank page pools [L_s, P, ps, Hkv/t, D]; one
+        block table addresses every stage's pool."""
+        if self.cfg.sliding_window:
+            raise ValueError(
+                "paged KV cache keeps every position (pages, no ring wrap); "
+                f"{self.cfg.name} uses a sliding window — serve it "
+                "contiguous")
+        return [m._rank_caches((hi - lo, num_pages, page_size), self.device)
+                for m, (lo, hi) in zip(self.stages, self.ranges)]
+
+    # ---------------------------------------------------------- boundary
+    def _receive_buffers(self, s: int, shape, dtype):
+        key = (s, tuple(shape), dtype)
+        if key not in self._recv:
+            self._recv[key] = tuple(
+                [torch.empty(shape, dtype=dtype, device=self.device)
+                 for _ in range(self.t)] for _ in range(2))
+        return self._recv[key]
+
+    @torch.inference_mode()
+    def send_boundary(self, out, s: int, phase: str = "decode"):
+        """Ship stage s's carried pair (h, x) to stage s + 1: each rank's
+        h/t slice of both tensors copied into the next stage's receive
+        buffers, one ``TransferRecord`` per tensor.  Returns the received
+        pair as two lists of t rank slices."""
+        h, x = out
+        if isinstance(h, GatheredSum):
+            h = h.dequantize(x.dtype)
+        k = self.cfg.d_model // self.t
+        bufs = self._receive_buffers(s, (*x.shape[:-1], k), x.dtype)
+        for full, ranks in zip((h, x), bufs):
+            for r, buf in enumerate(ranks):
+                buf.copy_(full[..., r * k:(r + 1) * k])
+            self.transfers.append(TransferRecord(
+                phase, 1, tuple(ranks[0].shape), x.element_size()))
+        return bufs
+
+    def feed_tokens(self, tokens):
+        """Next-token ids onto the device: the feedback hop that starts a
+        decode round (a few bytes, not charged by Eq. 2)."""
+        return torch.as_tensor(tokens, dtype=torch.int32,
+                               device=self.device)
+
+    # ------------------------------------------------------- stage passes
+    def decode_stage_fns(self):
+        """Per stage fn(params, cache, x, pos) -> (out, cache): one decode
+        step of the stage, drivable on its own by the instruction queue."""
+        return [functools.partial(m.stage_decode, lo=lo, hi=hi)
+                for m, (lo, hi) in zip(self.stages, self.ranges)]
+
+    def paged_stage_fns(self):
+        """Per stage fn(params, cache, x, pos, block_table) -> (out, cache):
+        one paged pass of the stage (a chunk or a decode step)."""
+        return [functools.partial(m.stage_paged, lo=lo, hi=hi)
+                for m, (lo, hi) in zip(self.stages, self.ranges)]
+
+    # ------------------------------------------------------------ passes
+    def _prefill(self, staged, tokens, cache_w, phase: str):
+        x = self.feed_tokens(tokens)
+        caches = []
+        for s, (m, (lo, hi)) in enumerate(zip(self.stages, self.ranges)):
+            out, cache = m.stage_prefill(staged[s], x, lo, hi, cache_w)
+            caches.append(cache)
+            if s < self.p - 1:
+                x = self.send_boundary(out, s, phase)
+        return out, caches
+
+    def forward(self, staged, tokens, phase: str = "prefill"):
+        """One pass without caches; logs (p - 1)·2 transfers of
+        [B, S, h/t] (Eq. 2 / Eq. 7).  Returns the last-position logits."""
+        return self._prefill(staged, tokens, None, phase)[0]
+
+    def prefill_with_cache(self, staged, tokens, cache_w: int):
+        """A prefill that builds every stage's ring caches of width
+        ``cache_w``: (last-position logits [B, v], per-stage caches)."""
+        return self._prefill(staged, tokens, cache_w, "prefill")
+
+    def decode_once(self, staged, caches, token, pos):
+        """One decode step through every stage: token [B], ``pos`` a
+        scalar or [B]; each boundary ships the [B, 1, h/t] pair (the
+        decode rows of Table V).  Returns (logits [B, v], caches), the
+        caches updated in place."""
+        x = self.feed_tokens(token)
+        for s, fn in enumerate(self.decode_stage_fns()):
+            out, caches[s] = fn(staged[s], caches[s], x, pos)
+            if s < self.p - 1:
+                x = self.send_boundary(out, s, "decode")
+        return out, caches
+
+    def paged_pass(self, staged, caches, tokens, pos, bt,
+                   phase: str = "decode"):
+        """One paged pass through every stage: a prefill chunk (tokens
+        [B, S], phase "prefill") or a decode step (tokens [B, 1]); the
+        boundary hops are logged under ``phase``.  Returns (last-position
+        logits [B, v], per-stage page pools, updated in place)."""
+        x = self.feed_tokens(tokens)
+        for s, fn in enumerate(self.paged_stage_fns()):
+            out, caches[s] = fn(staged[s], caches[s], x, pos, bt)
+            if s < self.p - 1:
+                x = self.send_boundary(out, s, phase)
+        return out, caches
+
+    def generate(self, staged, caches, token, pos, num_tokens: int):
+        """Greedy generation of ``num_tokens`` through the pipeline:
+        (tokens [B, num_tokens] int32, caches).  Logs (p - 1)·2·N decode
+        transfers: with the prefill's token, the paper's (p-1)·2·(s_d-1)
+        for s_d = N + 1."""
+        return greedy_decode_loop(
+            lambda c, tok, p: self.decode_once(staged, c, tok, p),
+            self.feed_tokens(token), caches, pos, num_tokens)
+
+    def transfer_summary(self, phase: str = None) -> dict:
+        """The logged transfers (of one ``phase``): count and bytes."""
+        recs = [r for r in self.transfers if phase in (None, r.phase)]
+        return {"count": sum(r.count for r in recs),
+                "bytes": sum(r.bytes for r in recs)}

@@ -1,10 +1,12 @@
 """DecodeBackend: the slot-based decode protocol the scheduler drives.
 
 Counterpart of ``repro.runtime.backends``: the single-device engine
-(``make_backend("gspmd", ...)`` -> ``ModelBackend``) and the explicit
+(``make_backend("gspmd", ...)`` -> ``ModelBackend``), the explicit
 tensor-parallel engine on virtual ranks (``make_backend("tp", ...)`` ->
-``TPBackend``, core/parallel_exec.py).  Context parallelism and the PP
-backends are ROADMAP items A7 and A5.
+``TPBackend``) and the pipeline / hybrid engine on virtual stages
+(``make_backend("pp", ...)`` -> ``PPBackend``), core/parallel_exec.py.
+Context parallelism (c > 1) is ROADMAP item A7; ``export_page`` /
+``import_page`` (disaggregation) wait for A9.
 
 The protocol:
 
@@ -33,12 +35,13 @@ import torch
 from repro_torch.config.base import ModelConfig
 from repro_torch.core.commodel import DEFAULT_QUANT_CHUNK, CommOp, \
     chunked_prefill_ops, comm_ops_for
-from repro_torch.core.parallel_exec import TPModel, shard_params
+from repro_torch.core.parallel_exec import (PipelineEngine, TPModel,
+                                            shard_params)
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.transformer import get_model, resolve_device
 from repro_torch.runtime.engine import check_params_device
 from repro_torch.runtime.kvpool import KVPool
-from repro_torch.runtime.schedule import FusedQueue
+from repro_torch.runtime.schedule import DynamicPPQueue, FusedQueue
 
 
 @runtime_checkable
@@ -345,20 +348,174 @@ class TPBackend(_BackendBase):
                 rank[key][:, slot] = part[key][:, 0]
 
 
+class PPBackend(_BackendBase):
+    """The pipeline engine (``core.parallel_exec.PipelineEngine``: pure PP
+    at t = 1, hybrid TP x PP at t > 1, p virtual stages on one device)
+    behind the protocol: one decode step is one token through all p
+    stages, with (p-1)·2 logged boundary transfers.
+
+    ``inflight`` >= 1 splits the slots into ``inflight`` microbatch groups
+    of ``num_slots // inflight`` rows.  Contiguous: each group has its own
+    caches on every stage (``gcaches[g][s]``, per-rank [L_s, G, W, Hkv/t,
+    D]), so groups can sit at different stages at once.  Paged: each stage
+    has its own page pool and all stages share the one ``KVPool`` block
+    table; rounds stay apart through their disjoint table rows.  The
+    ``DynamicPPQueue`` that ``make_queue`` returns drives a group's round
+    stage by stage through ``start_round`` / ``run_stage`` /
+    ``send_boundary``.  ``quant_collectives`` quantizes the contiguous
+    decode step's layer all-reduces.  ``params`` are the single-device
+    weights; ``device`` defaults to the CUDA card."""
+
+    def __init__(self, cfg: ModelConfig, params, num_slots: int,
+                 max_len: int = 256, t: int = 1, p: int = 2,
+                 paged: bool = False, page_size: int = 16,
+                 num_pages: Optional[int] = None, c: int = 1,
+                 inflight: int = 1,
+                 quant_collectives: Optional[str] = None,
+                 quant_chunk: int = DEFAULT_QUANT_CHUNK, device=None):
+        if c > 1:
+            raise NotImplementedError(
+                "context parallelism (c > 1) is ROADMAP item A7")
+        if p < 2:
+            raise ValueError(f"pp backend needs p >= 2, got p={p}")
+        self.device = resolve_device(device)
+        super().__init__(cfg, num_slots, max_len, t=t, p=p, paged=paged,
+                         page_size=page_size, num_pages=num_pages,
+                         quant_collectives=quant_collectives,
+                         quant_chunk=quant_chunk)
+        if inflight < 1 or num_slots % inflight:
+            raise ValueError(
+                f"inflight must divide num_slots: got inflight={inflight}, "
+                f"num_slots={num_slots}")
+        self.inflight = int(inflight)
+        self.group_size = self.num_slots // self.inflight
+        self.engine = PipelineEngine(
+            cfg, t=t, p=p, quant_collectives=self.quant,
+            quant_chunk=self.quant_chunk, device=self.device)
+        self.staged = self.engine.prepare(params)
+        self._decode_fns = self.engine.decode_stage_fns()
+        self._paged_fns = self.engine.paged_stage_fns()
+        if self.paged:
+            self.caches = self.engine.init_paged_cache(self.pool.num_pages,
+                                                       self.page_size)
+        else:
+            self.cache_w = self.engine.cache_width(self.max_len)
+            self.gcaches = [self.engine.init_cache(self.group_size,
+                                                   self.max_len)
+                            for _ in range(self.inflight)]
+        self._drained = 0              # transfer-log cursor
+
+    def _first_token(self, logits) -> np.ndarray:
+        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+
+    @torch.inference_mode()
+    def _prefill_slot(self, prompt, slot: int) -> int:
+        logits, small = self.engine.prefill_with_cache(
+            self.staged, self._tensor(prompt)[None, :], self.cache_w)
+        g, row = divmod(slot, self.group_size)
+        for stage, part in zip(self.gcaches[g], small):
+            for rank, piece in zip(stage, part):
+                for key in ("k", "v"):
+                    rank[key][:, row] = piece[key][:, 0]
+        return int(torch.argmax(logits[0]))
+
+    @torch.inference_mode()
+    def _paged_call(self, tokens, pos, bt) -> np.ndarray:
+        phase = "decode" if np.shape(tokens)[1] == 1 else "prefill"
+        logits, self.caches = self.engine.paged_pass(
+            self.staged, self.caches, self._tensor(tokens), self._tensor(pos),
+            self._tensor(bt), phase)
+        return logits.float().cpu().numpy()
+
+    @torch.inference_mode()
+    def decode_step(self, tokens, pos) -> np.ndarray:
+        """One decode step of every group, group after group."""
+        if self.paged:
+            return self._paged_decode(tokens, pos)
+        tokens, pos = np.asarray(tokens), np.asarray(pos)
+        out = np.zeros(self.num_slots, np.int32)
+        G = self.group_size
+        for g in range(self.inflight):
+            lo = g * G
+            logits, self.gcaches[g] = self.engine.decode_once(
+                self.staged, self.gcaches[g], self._tensor(tokens[lo:lo + G]),
+                self._tensor(pos[lo:lo + G]))
+            out[lo:lo + G] = self._first_token(logits)
+        return out
+
+    # -- the instruction queue's surface (runtime/schedule.py) --------------
+    def make_queue(self):
+        """The dynamic per-stage instruction queue at depth ``inflight``."""
+        return DynamicPPQueue(self)
+
+    @torch.inference_mode()
+    def start_round(self, g: int, tokens, pos):
+        """(stage-0 input, the group's positions, block tables or None) of
+        one decode round of group ``g``.  Paged, the group's decoding slots'
+        pages are extended here, before any instruction issues; the other
+        rows of the group point at scratch page 0."""
+        G = self.group_size
+        lo = g * G
+        toks = np.asarray(tokens, np.int32)[lo:lo + G]
+        pos_g = self._tensor(np.asarray(pos)[lo:lo + G])
+        if not self.paged:
+            return self.engine.feed_tokens(toks), pos_g, None
+        for slot in sorted(self._decodable):
+            if lo <= slot < lo + G:
+                self.pool.extend(slot, int(pos[slot]) + 1)
+                self._set_table(slot)
+        bt = self.block_tables[lo:lo + G].copy()
+        for i, slot in enumerate(range(lo, lo + G)):
+            if slot not in self._decodable:
+                bt[i] = 0                   # scratch page (kvpool.py)
+        return self.engine.feed_tokens(toks[:, None]), pos_g, self._tensor(bt)
+
+    @torch.inference_mode()
+    def run_stage(self, g: int, s: int, x, pos, bt=None):
+        """One ``StageForward``: stage s against group g's caches
+        (contiguous) or the stage's page pool (paged)."""
+        if self.paged:
+            out, self.caches[s] = self._paged_fns[s](
+                self.staged[s], self.caches[s], x, pos, bt)
+        else:
+            out, self.gcaches[g][s] = self._decode_fns[s](
+                self.staged[s], self.gcaches[g][s], x, pos)
+        return out
+
+    def send_boundary(self, out, s: int):
+        """One ``BoundarySend``/``BoundaryRecv`` pair: stage s's boundary to
+        stage s + 1, logged as decode transfers."""
+        return self.engine.send_boundary(out, s, phase="decode")
+
+    def drain_transfers(self) -> dict:
+        recs = self.engine.transfers[self._drained:]
+        self._drained = len(self.engine.transfers)
+        return {"count": sum(r.count for r in recs),
+                "bytes": sum(r.bytes for r in recs)}
+
+
 def make_backend(kind: str, cfg: ModelConfig, params, num_slots: int,
                  max_len: int = 256, t: int = 1, p: int = 1,
                  paged: bool = False, page_size: int = 16,
                  num_pages: Optional[int] = None, c: int = 1,
+                 inflight: int = 1,
                  quant_collectives: Optional[str] = None,
                  quant_chunk: int = DEFAULT_QUANT_CHUNK,
                  device=None) -> DecodeBackend:
     """Backend factory keyed by engine kind: "gspmd" is the single-device
     engine (t = p = 1), "tp" the explicit TP engine on t >= 2 virtual
-    ranks; "pp" and context parallelism (c > 1) wait for ROADMAP items A5
-    and A7.  ``quant_collectives`` needs the explicit engine's hand-placed
-    all-reduces; the single-device engine rejects it."""
+    ranks, "pp" the pipeline engine on p >= 2 virtual stages (hybrid at
+    t >= 2); context parallelism (c > 1) waits for ROADMAP item A7.
+    ``inflight`` > 1 splits the slots into microbatch groups on the pp
+    backend's dynamic queue; the fused engines have no pipeline bubble to
+    fill and reject it.  ``quant_collectives`` needs the explicit engines'
+    hand-placed all-reduces; the single-device engine rejects it."""
     kw = dict(paged=paged, page_size=page_size, num_pages=num_pages,
               device=device)
+    if kind != "pp" and inflight != 1:
+        raise ValueError(
+            "in-flight microbatching fills the PP decode bubble; the "
+            f"{kind!r} backend runs a fused step — inflight must be 1")
     if kind == "gspmd":
         if t != 1 or p != 1:
             raise ValueError(f"the gspmd backend is one device: got t={t} "
@@ -372,16 +529,15 @@ def make_backend(kind: str, cfg: ModelConfig, params, num_slots: int,
                 "quantized collectives need the explicit engines' "
                 "hand-placed all-reduces; use the tp backend")
         return ModelBackend(cfg, params, num_slots, max_len, **kw)
+    qkw = dict(quant_collectives=quant_collectives, quant_chunk=quant_chunk)
     if kind == "tp":
         if c > 1:
             raise NotImplementedError(
                 "context parallelism (c > 1) is ROADMAP item A7")
         if t < 2:
             raise ValueError(f"tp backend needs t >= 2, got t={t}")
-        return TPBackend(cfg, params, num_slots, max_len, t=t,
-                         quant_collectives=quant_collectives,
-                         quant_chunk=quant_chunk, **kw)
+        return TPBackend(cfg, params, num_slots, max_len, t=t, **qkw, **kw)
     if kind == "pp":
-        raise NotImplementedError(
-            "the pipeline engine and its backends are ROADMAP item A5")
+        return PPBackend(cfg, params, num_slots, max_len, t=t, p=p, c=c,
+                         inflight=inflight, **qkw, **kw)
     raise ValueError(f"unknown backend kind: {kind!r}")

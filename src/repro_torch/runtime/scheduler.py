@@ -1,13 +1,18 @@
 """Continuous-batching scheduler over a DecodeBackend (paper §V-C, serving).
 
-Counterpart of ``repro.runtime.scheduler`` for the single-device backends:
-a fixed pool of KV-cache slots, admission of queued requests into free
-slots between decode steps (one batch-1 prefill each), ONE decode step per
-iteration over the whole slot batch at per-sequence positions, and
-EOS/length eviction.  ``chunk_size`` (paged backends) prefills one chunk of
-one request per iteration instead of whole prompts.  Admission is
-conservative: a paged request's worst-case pages are committed up front,
-so a decode step never runs out of pages.
+Counterpart of ``repro.runtime.scheduler``: a fixed pool of KV-cache
+slots, admission of queued requests into free slots between decode rounds
+(one batch-1 prefill each), decode rounds over microbatch groups of slots
+at per-sequence positions, and EOS/length eviction.  Each iteration
+begins a round for every group with an active slot and none in flight
+and pumps the backend's instruction queue (``runtime.schedule``) until a
+round completes: on the fused backends one group spans every slot, one
+round per iteration; on ``PPBackend`` at ``inflight`` = d up to d rounds
+sit at different stages at once.  The queue is drained (``Sync``) before
+any prefill writes caches or pages.  ``chunk_size`` (paged backends)
+prefills one chunk of one request per iteration instead of whole
+prompts.  Admission is conservative: a paged request's worst-case pages
+are committed up front, so a decode step never runs out of pages.
 
 Per-step communication is recorded as ``StepRecord``s with the collective
 counts ``commodel.comm_ops_for`` predicts; the paper's claim that these
@@ -146,6 +151,27 @@ class ServingReport:
 
     def tokens_by_rid(self) -> Dict[int, List[int]]:
         return {m.rid: list(m.tokens) for m in self.metrics}
+
+    def occupancy(self) -> dict:
+        """Decode-schedule occupancy from the decode records' per-stage busy
+        and idle tick deltas: schedule ticks, per-stage busy fractions,
+        decode tokens per tick (the schedule clock, not wall time)."""
+        recs = [r for r in self.steps
+                if r.phase == "decode" and r.stage_busy is not None]
+        if not recs:
+            return {"ticks": 0, "decode_tokens": 0, "tokens_per_tick": 0.0,
+                    "stage_busy_fraction": [], "busy_fraction_mean": 0.0}
+        n = len(recs[0].stage_busy)
+        busy = [sum(r.stage_busy[s] for r in recs) for s in range(n)]
+        idle = [sum(r.stage_idle[s] for r in recs) for s in range(n)]
+        ticks = busy[0] + idle[0]   # every stage is busy or idle each tick
+        frac = [b / max(b + i, 1) for b, i in zip(busy, idle)]
+        dec_tokens = sum(r.n_active for r in recs)
+        return {"ticks": ticks,
+                "decode_tokens": dec_tokens,
+                "tokens_per_tick": dec_tokens / ticks if ticks else 0.0,
+                "stage_busy_fraction": frac,
+                "busy_fraction_mean": float(np.mean(frac))}
 
     def summary(self) -> dict:
         def _pct(vals, q):
@@ -319,6 +345,8 @@ class Scheduler:
                 # a free slot but not enough pages: stays queued (head of
                 # line, so admission order stays arrival order)
                 break
+            # Sync: no round may still read what the prefill writes
+            self._drain_queue()
             self.queue.pop(0)
             slot = self.free.pop(0)
             m = RequestMetrics(rid=req.rid, prompt_len=req.prompt_len,
@@ -334,13 +362,13 @@ class Scheduler:
             else:
                 tok = int(self.backend.prefill_into_slots([req.prompt],
                                                           [slot])[0])
+            self._queue.note_prefill(slot)
             self._start_decoding(slot, req, m, tok)
 
     def _advance_prefill(self) -> None:
         """Run ONE prefill chunk of the oldest mid-prefill request; after
         the final chunk the request joins the decoding set."""
-        for res in self._queue.sync():
-            self._complete_round(res)
+        self._drain_queue()      # Sync: a chunk writes the slot's pages
         slot = next(iter(self.prefilling))
         st = self.prefilling[slot]
         start = st.done
@@ -350,6 +378,7 @@ class Scheduler:
                                          start)
         wall = time.perf_counter() - t0
         st.done = end
+        self._queue.note_prefill(slot)
         self.step_log.append(StepRecord(
             step=self._step_i, n_active=len(self.active),
             collective_counts=dict(self._chunk_counts),
@@ -366,9 +395,33 @@ class Scheduler:
         self._start_decoding(slot, st.req, st.metrics, int(tok))
 
     # ------------------------------------------------------------- stepping
+    def _refill_rounds(self) -> None:
+        """Begin one decode round for every microbatch group with an active
+        slot and no round in flight (on the fused backends the one group
+        spans every slot)."""
+        G = self._group_size
+        pending = self._queue.pending_groups()
+        for g in range(self.num_slots // G):
+            if g in pending:
+                continue
+            lo = g * G
+            if any(s in self.active for s in range(lo, lo + G)):
+                self._queue.begin_round(g, self.tokens, self.pos)
+
+    def _drain_queue(self) -> None:
+        """Complete every in-flight round (the ``Sync`` instruction) before
+        a prefill writes caches or pages a round may still read; the
+        rounds' hops were charged to them, so the transfer cursor moves on
+        past them."""
+        drained = bool(self._queue.in_flight)
+        for res in self._queue.sync():
+            self._complete_round(res)
+        if drained:
+            self.backend.drain_transfers()
+
     def _complete_round(self, res: RoundResult) -> None:
         """Record one decode round and append its tokens to the slots that
-        are still active."""
+        are still active (``n_active``: the rows the round appends to)."""
         now = self.clock.now()
         appended = sum(1 for slot in res.slots if slot in self.active)
         self.step_log.append(StepRecord(
@@ -396,22 +449,24 @@ class Scheduler:
 
     def step(self) -> bool:
         """One scheduler iteration; returns False when fully drained."""
-        if not self.queue and not self.active and not self.prefilling:
+        if not self.queue and not self.active and not self.prefilling \
+                and not self._queue.in_flight:
             return False
         self._admit_ready()
         self.backend.drain_transfers()      # prefill hops: not decode traffic
         if self.prefilling:
             self._advance_prefill()
-        if not self.active:
+        if not self.active and not self._queue.in_flight:
             # nothing decodes: skip the step; move the clock to the next
             # arrival only when no prefill is in flight either
             if not self.prefilling and self.queue:
                 self.clock.wait_until(self.queue[0].arrival)
             return self._next(True)
-        self._queue.begin_round(0, self.tokens, self.pos)
+        self._refill_rounds()
         for res in self._queue.pump():
             self._complete_round(res)
-        return self._next(bool(self.queue or self.active or self.prefilling))
+        return self._next(bool(self.queue or self.active or self.prefilling
+                               or self._queue.in_flight))
 
     def _next(self, more: bool) -> bool:
         """Stall guard: a live scheduler changes something every iteration;

@@ -613,6 +613,61 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         wops.wkv6_cuda(r1, k, v, w, u, st, chunk=16)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [None, "int8"], ids=["full", "int8"])
+def test_pipeline_engine_kernel_path_matches_plain(cuda, quant):
+    """The hybrid engine at (t, p) = (2, 2), reduced width, f32: the kernel
+    path (B1, add_rms_norm, B2, B3, B4; on the int8 decode step B5, B6,
+    dequantize_add_rms_norm and the standalone B9 at the boundary) against
+    the plain path on the same weights — logits within 1e-3 (int8: 5e-2,
+    a chunk scale may round the other way), greedy tokens identical."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.parallel_exec import PipelineEngine
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import get_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("llama32-3b").reduced(num_layers=5),
+                              num_kv_heads=2)
+    params = get_model(cfg).init(seed=0, device=cuda)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(2, cfg.vocab_size, (2, 40), generator=g).to(cuda)
+    bt = torch.tensor([[3, 1, 5], [2, 6, 4]], dtype=torch.int32, device=cuda)
+    tol = 1e-3 if quant is None else 5e-2
+    out = {}
+    for plain in (False, True):
+        eng = PipelineEngine(cfg, t=2, p=2, quant_collectives=quant,
+                             plain=plain, device=cuda)
+        staged = eng.prepare(params)
+        _build.reset_launches()
+        lg, caches = eng.prefill_with_cache(staged, toks[:, :32], 48)
+        steps = []
+        for i in range(32, 40):
+            step, caches = eng.decode_once(staged, caches, toks[:, i], i)
+            steps.append(step)
+        pools = eng.init_paged_cache(7, 16)
+        paged = [eng.paged_pass(staged, pools, toks[:, :32],
+                                torch.zeros(2, dtype=torch.int32,
+                                            device=cuda), bt, "prefill")[0]]
+        for i in range(32, 36):
+            paged.append(eng.paged_pass(
+                staged, pools, toks[:, i:i + 1],
+                torch.full((2,), i, dtype=torch.int32, device=cuda), bt)[0])
+        gen, _ = eng.generate(staged, caches, steps[-1].argmax(-1), 40, 6)
+        torch.cuda.synchronize()
+        out[plain] = (torch.stack([lg, *steps, *paged]), gen,
+                      dict(_build.LAUNCHES))
+    _close(out[False][0], out[True][0], tol)
+    assert torch.equal(out[False][1], out[True][1])
+    launches, L = out[False][2], cfg.num_layers
+    assert launches["flash_attention"] == 2 * L * 2     # prefill + chunk
+    assert launches["decode_attention"] == 2 * L * (8 + 6)
+    assert launches["paged_decode_attention"] == 2 * L * 4
+    assert launches["chunk_dequantize"] == (0 if quant is None else 8 + 6)
+    assert sum(out[True][2].values()) == 0
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     """A CPU tensor never reaches a kernel: the *_cuda wrappers raise, and
     only the dispatchers route it to the plain version."""

@@ -153,7 +153,7 @@ def test_pool_exhaustion_queues_instead_of_failing(weights):
 
 @pytest.mark.parametrize("make", [
     lambda b: make_backend("tp", *b, num_slots=2, t=2, c=2),
-    lambda b: make_backend("pp", *b, num_slots=2, p=2),
+    lambda b: make_backend("pp", *b, num_slots=2, p=2, c=2),
     lambda b: port_scheduler.Scheduler(
         make_backend("gspmd", *b, num_slots=2, device="cpu", paged=True),
         admission="optimistic"),
