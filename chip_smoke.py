@@ -60,7 +60,24 @@ Phases:
      (d) every run's launches equal their formula (the standalone B9
      at each boundary of a quantized step); (e) one decode round's time
      breakdown per layout, with the boundary hops' device time;
-  8. one JSON line with the kernel table, then the ok line.
+  8. context parallelism on virtual CP workers, full width of llama32-3b,
+     (t, c, p) = (1, 2, 1), (2, 2, 1) and (1, 2, 2): (a) in phase 2, B2
+     at the CP shard shapes (a 333-token prompt padded to 334 at c = 2:
+     offsets 0 and 167, t = 1 and 2, a window of 64 at offset 167) and
+     its time beside SDPA with a boolean [S/c, S] mask; (b) CP prefill +
+     16 greedy tokens on phase 7's prompts against the c = 1 path (Model,
+     TPModel t = 2), every ring-assembled K/V bitwise its shards' blocks,
+     bf16 teacher-forced within the kernel-path limits, f32 greedy tokens
+     identical at L = 4 on padded prompts; (c) the comm logs equal
+     comm_ops_for(c=) (cp_comm_ops at t = 1), every stage's log
+     hybrid_stage_collectives(c=2) and the transfers the send rows;
+     (d) the launch formulas (L·t·c B2 a CP pass, c + 1 B1) and no
+     plain attention on the card; (e) the three CP backends through the
+     Scheduler over the trace ((2, 2) paged), streams against the c = 1
+     backend's, tokens/s; (f) one 2048-token prefill at t = 1, c = 1, 2,
+     4: host wall, device busy, B2 and the ring copies beside
+     slo.predict_slo's TTFT;
+  9. one JSON line with the kernel table, then the ok line.
 
 It imports nothing of JAX, exits non-zero with no ok line when there is no
 card or when it is not inside a checkout of the repository, and lets every
@@ -69,6 +86,7 @@ phase's error end the run.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import pathlib
@@ -398,6 +416,67 @@ def flash_long(args, iters: int):
         f"({flops / tk / 1e9:.1f} TFLOP/s)  library {tl:.4f} ms "
         f"({flops / tl / 1e9:.1f} TFLOP/s)  bound {bound:.4f} ms ({by})  "
         f"[q[{B},{S},{Hq},{D}], causal]")
+
+
+CP_SHARD = (167, 334)   # (S/c, S): a 333-token prompt at c = 2, padded
+
+
+def cp_kernel_rows(dev, iters: int, rows, times):
+    """Phase 8(a): B2 at the context-parallel shard shapes against its
+    plain version, bf16 and f32 — a shard's queries at offsets 0 and S/c
+    over the assembled K/V (llama32-3b's heads at t = 1 and at t = 2) and a
+    windowed shard at offset S/c — then, at offset S/c and t = 1, its time
+    beside its bound and SDPA with an explicit boolean [S/c, S] mask (its
+    is_causal cannot place the offset).  Folds the errors into B2's row
+    and the times into ``times["flash_attention"][dtype]["cp_shard"]``."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    s, S = CP_SHARD
+    D = FULL["D"]
+    g = torch.Generator(device=dev).manual_seed(12)
+    kv_pos = torch.arange(S, device=dev)
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).replace("torch.", "")
+        esz = torch.empty((), dtype=dt).element_size()
+        err, timed = 0.0, None
+        for Hq, Hkv, off, win in ((24, 8, 0, None), (24, 8, s, None),
+                                  (12, 4, s, None), (24, 8, s, 64)):
+            q = torch.randn((1, s, Hq, D), generator=g, device=dev).to(dt)
+            k = torch.randn((1, S, Hkv, D), generator=g, device=dev).to(dt)
+            v = torch.randn((1, S, Hkv, D), generator=g, device=dev).to(dt)
+            args = (q, k, v, torch.tensor([off], device=dev,
+                                          dtype=torch.int32),
+                    torch.tensor([S], device=dev, dtype=torch.int32))
+            err = max(err, compare(
+                f"B2 CP shard q[1,{s},{Hq},{D}] kv[1,{S},{Hkv},{D}] "
+                f"off={off} win={win}",
+                flash_attention_cuda(*args, win),
+                flash_attention_ref(*args, win), dname))
+            if Hq == 24 and off == s and win is None:
+                timed = args
+        row = rows["flash_attention"][dname]
+        row["err"] = max(row["err"], err)
+        q, k, v, off, _ = timed
+        q_pos = s + torch.arange(s, device=dev)
+        mask = kv_pos[None, :] <= q_pos[:, None]               # [S/c, S]
+        pairs = int(mask.sum())
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * esz
+        sets = copies(timed, nbytes)
+        lib_sets = [tuple(a.transpose(1, 2).contiguous() for a in st[:3])
+                    + (mask,) for st in sets]
+        t = dict(
+            kernel=bench(flash_attention_cuda, sets, iters),
+            plain=bench(flash_attention_ref, sets, max(3, iters // 10)),
+            library=bench(lambda a, b, c, m: F.scaled_dot_product_attention(
+                a, b, c, attn_mask=m, enable_gqa=True), lib_sets, iters),
+            shape=f"q[1,{s},24,{D}] off {s} kv[1,{S},8,{D}]")
+        t["bound"], t["by"] = bound_ms(nbytes, 4.0 * D * 24 * pairs, dname)
+        times["flash_attention"][dname]["cp_shard"] = t
+        log(f"  time flash_attention CP shard {dname:8s} kernel "
+            f"{t['kernel']:.4f} ms  plain {t['plain']:.4f} ms  library "
+            f"{t['library']:.4f} ms (SDPA, boolean mask)  bound "
+            f"{t['bound']:.4f} ms ({t['by']})  [{t['shape']}]")
 
 
 NORM_ROWS = (4, 333)    # a decode step's 4 slots, a 333-token prefill
@@ -991,7 +1070,7 @@ def require_all_finished(what, trace, report):
 
 
 def expect_launches(what, counts, L, passes, flash, decode, paged, t=1,
-                    quant=None, quant_steps=0, scan=0, p=1):
+                    quant=None, quant_steps=0, scan=0, p=1, cp=0, c=1):
     """The launches of one run: 2L+1 norm sites per forward pass (run once
     on the TP group at any t), layer 0's ln1 a B1 and the other 2L an
     add_rms_norm (each closes a residual add), one B2 per layer and rank of
@@ -1004,13 +1083,19 @@ def expect_launches(what, counts, L, passes, flash, decode, paged, t=1,
     (B8 + B7) per rank and one nibble_unpack_dequantize (B8 + B9).  On p
     pipeline stages an int8/fp8 step dequantizes the sum it ships at each
     of the p - 1 boundaries with the standalone B9 (chunk_dequantize), and
-    the next stage's first norm is then an add_rms_norm."""
+    the next stage's first norm is then an add_rms_norm.  Each of ``cp``
+    context-parallel prefill passes (not in ``passes``) on c workers runs
+    each shard's 2L norm sites (layer 0's ln1 a B1, 2L - 1 add_rms_norm),
+    one B2 per layer, rank and shard, and B1 once at the head on the row
+    the CP all-reduce hands it: c + 1 B1, c(2L - 1) add_rms_norm and
+    L·t·c B2 a pass."""
     ar = 2 * L * quant_steps if quant else 0
     int4, int8 = (ar, 0) if quant == "int4" else (0, ar)
     hops = (p - 1) * quant_steps if int8 else 0
-    want = {"rmsnorm": passes, "add_rms_norm": 2 * L * passes - int8 + hops,
+    want = {"rmsnorm": passes + cp * (c + 1),
+            "add_rms_norm": 2 * L * passes - int8 + hops + cp * c * (2 * L - 1),
             "dequantize_add_rms_norm": int8 - hops,
-            "flash_attention": L * t * flash,
+            "flash_attention": L * t * (flash + c * cp),
             "decode_attention": L * t * decode,
             "paged_decode_attention": L * t * paged,
             "chunk_amax": ar * t, "chunk_quantize": int8 * t,
@@ -1114,7 +1199,7 @@ def serving_phase(dev, smi):
     log(f"[serve] paged streams equal to contiguous: {same}/8 (bf16)")
     decode_breakdown(dev, get_model(cfg), params, smi, "t=1")
     prefill_breakdown(dev, get_model(cfg), params, smi)
-    return params, totals
+    return params, totals, reports["contiguous"]
 
 
 def decode_breakdown(dev, model, params, smi, what: str, steps: int = 8):
@@ -1180,24 +1265,36 @@ def decode_breakdown(dev, model, params, smi, what: str, steps: int = 8):
             f"ms/step {e.count // steps:5d}/step  {e.key[:90]}")
 
 
+# record_function labels of the breakdowns: on the card the profiler shows
+# each as a span from its first to its last device record, gaps included
+RANGES = ("pp.boundary_hop", "cp.ring")
+
+
 def _on_card(e) -> bool:
     return (getattr(e, "device_type", None) is not None
             and str(e.device_type).endswith("CUDA"))
 
 
+def _work_on_card(e) -> bool:
+    """A kernel or copy that ran on the card (not a labelled range)."""
+    return (_on_card(e) and e.key not in RANGES
+            and not getattr(e, "is_user_annotation", False))
+
+
 def device_events(prof):
     """The profiler's per-kernel records that ran on the card."""
-    return [e for e in prof.key_averages() if _on_card(e)]
+    return [e for e in prof.key_averages() if _work_on_card(e)]
 
 
 def device_busy_us(prof):
     """(busy, summed) us of the card in the profiled window: busy is the
-    union of the intervals of the records that ran on it (kernels, copies),
+    union of the intervals of the records that ran on it (kernels, copies;
+    not the labelled ranges, whose spans hold the gaps between them),
     so records that overlap — B5 and B6 start while their predecessor
     drains, by programmatic dependent launch — count once; summed adds
     their durations, as the breakdowns before the union did."""
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if _on_card(e))
+                   for e in prof.events() if _work_on_card(e))
     busy, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
@@ -1767,15 +1864,15 @@ def pp_greedy(prompt, n: int, prefill, generate, step):
     return logits, torch.cat([tok[:, None], gen], dim=1), last
 
 
-def pp_check_stage_logs(what, eng, cfg, t, p, passes, quant=None):
+def pp_check_stage_logs(what, eng, cfg, t, p, passes, quant=None, c=1):
     """Each stage's logged collectives per phase == ``passes[phase]`` x
-    ``commodel.hybrid_stage_collectives`` (nothing at t = 1)."""
+    ``commodel.hybrid_stage_collectives`` (nothing at t = c = 1)."""
     from repro_torch.core import comm
     from repro_torch.core.commodel import hybrid_stage_collectives
     for s, m in enumerate(eng.stages):
         for phase, n in passes.items():
             want = {k: v * n for k, v in hybrid_stage_collectives(
-                cfg, t, p, s, phase=phase,
+                cfg, t, p, s, c=c, phase=phase,
                 quant=quant if phase == "decode" else None).items()}
             got = comm.counts_by_collective(m.group.summary(phase))
             if got != want:
@@ -2002,7 +2099,7 @@ def pp_round_breakdown(dev, smi, cfg, params, kind: str, t: int, p: int,
         send = backend.engine.send_boundary
 
         def hop(out, s, phase="decode"):
-            with record_function("pp.boundary_hop"):
+            with record_function(RANGES[0]):
                 return send(out, s, phase)
         backend.engine.send_boundary = hop
 
@@ -2030,7 +2127,7 @@ def pp_round_breakdown(dev, smi, cfg, params, kind: str, t: int, p: int,
         log(f"[round {what}] 4 slots: host wall {wall_ms:.3f} ms/round; "
             "device busy: not measured (profiler recorded no device time)")
         return
-    hops = [e for e in prof.events() if e.name == "pp.boundary_hop"]
+    hops = [e for e in prof.events() if e.name == RANGES[0]]
     hop_us = sum(e.device_time_total for e in hops if not _on_card(e))
     span_us = sum(e.time_range.elapsed_us() for e in hops if _on_card(e))
     busy_ms = busy_us / 1e3 / rounds
@@ -2048,6 +2145,353 @@ def pp_round_breakdown(dev, smi, cfg, params, kind: str, t: int, p: int,
         f"{1 - busy_ms / wall_ms:.3f}, boundary hops' device time "
         f"{hop_txt} ({smi})")
     del backend
+
+
+# ---------------------------------------------------------------------------
+# phase 8: context parallelism on virtual CP workers, full width
+# ---------------------------------------------------------------------------
+
+CP_LAYOUTS = ((1, 2, 1), (2, 2, 1), (1, 2, 2))     # (t, c, p)
+# (e): (t, c, p, paged) over the smoke trace, 4 slots
+CP_SERVE = ((1, 2, 1, False), (2, 2, 1, True), (1, 2, 2, False))
+CP_TIME_S = 2048        # (f): one prompt of this length at t = 1
+CP_TIME_C = (1, 2, 4)
+
+
+class PipelineAsModel:
+    """A ``PipelineEngine`` behind ``Model``'s prefill / decode_step /
+    decode_steps on its staged parameters; the prefill pads to a multiple
+    of c and runs the CP stages."""
+
+    def __init__(self, eng):
+        self.eng, self.cfg = eng, eng.cfg
+
+    def prefill(self, staged, tokens, max_len: int):
+        from repro_torch.core.parallel_exec import pad_to_multiple
+        S = tokens.shape[1]
+        logits, caches = self.eng.prefill_with_cache(
+            staged, pad_to_multiple(tokens, self.eng.c),
+            self.eng.cache_width(max_len), S - 1)
+        return logits, caches, S
+
+    def decode_step(self, staged, caches, tokens, pos):
+        return self.eng.decode_once(staged, caches, tokens, pos)
+
+    def decode_steps(self, staged, caches, tokens, pos, n: int):
+        return self.eng.generate(staged, caches, tokens, pos, n)
+
+
+def cp_model(cfg, params, t: int, c: int, p: int, dev, shards=None):
+    """(model, its parameters) of a (t, c, p) layout: ``TPModel`` at p = 1,
+    ``PipelineAsModel`` over ``PipelineEngine`` otherwise."""
+    from repro_torch.core.parallel_exec import (PipelineEngine, TPModel,
+                                                shard_params)
+    if p == 1:
+        return TPModel(cfg, t, c=c), (shards if shards is not None
+                                      else shard_params(cfg, params, t))
+    eng = PipelineEngine(cfg, t=t, p=p, c=c, device=dev)
+    return PipelineAsModel(eng), eng.prepare(params)
+
+
+def first_divergence(a, b) -> str:
+    """The first column where two [B, n] token tensors differ, or none."""
+    diff = (a != b).any(dim=0).nonzero()
+    return "none" if diff.numel() == 0 else str(int(diff[0]))
+
+
+def cp_phase(dev, smi, params, prompt, kernel_rows, streams_c1):
+    """Phase 8: (b) CP parity against the c = 1 path of the same (t, p),
+    the ring bitwise, bf16 teacher-forced within the kernel-path limits,
+    f32 greedy tokens at L = 4; (c) the comm logs against the closed
+    forms; (d) the launch formulas, no plain attention; (e) the three
+    backends through the Scheduler; (f) one 2048-token prefill at
+    c = 1, 2, 4."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import comm
+    from repro_torch.core.commodel import comm_ops_for, cp_comm_ops
+    from repro_torch.core.parallel_exec import TPModel, shard_params
+    from repro_torch.kernels import _build
+    from repro_torch.models import blocks, layers
+    from repro_torch.models.layers import torch_dtype
+    from repro_torch.models.transformer import get_model
+    from repro_torch.runtime.backends import make_backend
+    from repro_torch.runtime.scheduler import Scheduler
+
+    cfg = get_config(ARCH)
+    L = cfg.num_layers
+    b = torch_dtype(cfg.dtype).itemsize
+    totals = {name: 0 for name in _build.LAUNCHES}
+    t_phase = time.perf_counter()
+    prompts = [torch.as_tensor(r.prompt, dtype=torch.int32, device=dev)[None]
+               for r in smoke_trace(cfg)[:PP_PROMPTS]]
+    shards = {1: shard_params(cfg, params, 1), 2: shard_params(cfg, params, 2)}
+
+    # every ring assembly checked bitwise; the plain attention counted
+    ring, gqa = layers.ring_kv_assemble, blocks.gqa_attention
+    rings, plain_calls = [], []
+
+    def checked(parts, group):
+        full = ring(parts, group)
+        want = torch.cat(parts, dim=1)
+        rings.append(all(torch.equal(f, want) for f in full))
+        return full
+
+    def counted(*a):
+        plain_calls.append(1)
+        return gqa(*a)
+
+    layers.ring_kv_assemble, blocks.gqa_attention = checked, counted
+    try:
+        for t, c, p in CP_LAYOUTS:
+            what = f"cp t={t} c={c} p={p}"
+            model, mp = cp_model(cfg, params, t, c, p, dev, shards.get(t))
+            ref, ref_params = ((get_model(cfg), params) if t == 1 else
+                               (TPModel(cfg, t), shards[t]))
+            diffs, same, first = [], 0, []
+            for i, x in enumerate(prompts):
+                S = x.shape[1]
+                logs = ([model.group] if p == 1 else
+                        [m.group for m in model.eng.stages])
+                for g in logs:
+                    g.log.clear()
+                if p > 1:
+                    model.eng.transfers.clear()
+                got = drive_counted(
+                    f"{what} S={S} engine", lambda: pp_greedy(
+                        x, PP_NEW, lambda y: model.prefill(mp, y, 1024)[:2],
+                        lambda *a: model.decode_steps(mp, *a),
+                        lambda *a: model.decode_step(mp, *a)),
+                    totals, L, passes=PP_NEW, flash=0, decode=PP_NEW,
+                    paged=0, t=t, p=p, cp=1, c=c)
+                with torch.inference_mode():
+                    want = pp_greedy(
+                        x, PP_NEW, lambda y: ref.prefill(ref_params, y,
+                                                         1024)[:2],
+                        lambda *a: ref.decode_steps(ref_params, *a),
+                        lambda *a: ref.decode_step(ref_params, *a))
+                diffs.append(float((got[0].float() - want[0].float())
+                                   .abs().max()))
+                same += int(torch.equal(got[1], want[1]))
+                first.append(first_divergence(got[1], want[1]))
+                # (c) the logs: prefill rows with the ring, decode rows c=1's
+                ops = comm_ops_for(cfg, S, PP_NEW + 1, t, p, c=c, b=b,
+                                   gather_mode="allgather")
+                c1 = comm_ops_for(cfg, S, PP_NEW + 1, t, p, b=b,
+                                  gather_mode="allgather")
+                dec = [o for o in ops if o.phase == "decode"]
+                if dec != [o for o in c1 if o.phase == "decode"]:
+                    raise AssertionError(f"{what}: decode rows depend on c")
+                if p == 1:
+                    got_log = model.group.summary()
+                    if comm.fold(got_log) != comm.fold(ops):
+                        raise AssertionError(
+                            f"{what} S={S}: logged {got_log} != {ops}")
+                    if t == 1 and comm.fold(model.group.summary(
+                            "prefill")) != comm.fold(cp_comm_ops(
+                                cfg, S, c, b=b)):
+                        raise AssertionError(f"{what}: CP log != "
+                                             "cp_comm_ops")
+                    continue
+                pp_check_stage_logs(f"{what} S={S}", model.eng, cfg, t, p,
+                                    {"prefill": 1, "decode": PP_NEW}, c=c)
+                for phase in ("prefill", "decode"):
+                    row = [o for o in ops if o.collective == "send"
+                           and o.phase == phase][0]
+                    summ = model.eng.transfer_summary(phase)
+                    if summ != {"count": row.count,
+                                "bytes": row.total_msg_bytes}:
+                        raise AssertionError(
+                            f"{what} S={S} {phase} transfers {summ} != "
+                            f"{row.count} x {row.total_msg_bytes} bytes")
+            log(f"[cp parity] {what} bf16, {len(prompts)} prompts of the "
+                f"trace, prefill + {PP_NEW} greedy tokens against the c = 1 "
+                f"path ({'Model' if t == 1 else 'TPModel t=2'}): prefill "
+                f"logits max |diff| {[round(d, 4) for d in diffs]}, tokens "
+                f"identical {same}/{len(prompts)}, first diverging position "
+                f"{first}; "
+                + ("every stage's log == hybrid_stage_collectives(c=2), "
+                   "transfers == the send rows" if p > 1 else
+                   f"comm log == comm_ops_for(c={c})"
+                   + (" and cp_comm_ops" if t == 1 else ""))
+                + " of every prompt; decode rows == c = 1's")
+            # bf16 teacher-forced against the c = 1 path
+            base = kernel_rows if t == 1 else teacher_forced(
+                ref, ref_params, prompt, False)
+            hold(f"bf16 CP {what} (CP prefill of {SPLIT}) vs c = 1 "
+                 f"({'Model' if t == 1 else 'TPModel t=2'})",
+                 teacher_forced(model, mp, prompt, False), base,
+                 LOGIT_MATCH_FLOOR, LOGIT_DRIFT_CEILING)
+            del model, mp, ref, ref_params
+        if not (rings and all(rings)):
+            raise AssertionError("a ring-assembled K/V differs from its "
+                                 "shards' blocks")
+        log(f"[cp ring] {len(rings)} ring assemblies, every worker's K/V "
+            f"bitwise its shards' blocks in order")
+
+        # f32 at L = 4: greedy tokens identical (odd prompts, padded)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg32 = dataclasses.replace(cfg, num_layers=4, dtype="float32")
+        p32 = get_model(cfg32).init(seed=3, device=dev)
+        x32 = torch.randint(2, cfg.vocab_size, (2, 127),
+                            generator=torch.Generator().manual_seed(4)).to(dev)
+        same = {}
+        for t, c, p in CP_LAYOUTS:
+            ref, ref_params = pp_reference(cfg32, p32, t)
+            want = tp_greedy(ref, ref_params, x32, 256, 32)
+            model, mp = cp_model(cfg32, p32, t, c, p, dev)
+            same[(t, c, p)] = bool(torch.equal(
+                tp_greedy(model, mp, x32, 256, 32), want))
+            del model, mp
+        log(f"[compare f32] L=4 full width, 2 prompts of 127 tokens (padded "
+            f"to 128), greedy 32 tokens CP == c = 1 path: {same}")
+        if not all(same.values()):
+            raise AssertionError("f32 CP greedy tokens differ from c = 1")
+        del p32
+
+        # (e) serving through the Scheduler
+        for t, c, p, paged in CP_SERVE:
+            kind = "pp" if p > 1 else "tp"
+            what = (f"cp t={t} c={c} p={p} "
+                    f"{'paged' if paged else 'contiguous'}")
+            kw = dict(paged=True, page_size=16) if paged else {}
+            runs = [(what, dict(c=c), True)]
+            if paged:
+                runs.append((f"t={t} c=1 paged", dict(c=1), False))
+            streams = {}
+            for name, ckw, is_cp in runs:
+                trace = smoke_trace(cfg)
+                backend = make_backend(kind, cfg, params, num_slots=4,
+                                       max_len=1024, t=t, p=p, device=dev,
+                                       **ckw, **kw)
+                _build.reset_launches()
+                t0 = time.perf_counter()
+                report = Scheduler(backend).run(trace)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = dict(_build.LAUNCHES)
+                require_all_finished(name, trace, report)
+                n_dec = sum(1 for r in report.steps if r.phase == "decode")
+                n_pre = len(trace)
+                expect_launches(name, counts, L,
+                                passes=n_dec + (0 if is_cp else n_pre),
+                                flash=0 if is_cp else n_pre,
+                                decode=0 if paged else n_dec,
+                                paged=n_dec if paged else 0, t=t, p=p,
+                                cp=n_pre if is_cp else 0, c=c)
+                for k in totals:
+                    totals[k] += counts[k]
+                if is_cp and kind == "tp":
+                    got = comm.fold(backend.model.group.summary("prefill"))
+                    want = collections.Counter()
+                    for r in trace:
+                        want.update(comm.fold(
+                            backend.prefill_comm_ops(r.prompt_len)))
+                    if got != dict(want):
+                        raise AssertionError(f"{name}: prefill log {got} != "
+                                             f"{dict(want)}")
+                if is_cp and kind == "pp":
+                    pp_check_stage_logs(name, backend.engine, cfg, t, p,
+                                        {"prefill": n_pre, "decode": n_dec},
+                                        c=c)
+                streams[name] = report.tokens_by_rid()
+                log(f"[cp serve {name}] {len(report.metrics)} requests, "
+                    f"{report.total_tokens} tokens, {n_dec} decode steps in "
+                    f"{wall:.2f} s, {report.total_tokens / wall:.1f} tokens/s "
+                    f"({smi})")
+                del backend
+            ref_streams = streams[runs[1][0]] if paged else streams_c1
+            equal = sum(streams[what][r] == ref_streams[r]
+                        for r in ref_streams)
+            log(f"[cp serve {what}] streams equal to the c = 1 backend's "
+                f"({'TP t=2 paged' if paged else 'single device, phase 3'}): "
+                f"{equal}/{len(ref_streams)} (bf16)")
+        if plain_calls:
+            raise AssertionError(f"{len(plain_calls)} plain attention calls "
+                                 "on the card")
+        log("[cp] plain attention calls on the card: 0")
+    finally:
+        layers.ring_kv_assemble, blocks.gqa_attention = ring, gqa
+    del shards[2]
+    log(f"[cp phase] (b)-(e) in {time.perf_counter() - t_phase:.1f} s")
+    cp_prefill_breakdown(dev, smi, cfg, shards[1])
+    log(f"[cp phase] {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
+def cp_prefill_breakdown(dev, smi, cfg, shards):
+    """Phase 8(f): one CP_TIME_S-token prompt at t = 1 and c = 1, 2, 4 on
+    the card, the c workers in series: host wall (synchronised, no
+    profiler), device busy (``device_busy_us``), B2's device ms, the ring's
+    device ms (the records under ``layers.ring_kv_assemble``) and bytes
+    against ``commodel.v_cp``, beside ``slo.predict_slo``'s TTFT, a model
+    of c cards."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.core.commodel import cp_comm_ops, v_cp
+    from repro_torch.core.parallel_exec import TPModel
+    from repro_torch.core.slo import predict_slo
+    from repro_torch.models import layers
+
+    S, L = CP_TIME_S, cfg.num_layers
+    prompt = torch.randint(2, cfg.vocab_size, (1, S), device=dev,
+                           generator=torch.Generator(dev).manual_seed(13))
+    ring = layers.ring_kv_assemble
+
+    def ranged(parts, group):
+        with record_function(RANGES[1]):
+            return ring(parts, group)
+
+    layers.ring_kv_assemble = ranged
+    try:
+        for c in CP_TIME_C:
+            model = TPModel(cfg, 1, c=c)
+
+            def run():
+                return model.cp_prefill(shards, prompt, S - 1, S)
+
+            with torch.inference_mode():
+                run()                                        # warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall_ms = 1e3 * (time.perf_counter() - t0)
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    run()
+                    torch.cuda.synchronize()
+            busy_us, summed_us = device_busy_us(prof)
+            events = device_events(prof)
+            b2_ms = sum(e.self_device_time_total for e in events
+                        if "flash_prefill" in e.key) / 1e3
+            rng = [e for e in prof.events() if e.name == RANGES[1]]
+            ring_ms = sum(e.device_time_total for e in rng
+                          if not _on_card(e)) / 1e3
+            block = S // c * cfg.num_kv_heads * cfg.head_dim * 2
+            # each worker's own rows, then the c(c-1) hops; no ring at c = 1
+            moved = 2 * L * c * c * block if c > 1 else 0
+            wire = 2 * L * c * (c - 1) * block
+            per_worker = sum(o.total_msg_bytes for o in cp_comm_ops(
+                cfg, S, c) if o.collective == "collectivepermute")
+            ttft = predict_slo(cfg, S, 1, t=1, c=c).ttft * 1e3
+            busy_ms = busy_us / 1e3
+            log(f"[cp prefill] {cfg.name} S={S}, t=1 c={c} (the c workers in "
+                f"series on one card): host wall {wall_ms:.3f} ms (no "
+                f"profiler), device busy {busy_ms:.3f} ms (profiler, union; "
+                f"sum {summed_us / 1e3:.3f}), device idle share "
+                f"{1 - busy_ms / wall_ms:.3f}, B2 {b2_ms:.3f} ms, ring "
+                f"copies {ring_ms:.3f} ms device for {moved} bytes "
+                f"({2 * L * c * c if c > 1 else 0} copies of [{S // c}, "
+                f"{cfg.num_kv_heads * cfg.head_dim}] bf16; the hops "
+                f"{wire} bytes = c x the per-worker ring volume "
+                f"{per_worker}, v_cp {v_cp(cfg, S, c):.0f}); "
+                f"slo.predict_slo TTFT {ttft:.3f} ms (a model of {c} "
+                f"H100 cards, not this run) ({smi})")
+            for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+                log(f"    device {e.self_device_time_total / 1e3:8.3f} ms "
+                    f"{e.count:5d}x  {e.key[:90]}")
+            del model
+    finally:
+        layers.ring_kv_assemble = ring
 
 
 # ---------------------------------------------------------------------------
@@ -2138,16 +2582,19 @@ def main(argv=None) -> int:
         more_rows, more_times = phase(dev, args.iters)
         rows.update(more_rows)
         times.update(more_times)
+    cp_kernel_rows(dev, args.iters, rows, times)
     if args.kernels_only:
         return 0
-    params, launches = serving_phase(dev, smi)
+    params, launches, streams = serving_phase(dev, smi)
     prompt, kernel_rows = model_compare_phase(dev, params)
     for name, n in tp_phase(dev, smi, params, prompt, kernel_rows).items():
         launches[name] += n
-    del prompt, kernel_rows
     for name, n in pp_phase(dev, smi, params).items():
         launches[name] += n
-    del params
+    for name, n in cp_phase(dev, smi, params, prompt, kernel_rows,
+                            streams).items():
+        launches[name] += n
+    del params, prompt, kernel_rows
     for name, n in rwkv_phase(dev, smi).items():
         launches[name] += n
 
@@ -2170,7 +2617,14 @@ def main(argv=None) -> int:
             **({"allreduce_ms": t["allreduce"]} if "allreduce" in t else {}),
             **({"ms_overlapped_by_pdl": True} if t.get("overlapped")
                else {}),
-            **({"fuses": FUSES[name]} if name in FUSES else {})))
+            **({"fuses": FUSES[name]} if name in FUSES else {}),
+            **({"cp_shard": {
+                "shape": t["cp_shard"]["shape"], "ms": t["cp_shard"]["kernel"],
+                "plain_ms": t["cp_shard"]["plain"],
+                "bound_ms": t["cp_shard"]["bound"],
+                "bound_by": t["cp_shard"]["by"],
+                "library_ms": t["cp_shard"]["library"]}}
+               if "cp_shard" in t else {})))
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the main path")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

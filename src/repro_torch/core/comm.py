@@ -11,6 +11,7 @@ wire would deliver; the semantics are those of the JAX package's
   reduce_scatter(xs)   -> t tensors: rank r's 1/t block of the sum
   all_gather(xs)       -> one tensor: the blocks side by side, rank order
   all_to_all(xs)       -> t tensors: rank r's input block r of every rank
+  collective_permute(xs) -> t tensors: rank r's is rank r-1's (a ring step)
 
 Reduction order: a sum runs in rank order 0, 1, ..., t-1 in the working
 dtype (the inputs' dtype), one rounding per add.  An fp8 (e4m3)
@@ -24,6 +25,15 @@ log into ``commodel.CommOp`` rows, so a run's collectives compare with
 ``commodel.comm_ops_for(..., gather_mode="allgather", quant=...)``.  A
 group of one rank moves nothing and logs nothing (the JAX engine drops
 the degenerate mesh axis).
+
+A (t, c) mesh — t TP ranks for each of c context-parallel (CP) sequence
+shards — is a TP group and a CP group sharing one log
+(``VirtualGroup(c, log=tp.log)``).  The log keeps the SPMD program's
+count, one collective per rank and site: the c shards' TP collectives at
+one site are one all-reduce of one shard's message, and the t ranks' ring
+steps one collective-permute of one rank's block.  The calls after the
+first at a site run under ``muted()``, which moves the data and logs
+nothing.
 
 A ``torch.distributed``/NCCL group with the same interface, one rank per
 card, waits for a four-card cell (ROADMAP).
@@ -45,7 +55,8 @@ from repro_torch.core.commodel import CommOp
 class CommRecord:
     """One logged collective call."""
 
-    kind: str                    # allreduce|reducescatter|allgather|alltoall
+    kind: str                    # allreduce|reducescatter|allgather|
+                                 # alltoall|collectivepermute
     phase: str                   # "prefill" | "decode"
     shape: Tuple[int, ...]       # one rank's input, in logical elements
     itemsize: float              # bytes per logical element on the wire
@@ -85,14 +96,16 @@ def counts_by_collective(ops: Sequence[CommOp]) -> Dict[str, int]:
 
 
 class VirtualGroup:
-    """t virtual ranks on one device, with a log of every collective."""
+    """t virtual ranks on one device, with a log of every collective
+    (``log``: a list shared with another axis of the same mesh)."""
 
-    def __init__(self, t: int):
+    def __init__(self, t: int, log: List[CommRecord] = None):
         if t < 1:
             raise ValueError(f"t must be >= 1, got {t}")
         self.t = int(t)
-        self.log: List[CommRecord] = []
+        self.log: List[CommRecord] = [] if log is None else log
         self._phase = "prefill"
+        self._muted = False
 
     @contextlib.contextmanager
     def phase(self, name: str):
@@ -103,8 +116,21 @@ class VirtualGroup:
         finally:
             self._phase = prev
 
+    @contextlib.contextmanager
+    def muted(self, on: bool = True):
+        """Run the block's collectives without logging them (when ``on``):
+        the later shards' or ranks' calls at a site whose one collective
+        the first call logged."""
+        prev, self._muted = self._muted, self._muted or bool(on)
+        try:
+            yield self
+        finally:
+            self._muted = prev
+
     # -- the log -------------------------------------------------------------
     def _record(self, kind: str, xs, values_per_item: int = 1) -> None:
+        if self._muted:
+            return
         x = xs[0]
         shape = (*x.shape[:-1], x.shape[-1] * values_per_item)
         itemsize = x.element_size() / values_per_item
@@ -201,3 +227,17 @@ class VirtualGroup:
         blocks = [x.chunk(self.t, dim=-1) for x in xs]
         return [torch.cat([blocks[src][dst] for src in range(self.t)], dim=-1)
                 for dst in range(self.t)]
+
+    def collective_permute(self, xs, out=None):
+        """One ring step (``ppermute`` to rank r + 1 mod t): rank r receives
+        rank r - 1's tensor, as a copy — into ``out[r]`` when given (the
+        receiver's buffer).  Returns the t received tensors."""
+        if self.t == 1:
+            return [xs[0]]
+        self._check(xs, "collective_permute")
+        self._record("collectivepermute", xs)
+        if out is None:
+            return [xs[r - 1].clone() for r in range(self.t)]
+        for r, dst in enumerate(out):
+            dst.copy_(xs[r - 1])
+        return list(out)

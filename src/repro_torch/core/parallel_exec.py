@@ -32,6 +32,17 @@ one card (or the CPU) runs t > 1, and a run's log compares with
     embedding all-reduce and the logits gather stay full-width, as in the
     JAX package.
 
+Context parallelism (``c`` > 1, prefill only) shards a prefill's sequence
+over c virtual CP workers on top of the t ranks (a (t, c) mesh): every
+worker runs each layer on its [B, S/c, h] shard, its K/V blocks
+ring-exchanged over the CP group (``layers.ring_kv_assemble``) so that B2
+attends at the shard's offset over the whole sequence in absolute order,
+and one CP all-reduce hands the last position's hidden state to the head.
+The TP collectives of the c shards at one site are logged once, as the
+SPMD program shows them per rank (``core.comm``).  Decode and the paged
+passes are the c = 1 passes at any c: the assembled cache is whole on
+every worker.
+
 Parameters of a TP model are a list of t per-rank dicts (``shard_params``);
 caches are a list of t per-rank dicts {k, v: [L, B, W, Hkv/t, D]} (ring
 cache) or {k, v: [L, P, ps, Hkv/t, D]} (KV pages under one block table).
@@ -294,6 +305,20 @@ def _layer_slice(blocks, l):
     return {k: v[l] for k, v in blocks.items()}
 
 
+def pad_to_multiple(tokens, c: int):
+    """tokens [B, S] padded on the right with token 0 to a multiple of c
+    (the JAX package's CP padding)."""
+    pad = -tokens.shape[1] % c
+    return torch.nn.functional.pad(tokens, (0, pad)) if pad else tokens
+
+
+def check_cp_tokens(tokens, c: int) -> None:
+    if tokens.shape[1] % c:
+        raise ValueError(
+            f"CP prefill shards the sequence over c={c}: pad the prompt to a "
+            f"multiple of c (got S={tokens.shape[1]})")
+
+
 # ---------------------------------------------------------------------------
 # the TP model
 # ---------------------------------------------------------------------------
@@ -307,19 +332,26 @@ class TPModel:
     attention, RMSNorm and quantization in place of the kernels.  The
     collectives are logged on ``self.group``.  The layer loop carries the
     residual stream as (h, x) (``models.blocks``): h is the last all-reduce
-    of the previous layer, added inside the next norm."""
+    of the previous layer, added inside the next norm.  ``c`` > 1 adds c
+    CP workers to the prefill (``cp_prefill``); their ring and all-reduce
+    go through ``self.cp_group``, which logs into ``self.group.log``."""
 
     def __init__(self, cfg: ModelConfig, t: int, quant: str = None,
-                 quant_chunk: int = DEFAULT_QUANT_CHUNK, plain: bool = False):
+                 quant_chunk: int = DEFAULT_QUANT_CHUNK, plain: bool = False,
+                 c: int = 1):
         check_tp_config(cfg, t)
+        if c < 1:
+            raise ValueError(f"c must be >= 1, got {c}")
         self.cfg = cfg
         self.t = int(t)
+        self.c = int(c)
         self.quant = _check_quant(quant)
         self.quant_chunk = int(quant_chunk)
         self.plain = bool(plain)
         self.heads_t = cfg.num_heads // t
         self.kv_t = cfg.num_kv_heads // t
         self.group = VirtualGroup(t)
+        self.cp_group = VirtualGroup(c, log=self.group.log)
         self._dense = Model(cfg, plain)
 
     # ------------------------------------------------------------- params
@@ -357,14 +389,16 @@ class TPModel:
         """Every rank's projection head and attention: RoPE'd q/k/v of the
         rank's heads and the attention kernel over them
         (``blocks.attention_apply`` at Hq/t and Hkv/t heads).  Returns the
-        per-rank outputs [B, S, Hq/t*D] and caches."""
+        per-rank outputs [B, S, Hq/t*D] and caches.  Each rank runs its own
+        CP ring (with ``cp_group``), logged once for the t ranks."""
         outs, new = [], []
         for r, p in enumerate(pls):
-            out, cache = attention_apply(
-                self.cfg, p, xn, positions,
-                cache=None if caches is None else caches[r],
-                plain=self.plain, num_heads=self.heads_t,
-                num_kv_heads=self.kv_t, **attn_kw)
+            with self.cp_group.muted(r > 0):
+                out, cache = attention_apply(
+                    self.cfg, p, xn, positions,
+                    cache=None if caches is None else caches[r],
+                    plain=self.plain, num_heads=self.heads_t,
+                    num_kv_heads=self.kv_t, **attn_kw)
             outs.append(out)
             new.append(cache)
         return outs, new
@@ -399,6 +433,41 @@ class TPModel:
         attns, caches = self._tp_layer_qkv(pls, xn, positions,
                                            build_cache_w=cache_w)
         return self._tp_layer_out(pls, x, attns), caches
+
+    def _cp_layer_full(self, pls, shards, positions, cache_w=None):
+        """One layer of a context-parallel prefill over the c shards'
+        carried pairs: ln1 per shard, every rank's CP attention (the ring
+        and B2 at each shard's offset; ``blocks.attention_apply`` with
+        ``cp_group``), the residual tail per shard.  The c shards' TP
+        collectives at a site are logged once.  Returns (the c shards'
+        pairs, per-rank ring caches built from the assembled K/V)."""
+        ins = []
+        for i, carried in enumerate(shards):
+            with self.group.muted(i > 0):
+                ins.append(self._tp_layer_in(pls, carried))
+        attns, caches = self._tp_layer_qkv(
+            pls, [xn for _, xn in ins], positions, cp_group=self.cp_group,
+            build_cache_w=cache_w)
+        out = []
+        for i, (x, _) in enumerate(ins):
+            with self.group.muted(i > 0):
+                out.append(self._tp_layer_out(pls, x, [a[i] for a in attns]))
+        return out, caches
+
+    def _cp_last_hidden(self, shards, last: int):
+        """The carried pair the head reads at absolute position ``last``:
+        the shard that owns it adds its pair on that row (``x + h``, the s
+        of the norm that closes it), every other shard contributes zeros,
+        and one all-reduce over the CP group (the "+1" of
+        ``commodel.cp_comm_ops``) hands the row to every worker; the final
+        norm is then B1 alone."""
+        s = shards[0][1].shape[1]
+        owner, i = divmod(int(last), s)
+        h, x = shards[owner]
+        row = x[:, i] if h is None else x[:, i] + h[:, i]
+        rows = [row if r == owner else torch.zeros_like(row)
+                for r in range(self.c)]
+        return None, self.cp_group.all_reduce(rows)[:, None]
 
     def _tp_layer_step(self, pls, x, positions, pos, caches):
         """One decode step against the per-rank ring caches (in place);
@@ -456,15 +525,31 @@ class TPModel:
         return carried
 
     def stage_prefill(self, params, inp, lo: int, hi: int,
-                      cache_w: int = None):
+                      cache_w: int = None, last: int = None):
         """Layers [lo, hi) over whole sequences: (out, per-rank ring caches
-        [hi - lo, B, cache_w, Hkv/t, D], or None without ``cache_w``)."""
-        cfg = self.cfg
+        [hi - lo, B, cache_w, Hkv/t, D], or None without ``cache_w``).
+
+        At c > 1 the sequence is sharded over the c CP workers: ``inp`` is
+        the tokens [B, S] (S a multiple of c) on the first stage and the c
+        shards' received pairs on a later one; a stage that is not the last
+        returns the c shards' pairs, and the last one's logits are those of
+        position ``last`` (default S - 1)."""
+        cfg, c = self.cfg, self.c
         with self.group.phase("prefill"):
-            carried = self._stage_in(params, inp, lo)
-            x = carried[1]
-            B, S = x.shape[:2]
-            positions = torch.arange(S, device=x.device).expand(B, S)
+            if c == 1:
+                inp = [inp]
+            elif lo == 0:
+                s = inp.shape[1] // c
+                inp = [inp[:, i * s:(i + 1) * s] for i in range(c)]
+            shards = []
+            for i, part in enumerate(inp):
+                with self.group.muted(i > 0):
+                    shards.append(self._stage_in(params, part, lo))
+            x = shards[0][1]
+            B, s = x.shape[:2]
+            positions = [torch.arange(i * s, (i + 1) * s,
+                                      device=x.device).expand(B, s)
+                         for i in range(c)]
             cache = None
             if cache_w is not None:
                 cache = [{key: x.new_zeros((hi - lo, B, cache_w, self.kv_t,
@@ -472,13 +557,24 @@ class TPModel:
                           for key in ("k", "v")} for _ in range(self.t)]
             for l in range(lo, hi):
                 pls = [_layer_slice(p["blocks"], l - lo) for p in params]
-                carried, built = self._tp_layer_full(pls, carried, positions,
-                                                     cache_w)
+                if c == 1:
+                    carried, built = self._tp_layer_full(
+                        pls, shards[0], positions[0], cache_w)
+                    shards = [carried]
+                else:
+                    shards, built = self._cp_layer_full(pls, shards,
+                                                        positions, cache_w)
                 if cache is not None:
-                    for c, b in zip(cache, built):
-                        c["k"][l - lo] = b["k"]
-                        c["v"][l - lo] = b["v"]
-            return self._stage_out(params, carried, hi), cache
+                    for rank, b in zip(cache, built):
+                        rank["k"][l - lo] = b["k"]
+                        rank["v"][l - lo] = b["v"]
+            if c == 1:
+                return self._stage_out(params, shards[0], hi), cache
+            if hi < cfg.num_layers:
+                return shards, cache
+            last = c * s - 1 if last is None else last
+            return self._head(params, self._cp_last_hidden(shards, last)), \
+                cache
 
     def stage_decode(self, params, cache, inp, pos, lo: int, hi: int):
         """One decode step through layers [lo, hi): ``inp`` is tokens [B]
@@ -521,9 +617,22 @@ class TPModel:
     def tp_prefill(self, params, tokens, cache_w: int = None):
         """tokens [B, S] -> (last-position logits [B, v], per-rank ring
         caches of width ``cache_w``, or None).  Collectives: (2L+1)
-        all-reduce + 1 all-gather (Eq. 1, Table III)."""
+        all-reduce + 1 all-gather (Eq. 1, Table III); at c > 1 this is
+        ``cp_prefill`` at position S - 1."""
         return self.stage_prefill(params, tokens, 0, self.cfg.num_layers,
                                   cache_w)
+
+    def cp_prefill(self, params, tokens, last: int = None,
+                   cache_w: int = None):
+        """Context-parallel prefill of padded tokens [B, S], S a multiple of
+        c: (logits [B, v] of position ``last`` (default S - 1), per-rank
+        ring caches of width ``cache_w`` built from the assembled K/V, or
+        None).  Collectives: the TP schedule at the shard's [B, S/c] rows
+        (t > 1) and ``commodel.cp_comm_ops``: 2L(c-1) collective-permutes
+        and one CP all-reduce."""
+        check_cp_tokens(tokens, self.c)
+        return self.stage_prefill(params, tokens, 0, self.cfg.num_layers,
+                                  cache_w, last)
 
     def tp_decode_step(self, params, cache, tokens, pos):
         """One decode step: tokens [B]; ``pos`` a scalar or [B] positions.
@@ -550,10 +659,13 @@ class TPModel:
 
     # the single-device Model's names
     def prefill(self, params, tokens, max_len: int):
-        """(logits [B, v], per-rank ring caches, S), as ``Model.prefill``."""
-        logits, cache = self.tp_prefill(params, tokens,
-                                        self.cache_width(max_len))
-        return logits, cache, tokens.shape[1]
+        """(logits [B, v], per-rank ring caches, S), as ``Model.prefill``;
+        at c > 1 the prompts pad to a multiple of c with token 0 and run
+        ``cp_prefill`` (the pad rows' K/V sit past position S - 1, where
+        decode overwrites them)."""
+        S = tokens.shape[1]
+        return (*self.cp_prefill(params, pad_to_multiple(tokens, self.c),
+                                 S - 1, self.cache_width(max_len)), S)
 
     decode_step = tp_decode_step
     decode_steps = tp_generate
@@ -608,24 +720,25 @@ class PipelineEngine:
 
     ``quant_collectives`` quantizes the contiguous decode step's layer
     all-reduces, as in ``TPModel``; ``plain=True`` runs the plain versions
-    of the kernels.  Context parallelism (c > 1) is ROADMAP item A7."""
+    of the kernels.  ``c`` > 1 shards each stage's prefill over c CP
+    workers (``TPModel.cp_prefill``'s layers): the boundary pairs stay
+    sequence-sharded, each worker shipping its [B, S/c, h/t] slices, and
+    the last stage's head reads position ``last``; decode and the paged
+    passes are the c = 1 passes."""
 
     def __init__(self, cfg: ModelConfig, t: int = 1, p: int = 2, c: int = 1,
                  quant_collectives: str = None,
                  quant_chunk: int = DEFAULT_QUANT_CHUNK, plain: bool = False,
                  device=None):
-        if c > 1:
-            raise NotImplementedError(
-                "context parallelism (c > 1) is ROADMAP item A7")
         check_tp_config(cfg, t)
         if not 1 <= p <= cfg.num_layers:
             raise ValueError(f"p must be in [1, {cfg.num_layers}] for "
                              f"{cfg.name}, got p={p}")
-        self.cfg, self.t, self.p = cfg, int(t), int(p)
+        self.cfg, self.t, self.p, self.c = cfg, int(t), int(p), int(c)
         self.quant = _check_quant(quant_collectives)
         self.quant_chunk = int(quant_chunk)
         self.device = resolve_device(device)
-        self.stages = [TPModel(cfg, t, self.quant, quant_chunk, plain)
+        self.stages = [TPModel(cfg, t, self.quant, quant_chunk, plain, c)
                        for _ in range(p)]
         self.ranges = [stage_layer_range(cfg, p, s) for s in range(p)]
         self.transfers: List[TransferRecord] = []
@@ -675,8 +788,8 @@ class PipelineEngine:
                 for m, (lo, hi) in zip(self.stages, self.ranges)]
 
     # ---------------------------------------------------------- boundary
-    def _receive_buffers(self, s: int, shape, dtype):
-        key = (s, tuple(shape), dtype)
+    def _receive_buffers(self, s: int, shape, dtype, shard: int = 0):
+        key = (s, tuple(shape), dtype, shard)
         if key not in self._recv:
             self._recv[key] = tuple(
                 [torch.empty(shape, dtype=dtype, device=self.device)
@@ -688,17 +801,27 @@ class PipelineEngine:
         """Ship stage s's carried pair (h, x) to stage s + 1: each rank's
         h/t slice of both tensors copied into the next stage's receive
         buffers, one ``TransferRecord`` per tensor.  Returns the received
-        pair as two lists of t rank slices."""
+        pair as two lists of t rank slices.  A CP prefill's ``out`` is the
+        list of the c shards' pairs: every shard ships its own slices, and
+        the records are one worker's, [B, S/c, h/t]; returns the c
+        received pairs."""
+        if isinstance(out, list):
+            return [self._ship(pair, s, phase, i) for i, pair in
+                    enumerate(out)]
+        return self._ship(out, s, phase)
+
+    def _ship(self, out, s: int, phase: str, shard: int = 0):
         h, x = out
         if isinstance(h, GatheredSum):
             h = h.dequantize(x.dtype)
         k = self.cfg.d_model // self.t
-        bufs = self._receive_buffers(s, (*x.shape[:-1], k), x.dtype)
+        bufs = self._receive_buffers(s, (*x.shape[:-1], k), x.dtype, shard)
         for full, ranks in zip((h, x), bufs):
             for r, buf in enumerate(ranks):
                 buf.copy_(full[..., r * k:(r + 1) * k])
-            self.transfers.append(TransferRecord(
-                phase, 1, tuple(ranks[0].shape), x.element_size()))
+            if shard == 0:
+                self.transfers.append(TransferRecord(
+                    phase, 1, tuple(ranks[0].shape), x.element_size()))
         return bufs
 
     def feed_tokens(self, tokens):
@@ -721,25 +844,31 @@ class PipelineEngine:
                 for m, (lo, hi) in zip(self.stages, self.ranges)]
 
     # ------------------------------------------------------------ passes
-    def _prefill(self, staged, tokens, cache_w, phase: str):
+    def _prefill(self, staged, tokens, cache_w, phase: str, last=None):
+        check_cp_tokens(tokens, self.c)
         x = self.feed_tokens(tokens)
         caches = []
         for s, (m, (lo, hi)) in enumerate(zip(self.stages, self.ranges)):
-            out, cache = m.stage_prefill(staged[s], x, lo, hi, cache_w)
+            out, cache = m.stage_prefill(staged[s], x, lo, hi, cache_w, last)
             caches.append(cache)
             if s < self.p - 1:
                 x = self.send_boundary(out, s, phase)
         return out, caches
 
-    def forward(self, staged, tokens, phase: str = "prefill"):
+    def forward(self, staged, tokens, phase: str = "prefill",
+                last: int = None):
         """One pass without caches; logs (p - 1)·2 transfers of
-        [B, S, h/t] (Eq. 2 / Eq. 7).  Returns the last-position logits."""
-        return self._prefill(staged, tokens, None, phase)[0]
+        [B, S, h/t] (Eq. 2 / Eq. 7; [B, S/c, h/t] at c > 1).  Returns the
+        logits of position ``last`` (default the last; at c > 1, S a
+        multiple of c)."""
+        return self._prefill(staged, tokens, None, phase, last)[0]
 
-    def prefill_with_cache(self, staged, tokens, cache_w: int):
+    def prefill_with_cache(self, staged, tokens, cache_w: int,
+                           last: int = None):
         """A prefill that builds every stage's ring caches of width
-        ``cache_w``: (last-position logits [B, v], per-stage caches)."""
-        return self._prefill(staged, tokens, cache_w, "prefill")
+        ``cache_w``: (logits [B, v] of position ``last``, per-stage
+        caches); at c > 1 the caches come from the assembled K/V."""
+        return self._prefill(staged, tokens, cache_w, "prefill", last)
 
     def decode_once(self, staged, caches, token, pos):
         """One decode step through every stage: token [B], ``pos`` a

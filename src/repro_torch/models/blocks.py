@@ -22,6 +22,9 @@ attention branches go through the hand-written kernels (``plain=False``):
   * paged decode (S == 1)            -> B4 (pages read in place)
   * paged prefill chunk (S > 1)      -> paged_gather, then B2 with query
                                         offsets pos[b] and kv_len pos[b] + S
+  * context-parallel prefill         -> per CP shard r of c, B2 at query
+    (``cp_group``)                      offset r·S/c over the ring-assembled
+                                        K/V, kv_len S
 
 ``plain=True`` runs the JAX package's own path instead — the materialised
 masks and ``layers.gqa_attention``, and the plain RMSNorm and residual
@@ -61,24 +64,40 @@ def _i32(x, batch, device):
     return x.expand(batch).contiguous() if x.dim() == 0 else x.contiguous()
 
 
+def _qkv(cfg: ModelConfig, p, xn, positions, Hq: int, Hkv: int):
+    """RoPE'd q [B, S, Hq, D] and k, and v [B, S, Hkv, D] of xn [B, S, h]."""
+    B, S, _ = xn.shape
+    D = cfg.head_dim
+    q = apply_rope((xn @ p["wq"]).reshape(B, S, Hq, D), positions,
+                   cfg.rope_theta)
+    k = apply_rope((xn @ p["wk"]).reshape(B, S, Hkv, D), positions,
+                   cfg.rope_theta)
+    return q, k, (xn @ p["wv"]).reshape(B, S, Hkv, D)
+
+
 def attention_apply(cfg: ModelConfig, p, xn, positions, cache=None,
                     pos=None, build_cache_w=None, block_table=None,
                     plain: bool = False, num_heads: int = None,
-                    num_kv_heads: int = None):
+                    num_kv_heads: int = None, cp_group=None):
     """Self-attention over a normalised input xn [B, S, h].  Returns
     (attn_out [B, S, Hq*D], cache_out); ``cache`` is updated in place.
     ``num_heads``/``num_kv_heads`` are the head counts of the weights in
-    ``p`` — a TP rank's shard (Hq/t, Hkv/t) — and default to the config's."""
-    B, S, _ = xn.shape
+    ``p`` — a TP rank's shard (Hq/t, Hkv/t) — and default to the config's.
+
+    ``cp_group`` (a ``core.comm.VirtualGroup`` of c CP workers) selects the
+    context-parallel prefill: xn and ``positions`` are then lists of the c
+    sequence shards [B, S/c, h] and their absolute positions, and the
+    result is (the c shards' outputs, the cache built from the assembled
+    K/V or None)."""
     Hq = cfg.num_heads if num_heads is None else num_heads
     Hkv = cfg.num_kv_heads if num_kv_heads is None else num_kv_heads
+    if cp_group is not None:
+        return _cp_attention(cfg, p, xn, positions, build_cache_w, plain, Hq,
+                             Hkv, cp_group)
+    B, S, _ = xn.shape
     D = cfg.head_dim
     dev = xn.device
-    q = (xn @ p["wq"]).reshape(B, S, Hq, D)
-    k = (xn @ p["wk"]).reshape(B, S, Hkv, D)
-    v = (xn @ p["wv"]).reshape(B, S, Hkv, D)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = _qkv(cfg, p, xn, positions, Hq, Hkv)
     window = cfg.sliding_window
 
     if cache is not None and block_table is not None:
@@ -124,6 +143,37 @@ def attention_apply(cfg: ModelConfig, p, xn, positions, cache=None,
         if build_cache_w is not None:
             cache_out = build_ring_cache(k, v, build_cache_w)
     return out.reshape(B, S, Hq * D), cache_out
+
+
+def _cp_attention(cfg: ModelConfig, p, xns, positions, build_cache_w,
+                  plain: bool, Hq: int, Hkv: int, group):
+    """The CP branch of ``attention_apply`` (prefill only): each worker's
+    q/k/v of its shard at its absolute positions, K and V ring-assembled
+    over ``group`` (``layers.ring_kv_assemble``), then worker r's queries
+    against its assembled copy at query offset r·S/c: B2, or on the plain
+    path ``gqa_attention`` on the materialised [S/c, S] mask."""
+    c = len(xns)
+    B, s, _ = xns[0].shape
+    S, D = c * s, cfg.head_dim
+    dev = xns[0].device
+    window = cfg.sliding_window
+    qkv = [_qkv(cfg, p, x, pos, Hq, Hkv) for x, pos in zip(xns, positions)]
+    ks = layers.ring_kv_assemble([k for _, k, _ in qkv], group)
+    vs = layers.ring_kv_assemble([v for _, _, v in qkv], group)
+    outs = []
+    for r, (q, _, _) in enumerate(qkv):
+        if plain:
+            out = gqa_attention(q, ks[r], vs[r], layers.make_mask(
+                s, S, q_offset=r * s, window=window, device=dev))
+        else:
+            out = flash_attention(q.contiguous(), ks[r], vs[r],
+                                  _i32(r * s, B, dev), _i32(S, B, dev),
+                                  window)
+        outs.append(out.reshape(B, s, Hq * D))
+    cache_out = None
+    if build_cache_w is not None:
+        cache_out = build_ring_cache(ks[0], vs[0], build_cache_w)
+    return outs, cache_out
 
 
 def init_dense_blocks(gen, cfg: ModelConfig, L: int, dtype):

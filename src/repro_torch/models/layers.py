@@ -81,10 +81,12 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 
-def make_mask(q_len: int, kv_len: int, *, window=None, device=None):
+def make_mask(q_len: int, kv_len: int, *, q_offset: int = 0, window=None,
+              device=None):
     """Boolean causal [q_len, kv_len] mask (True = attend), with an
-    optional sliding window."""
-    q_pos = torch.arange(q_len, device=device)[:, None]
+    optional sliding window; query i sits at position q_offset + i (a CP
+    shard's rows of the sequence)."""
+    q_pos = q_offset + torch.arange(q_len, device=device)[:, None]
     kv_pos = torch.arange(kv_len, device=device)[None, :]
     mask = kv_pos <= q_pos
     if window is not None:
@@ -141,6 +143,44 @@ def paged_attn_mask(kv_len: int, pos, q_len: int):
     kv_pos = torch.arange(kv_len, device=pos.device)
     m = kv_pos[None, None, :] <= q_pos[:, :, None]
     return m[:, None, None, :, :]
+
+
+# ---------------------------------------------------------------------------
+# the context-parallel ring
+# ---------------------------------------------------------------------------
+
+
+def ring_kv_assemble(blocks, group):
+    """Ring all-gather of the c CP workers' K or V blocks, assembled in
+    absolute sequence order.
+
+    ``blocks[r]`` [B, S/c, Hkv, D] is worker r's block, the rows
+    [r·S/c, (r+1)·S/c) of the sequence.  Each worker writes its own block
+    at its rows, then c - 1 ``collective_permute`` rounds over ``group``
+    (c workers) each forward the block a worker received last round to its
+    ring successor, which receives it straight into its own buffer at the
+    block's absolute rows (a device copy).  Returns the c workers'
+    assembled [B, S, Hkv, D] tensors, each bitwise the blocks concatenated
+    in order.  Two calls a layer (K and V) give the 2·(c-1) ring rows per
+    layer of ``commodel.cp_comm_ops``; each is logged as one worker's
+    [B, S/c, Hkv·D] block.
+    """
+    c = len(blocks)
+    B, s, H, D = blocks[0].shape
+    full = [b.new_empty((B, c * s, H * D)) for b in blocks]
+
+    def rows(w, src):
+        return full[w][:, src * s:(src + 1) * s]
+
+    cur = []
+    for w, b in enumerate(blocks):
+        cur.append(rows(w, w))
+        cur[w].copy_(b.reshape(B, s, H * D))
+    for step in range(1, c):
+        # worker w receives the block that started on worker w - step
+        cur = group.collective_permute(
+            cur, [rows(w, (w - step) % c) for w in range(c)])
+    return [f.view(B, c * s, H, D) for f in full]
 
 
 # ---------------------------------------------------------------------------

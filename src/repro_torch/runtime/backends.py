@@ -5,8 +5,7 @@ Counterpart of ``repro.runtime.backends``: the single-device engine
 tensor-parallel engine on virtual ranks (``make_backend("tp", ...)`` ->
 ``TPBackend``) and the pipeline / hybrid engine on virtual stages
 (``make_backend("pp", ...)`` -> ``PPBackend``), core/parallel_exec.py.
-Context parallelism (c > 1) is ROADMAP item A7; ``export_page`` /
-``import_page`` (disaggregation) wait for A9.
+``export_page`` / ``import_page`` (disaggregation) wait for A9.
 
 The protocol:
 
@@ -24,6 +23,15 @@ cache for [L, num_pages, page_size, ...] KV pages managed by a host-side
 / ``finish_prefill``), and ``decode_step`` extends each decoding slot's
 pages and points every other slot's block-table row at scratch page 0.
 Device caches are updated in place.
+
+Context parallelism (``c`` > 1 on the tp and pp backends) changes only how
+a request's prefill runs: the prompt pads to a multiple of c with token 0
+and runs as one CP pass (``TPModel.cp_prefill`` / the pipeline's CP
+stages), whose cache, assembled whole from the ring, lands in the slot's
+row or is scattered into the slot's pages (``_seed_pages``) from a staging
+cache of the padded width.  The pad rows' K/V sit past the prompt, where
+decode overwrites them.  Decode is the c = 1 step.  CP and chunked prefill
+are alternative long-prompt strategies: a c > 1 backend prefills whole.
 """
 from __future__ import annotations
 
@@ -36,7 +44,7 @@ from repro_torch.config.base import ModelConfig
 from repro_torch.core.commodel import DEFAULT_QUANT_CHUNK, CommOp, \
     chunked_prefill_ops, comm_ops_for
 from repro_torch.core.parallel_exec import (PipelineEngine, TPModel,
-                                            shard_params)
+                                            pad_to_multiple, shard_params)
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.transformer import get_model, resolve_device
 from repro_torch.runtime.engine import check_params_device
@@ -70,17 +78,29 @@ class DecodeBackend(Protocol):
     def drain_transfers(self) -> dict: ...
 
 
+def _seed_pages(pools, small, rows) -> None:
+    """Scatter one rank's batch-1 contiguous cache {k, v: [L, 1, S, Hkv,
+    D]} into its page pools {k, v: [L, P, ps, Hkv, D]} at the physical
+    ``rows`` [S] of positions 0..S-1, in place: the CP prefill's hand-off
+    into a slot's pages."""
+    for key in ("k", "v"):
+        L, P, ps, H, D = pools[key].shape
+        pools[key].view(L, P * ps, H, D).index_copy_(1, rows,
+                                                     small[key][:, 0])
+
+
 class _BackendBase:
     """Slot and page bookkeeping, predicted per-step communication, and
     the device side every backend shares: one ``self.model`` pass per
     decode step or paged chunk (``Model`` or ``TPModel``), caches on
     ``self.device`` updated in place.  A subclass sets ``device``,
     ``model``, ``params`` and the cache, and writes a prefill into a slot
-    (``_write_slot``)."""
+    (``_write_slot``); a c > 1 one runs its CP pass (``_cp_prefill``) and
+    seeds a slot's pages from it (``_seed_slot_pages``)."""
 
     def __init__(self, cfg: ModelConfig, num_slots: int, max_len: int,
                  t: int, p: int, paged: bool = False, page_size: int = 16,
-                 num_pages: Optional[int] = None,
+                 num_pages: Optional[int] = None, c: int = 1,
                  quant_collectives: Optional[str] = None,
                  quant_chunk: int = DEFAULT_QUANT_CHUNK):
         if not cfg.is_decoder:
@@ -94,7 +114,9 @@ class _BackendBase:
         self.quant_chunk = int(quant_chunk)
         self.num_slots = int(num_slots)
         self.max_len = int(max_len)
-        self.t, self.c, self.p = int(t), 1, int(p)
+        if c < 1:
+            raise ValueError(f"c must be >= 1, got {c}")
+        self.t, self.c, self.p = int(t), int(c), int(p)
         self.inflight = 1
         self.group_size = self.num_slots
         self.paged = bool(paged)
@@ -133,35 +155,49 @@ class _BackendBase:
     def _pages_for(self, tokens: int) -> int:
         return -(-tokens // self.page_size)
 
+    def _alloc_len(self, prompt_len: int) -> int:
+        """Cache positions a prompt claims up front: its length, padded to
+        a multiple of c on a CP backend."""
+        return -(-prompt_len // self.c) * self.c
+
+    def _worst_len(self, prompt_len: int, max_new_tokens: int) -> int:
+        return max(self._alloc_len(prompt_len),
+                   prompt_len + max_new_tokens - 1)
+
     def can_admit(self, prompt_len: int, max_new_tokens: int = 1) -> bool:
         """True when the pool covers this request's worst case (prompt +
-        max_new_tokens - 1 positions) on top of every live request's
-        committed growth — conservative admission: a decode step can never
-        run out of pages."""
+        max_new_tokens - 1 positions, or the CP-padded prompt if longer)
+        on top of every live request's committed growth — conservative
+        admission: a decode step can never run out of pages."""
         self._require_paged()
         committed = sum(
             max(0, self._worst.get(o, 0) - len(self.pool.block_table(o)))
             for o in self.pool.owners() if 0 <= o < self.num_slots)
-        need = self._pages_for(max(prompt_len,
-                                   prompt_len + max_new_tokens - 1))
+        need = self._pages_for(self._worst_len(prompt_len, max_new_tokens))
         return self.pool.free_pages - committed >= need
 
     def begin_prefill(self, slot: int, prompt_len: int,
                       max_new_tokens: int = 1) -> None:
-        """Allocate the slot's pages for a new prompt and commit its
-        worst-case decode growth (see ``can_admit``)."""
+        """Allocate the slot's pages for a new prompt (CP-padded when
+        c > 1) and commit its worst-case decode growth (see
+        ``can_admit``)."""
         self._require_paged()
         self.pool.free(slot)               # the slot may be reused
         self._decodable.discard(slot)
-        self.pool.allocate(slot, prompt_len)
+        self.pool.allocate(slot, self._alloc_len(prompt_len))
         self._worst[slot] = self._pages_for(
-            max(prompt_len, prompt_len + max_new_tokens - 1))
+            self._worst_len(prompt_len, max_new_tokens))
         self._set_table(slot)
 
     def prefill_chunk(self, slot: int, tokens, start: int) -> int:
         """One chunked-prefill pass for ``tokens`` at positions
         start..start+S-1; returns the greedy token of its last position."""
         self._require_paged()
+        if self.c > 1:
+            raise RuntimeError(
+                "chunked prefill and context parallelism are alternative "
+                "long-prompt strategies; a c > 1 backend prefills whole "
+                "(prefill_whole)")
         chunk = np.asarray(tokens, np.int32)[None, :]
         pos = np.asarray([start], np.int32)
         bt = self.block_tables[slot:slot + 1]
@@ -169,9 +205,23 @@ class _BackendBase:
         return int(np.argmax(logits[0]))
 
     def prefill_whole(self, slot: int, tokens) -> int:
-        """Prefill a whole prompt into the slot's allocated pages as one
-        chunk; returns the first greedy token."""
-        return self.prefill_chunk(slot, np.asarray(tokens).reshape(-1), 0)
+        """Prefill a whole prompt into the slot's allocated pages: one
+        chunk at c = 1, one CP pass at c > 1 whose cache is scattered into
+        the pages; returns the first greedy token."""
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        if self.c == 1:
+            return self.prefill_chunk(slot, tokens, 0)
+        self._require_paged()
+        padded, last = self._pad_prompt(tokens)
+        S = padded.shape[1]
+        with torch.inference_mode():
+            logits, small = self._cp_prefill(padded, last, S)
+            lp = np.arange(S)
+            table = self.block_tables[slot]
+            rows = self._tensor(table[lp // self.page_size] * self.page_size
+                                + lp % self.page_size).long()
+            self._seed_slot_pages(small, rows)
+        return int(torch.argmax(logits[0]))
 
     def finish_prefill(self, slot: int) -> None:
         """Mark a fully prefilled slot decode-eligible."""
@@ -217,6 +267,17 @@ class _BackendBase:
                            quant_chunk=self.quant_chunk)
         return [o for o in ops if o.phase == "decode"]
 
+    def prefill_comm_ops(self, prompt_len: int,
+                         batch: int = 1) -> List[CommOp]:
+        """Predicted collectives of ONE whole prefill pass of a
+        ``prompt_len``-token prompt: at c > 1 the ring rows of
+        ``commodel.cp_comm_ops`` and the TP/PP rows at the padded
+        ceil(prompt_len / c) shard each worker runs."""
+        ops = comm_ops_for(self.cfg, prompt_len, 1, self.t, self.p,
+                           c=self.c, batch=batch, b=self._itemsize(),
+                           gather_mode="allgather")
+        return [o for o in ops if o.phase == "prefill"]
+
     def drain_transfers(self) -> dict:
         """Inter-stage bytes moved since the last drain (PP only)."""
         return {"count": 0, "bytes": 0}
@@ -251,6 +312,29 @@ class _BackendBase:
                 first[i] = self._prefill_slot(prompt, slot)
         return first
 
+    def _pad_prompt(self, prompt):
+        """(the prompt as [1, S] on the device, padded with token 0 to a
+        multiple of c, the index of its true last position).  The padded
+        prompt must fit max_len, except on a sliding-window model, whose
+        ring cache keeps the last W positions (the scheduler's admission
+        waives it too)."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        padded = pad_to_multiple(self._tensor(prompt)[None], self.c)
+        if not self.paged and padded.shape[1] > self.max_len \
+                and not self.cfg.sliding_window:
+            raise ValueError(f"CP-padded prompt ({padded.shape[1]}) exceeds "
+                             f"max_len {self.max_len}")
+        return padded, len(prompt) - 1
+
+    def _cp_prefill(self, padded, last: int, cache_w: int):
+        """(logits [1, v], the batch-1 cache of width ``cache_w``) of one CP
+        pass over a padded prompt [1, S]."""
+        raise NotImplementedError
+
+    def _seed_slot_pages(self, small, rows) -> None:
+        """Scatter a CP pass's cache into the page ``rows`` of a slot."""
+        raise NotImplementedError
+
     # -- the device side: one self.model pass per step or chunk ---------------
     def _init_device_cache(self) -> None:
         if self.paged:
@@ -269,8 +353,13 @@ class _BackendBase:
 
     @torch.inference_mode()
     def _prefill_slot(self, prompt, slot: int) -> int:
-        logits, small, _ = self.model.prefill(
-            self.params, self._tensor(prompt)[None, :], self.max_len)
+        if self.c > 1:
+            padded, last = self._pad_prompt(prompt)
+            logits, small = self._cp_prefill(
+                padded, last, self.model.cache_width(self.max_len))
+        else:
+            logits, small, _ = self.model.prefill(
+                self.params, self._tensor(prompt)[None, :], self.max_len)
         self._write_slot(small, slot)
         return int(torch.argmax(logits[0]))
 
@@ -322,23 +411,24 @@ class TPBackend(_BackendBase):
     backend keeps their per-rank shards.  Each rank has its own cache
     [L, num_slots, W, Hkv/t, D], or, paged, its own page pool
     [L, P, ps, Hkv/t, D] under the one shared ``KVPool`` and block table.
-    ``quant_collectives`` ("int8" | "fp8" | "int4") quantizes the
-    contiguous decode step's layer all-reduces.  ``device`` defaults to the
-    CUDA card."""
+    ``c`` > 1 prefills on c CP workers besides (t = 1: the pure-CP
+    layout).  ``quant_collectives`` ("int8" | "fp8" | "int4") quantizes
+    the contiguous decode step's layer all-reduces.  ``device`` defaults to
+    the CUDA card."""
 
     def __init__(self, cfg: ModelConfig, params, num_slots: int,
                  max_len: int = 256, t: int = 2, paged: bool = False,
                  page_size: int = 16, num_pages: Optional[int] = None,
-                 quant_collectives: Optional[str] = None,
+                 c: int = 1, quant_collectives: Optional[str] = None,
                  quant_chunk: int = DEFAULT_QUANT_CHUNK, device=None):
         self.device = resolve_device(device)
         super().__init__(cfg, num_slots, max_len, t=t, p=1, paged=paged,
-                         page_size=page_size, num_pages=num_pages,
+                         page_size=page_size, num_pages=num_pages, c=c,
                          quant_collectives=quant_collectives,
                          quant_chunk=quant_chunk)
         check_params_device(params, self.device)
         self.model = TPModel(cfg, t, quant=self.quant,
-                             quant_chunk=self.quant_chunk)
+                             quant_chunk=self.quant_chunk, c=c)
         self.params = shard_params(cfg, params, t)
         self._init_device_cache()
 
@@ -346,6 +436,13 @@ class TPBackend(_BackendBase):
         for rank, part in zip(self.cache, small):
             for key in ("k", "v"):
                 rank[key][:, slot] = part[key][:, 0]
+
+    def _cp_prefill(self, padded, last: int, cache_w: int):
+        return self.model.cp_prefill(self.params, padded, last, cache_w)
+
+    def _seed_slot_pages(self, small, rows) -> None:
+        for pools, part in zip(self.cache, small):
+            _seed_pages(pools, part, rows)
 
 
 class PPBackend(_BackendBase):
@@ -363,8 +460,9 @@ class PPBackend(_BackendBase):
     ``DynamicPPQueue`` that ``make_queue`` returns drives a group's round
     stage by stage through ``start_round`` / ``run_stage`` /
     ``send_boundary``.  ``quant_collectives`` quantizes the contiguous
-    decode step's layer all-reduces.  ``params`` are the single-device
-    weights; ``device`` defaults to the CUDA card."""
+    decode step's layer all-reduces.  ``c`` > 1 shards each prefill over
+    c CP workers per stage.  ``params`` are the single-device weights;
+    ``device`` defaults to the CUDA card."""
 
     def __init__(self, cfg: ModelConfig, params, num_slots: int,
                  max_len: int = 256, t: int = 1, p: int = 2,
@@ -373,14 +471,11 @@ class PPBackend(_BackendBase):
                  inflight: int = 1,
                  quant_collectives: Optional[str] = None,
                  quant_chunk: int = DEFAULT_QUANT_CHUNK, device=None):
-        if c > 1:
-            raise NotImplementedError(
-                "context parallelism (c > 1) is ROADMAP item A7")
         if p < 2:
             raise ValueError(f"pp backend needs p >= 2, got p={p}")
         self.device = resolve_device(device)
         super().__init__(cfg, num_slots, max_len, t=t, p=p, paged=paged,
-                         page_size=page_size, num_pages=num_pages,
+                         page_size=page_size, num_pages=num_pages, c=c,
                          quant_collectives=quant_collectives,
                          quant_chunk=quant_chunk)
         if inflight < 1 or num_slots % inflight:
@@ -390,7 +485,7 @@ class PPBackend(_BackendBase):
         self.inflight = int(inflight)
         self.group_size = self.num_slots // self.inflight
         self.engine = PipelineEngine(
-            cfg, t=t, p=p, quant_collectives=self.quant,
+            cfg, t=t, p=p, c=c, quant_collectives=self.quant,
             quant_chunk=self.quant_chunk, device=self.device)
         self.staged = self.engine.prepare(params)
         self._decode_fns = self.engine.decode_stage_fns()
@@ -408,10 +503,23 @@ class PPBackend(_BackendBase):
     def _first_token(self, logits) -> np.ndarray:
         return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
 
+    def _cp_prefill(self, padded, last: int, cache_w: int):
+        return self.engine.prefill_with_cache(self.staged, padded, cache_w,
+                                              last)
+
+    def _seed_slot_pages(self, small, rows) -> None:
+        for stage, part in zip(self.caches, small):
+            for pools, piece in zip(stage, part):
+                _seed_pages(pools, piece, rows)
+
     @torch.inference_mode()
     def _prefill_slot(self, prompt, slot: int) -> int:
-        logits, small = self.engine.prefill_with_cache(
-            self.staged, self._tensor(prompt)[None, :], self.cache_w)
+        if self.c > 1:
+            padded, last = self._pad_prompt(prompt)
+            logits, small = self._cp_prefill(padded, last, self.cache_w)
+        else:
+            logits, small = self.engine.prefill_with_cache(
+                self.staged, self._tensor(prompt)[None, :], self.cache_w)
         g, row = divmod(slot, self.group_size)
         for stage, part in zip(self.gcaches[g], small):
             for rank, piece in zip(stage, part):
@@ -504,8 +612,9 @@ def make_backend(kind: str, cfg: ModelConfig, params, num_slots: int,
                  device=None) -> DecodeBackend:
     """Backend factory keyed by engine kind: "gspmd" is the single-device
     engine (t = p = 1), "tp" the explicit TP engine on t >= 2 virtual
-    ranks, "pp" the pipeline engine on p >= 2 virtual stages (hybrid at
-    t >= 2); context parallelism (c > 1) waits for ROADMAP item A7.
+    ranks or c >= 2 CP workers (t = 1, c > 1: the pure-CP layout), "pp"
+    the pipeline engine on p >= 2 virtual stages (hybrid at t >= 2); c > 1
+    adds context-parallel prefill to the explicit engines.
     ``inflight`` > 1 splits the slots into microbatch groups on the pp
     backend's dynamic queue; the fused engines have no pipeline bubble to
     fill and reject it.  ``quant_collectives`` needs the explicit engines'
@@ -531,12 +640,11 @@ def make_backend(kind: str, cfg: ModelConfig, params, num_slots: int,
         return ModelBackend(cfg, params, num_slots, max_len, **kw)
     qkw = dict(quant_collectives=quant_collectives, quant_chunk=quant_chunk)
     if kind == "tp":
-        if c > 1:
-            raise NotImplementedError(
-                "context parallelism (c > 1) is ROADMAP item A7")
-        if t < 2:
-            raise ValueError(f"tp backend needs t >= 2, got t={t}")
-        return TPBackend(cfg, params, num_slots, max_len, t=t, **qkw, **kw)
+        if t < 2 and c < 2:
+            raise ValueError(
+                f"tp backend needs t >= 2 or c >= 2, got t={t} c={c}")
+        return TPBackend(cfg, params, num_slots, max_len, t=t, c=c, **qkw,
+                         **kw)
     if kind == "pp":
         return PPBackend(cfg, params, num_slots, max_len, t=t, p=p, c=c,
                          inflight=inflight, **qkw, **kw)

@@ -12,11 +12,16 @@ sit at different stages at once.  The queue is drained (``Sync``) before
 any prefill writes caches or pages.  ``chunk_size`` (paged backends)
 prefills one chunk of one request per iteration instead of whole
 prompts.  Admission is conservative: a paged request's worst-case pages
-are committed up front, so a decode step never runs out of pages.
+are committed up front, so a decode step never runs out of pages.  On a
+context-parallel backend (c > 1) a prompt pads to a multiple of c, which
+admission counts, and chunked prefill is refused: the two are alternative
+long-prompt strategies.
 
 Per-step communication is recorded as ``StepRecord``s with the collective
 counts ``commodel.comm_ops_for`` predicts; the paper's claim that these
-counts do not depend on the batch is asserted at construction.
+counts do not depend on the batch is asserted at construction.  A c > 1
+backend's whole prefills are recorded too (phase "prefill", the ring rows
+of ``backend.prefill_comm_ops``); the JAX package records none.
 
 Not ported yet: optimistic admission with preemption, deadlines,
 cancellation and fault injection (ROADMAP item A8), and the disaggregated
@@ -81,7 +86,8 @@ class VirtualClock:
 @dataclasses.dataclass
 class StepRecord:
     """Communication of one scheduler iteration: one decode round over the
-    slot batch, or one prefill chunk (chunked-prefill mode)."""
+    slot batch, one prefill chunk (chunked-prefill mode), or one CP
+    prefill pass (c > 1)."""
 
     step: int
     n_active: int
@@ -246,6 +252,11 @@ class Scheduler:
                 raise ValueError(
                     "chunked prefill writes straight into KV pages; "
                     "construct the backend with paged=True")
+            if getattr(backend, "c", 1) > 1:
+                raise ValueError(
+                    "chunked prefill and context parallelism are "
+                    "alternative long-prompt strategies; a c > 1 backend "
+                    "prefills whole")
             # per-chunk counts do not depend on the chunk's length
             self._chunk_counts = _count(backend.chunk_comm_ops(chunk_size))
         self.tokens = np.zeros(self.num_slots, np.int32)
@@ -278,8 +289,11 @@ class Scheduler:
                 raise NotImplementedError(
                     "request deadlines are ROADMAP item A8")
             # the last generated token is never fed back, so the highest
-            # cache position written is prompt_len + max_new_tokens - 2
-            need = r.prompt_len + r.max_new_tokens - 1
+            # cache position written is prompt_len + max_new_tokens - 2;
+            # a CP prompt pads to a multiple of c
+            c = getattr(self.backend, "c", 1)
+            need = max(r.prompt_len + r.max_new_tokens - 1,
+                       -(-r.prompt_len // c) * c)
             w = self.backend.cfg.sliding_window
             if need > self.backend.max_len and not w:
                 raise ValueError(
@@ -351,6 +365,11 @@ class Scheduler:
             slot = self.free.pop(0)
             m = RequestMetrics(rid=req.rid, prompt_len=req.prompt_len,
                                arrival=req.arrival, admitted=self.clock.now())
+            cp = getattr(self.backend, "c", 1) > 1
+            if cp:
+                # the rounds before it were charged their own hops
+                self.backend.drain_transfers()
+            t0 = time.perf_counter()
             if self.paged:
                 self.backend.begin_prefill(slot, req.prompt_len,
                                            req.max_new_tokens)
@@ -362,8 +381,22 @@ class Scheduler:
             else:
                 tok = int(self.backend.prefill_into_slots([req.prompt],
                                                           [slot])[0])
+            if cp:
+                self._log_cp_prefill(req, time.perf_counter() - t0)
             self._queue.note_prefill(slot)
             self._start_decoding(slot, req, m, tok)
+
+    def _log_cp_prefill(self, req: Request, wall: float) -> None:
+        """Record one whole CP prefill pass with its predicted collectives
+        (the ring rows) and the boundary hops it made."""
+        ops = self.backend.prefill_comm_ops(req.prompt_len)
+        self.step_log.append(StepRecord(
+            step=self._step_i, n_active=len(self.active),
+            collective_counts=_count(ops),
+            predicted_wire_bytes=sum(o.wire_bytes for o in ops),
+            measured_transfers=self.backend.drain_transfers(),
+            phase="prefill", rid=req.rid, wall_s=wall))
+        self._step_i += 1
 
     def _advance_prefill(self) -> None:
         """Run ONE prefill chunk of the oldest mid-prefill request; after

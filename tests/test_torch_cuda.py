@@ -134,6 +134,15 @@ FLASH_CASES = [  # B, S, T, q_offset, kv_len, window, D, Hkv, G
                  id="chunk"),
     pytest.param(1, 333, 333, [0], [333], 17, 64, 2, 3, id="window17"),
     pytest.param(1, 130, 200, [70], [200], 17, 32, 1, 8, id="chunk-window17"),
+    # context-parallel shards: a 333-token prompt padded to 334 at c = 2,
+    # each shard's 167 queries at its offset over the assembled K/V, at
+    # llama32-3b's heads (t = 1 and t = 2), and one windowed shard
+    pytest.param(1, 167, 334, [0], [334], None, 128, 8, 3, id="cp-shard0"),
+    pytest.param(1, 167, 334, [167], [334], None, 128, 8, 3, id="cp-shard1"),
+    pytest.param(1, 167, 334, [167], [334], None, 128, 4, 3,
+                 id="cp-shard1-t2"),
+    pytest.param(1, 167, 334, [167], [334], 64, 128, 8, 3,
+                 id="cp-shard1-window64"),
 ]
 
 
@@ -706,3 +715,54 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                      x.to(torch.uint8), torch.ones(2, 2), 8)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
+
+
+@pytest.mark.gpu
+def test_cp_prefill_ring_is_bitwise_and_matches_plain(cuda):
+    """A context-parallel prefill at (t, c) = (1, 2), reduced width, f32:
+    every worker's ring-assembled K and V is bitwise its shards' blocks in
+    order, the kernel path launches B2 once per layer and shard and runs
+    no plain attention, and its logits and caches match the plain path's
+    within 1e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.parallel_exec import TPModel, shard_params
+    from repro_torch.kernels import _build
+    from repro_torch.models import blocks, layers
+    from repro_torch.models.transformer import get_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("llama32-3b").reduced(num_layers=3)
+    params = shard_params(cfg, get_model(cfg).init(seed=0, device=cuda), 1)
+    g = torch.Generator().manual_seed(2)
+    toks = torch.randint(2, cfg.vocab_size, (2, 70), generator=g).to(cuda)
+    ring, plain_calls = layers.ring_kv_assemble, []
+    seen = []
+
+    def checked(parts, group):
+        full = ring(parts, group)
+        seen.append(all(torch.equal(f, torch.cat(parts, dim=1))
+                        for f in full))
+        return full
+
+    def counted(*a):
+        plain_calls.append(1)
+        return gqa(*a)
+
+    gqa = blocks.gqa_attention
+    layers.ring_kv_assemble, blocks.gqa_attention = checked, counted
+    try:
+        _build.reset_launches()
+        got, cache = TPModel(cfg, 1, c=2).cp_prefill(params, toks, 68, 80)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        assert not plain_calls
+        want, want_cache = TPModel(cfg, 1, c=2, plain=True).cp_prefill(
+            params, toks, 68, 80)
+    finally:
+        layers.ring_kv_assemble, blocks.gqa_attention = ring, gqa
+    assert seen and all(seen) and len(seen) == 2 * 2 * cfg.num_layers
+    assert launches["flash_attention"] == cfg.num_layers * 2
+    assert launches["rmsnorm"] == 2 + 1
+    _close(got, want, 1e-3)
+    for key in ("k", "v"):
+        _close(cache[0][key], want_cache[0][key], 1e-3)

@@ -363,8 +363,12 @@ def test_quantized_pp_decode_matches_jax(quant):
 
 def test_pipeline_engine_refuses_what_it_does_not_cover():
     cfg = port_config("llama32-3b").reduced()
-    with pytest.raises(NotImplementedError, match="A7"):
-        PipelineEngine(cfg, t=1, p=2, c=2, device="cpu")
+    with pytest.raises(ValueError, match="c must be"):
+        PipelineEngine(cfg, t=1, p=2, c=0, device="cpu")
+    cp = PipelineEngine(cfg, t=1, p=2, c=2, device="cpu")
+    with pytest.raises(ValueError, match="multiple of c"):
+        cp.forward(cp.prepare(port_model(cfg).init(seed=0, device="cpu")),
+                   torch.ones(1, 7, dtype=torch.int32))
     with pytest.raises(ValueError, match="tie_embeddings"):
         PipelineEngine(port_config("gemma-7b").reduced(), t=1, p=2,
                        device="cpu")

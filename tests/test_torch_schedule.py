@@ -242,10 +242,16 @@ def test_make_backend_rejects_bad_inflight_and_cp(setup):
                      device="cpu")
     with pytest.raises(ValueError, match="p >= 2"):
         make_backend("pp", cfg, params, num_slots=2, p=1, device="cpu")
-    for kind in ("pp", "tp"):
-        with pytest.raises(NotImplementedError, match="A7"):
-            make_backend(kind, cfg, params, num_slots=2, t=2, p=2, c=2,
-                         device="cpu")
+    with pytest.raises(ValueError, match="explicit engines"):
+        make_backend("gspmd", cfg, params, num_slots=2, c=2, device="cpu")
+    with pytest.raises(ValueError, match="alternative"):
+        Scheduler(make_backend("pp", cfg, params, num_slots=2, p=2, c=2,
+                               paged=True, device="cpu"), chunk_size=4)
+    with pytest.raises(ValueError, match="num_heads"):
+        make_backend("pp", cfg, params, num_slots=2, t=3, p=2, c=2,
+                     device="cpu")
+    with pytest.raises(ValueError, match="t >= 2 or c >= 2"):
+        make_backend("tp", cfg, params, num_slots=2, t=1, c=1, device="cpu")
     with pytest.raises(ValueError, match="contiguous decode"):
         make_backend("pp", cfg, params, num_slots=2, p=2, paged=True,
                      quant_collectives="int8", device="cpu")

@@ -152,18 +152,39 @@ def test_pool_exhaustion_queues_instead_of_failing(weights):
 
 
 @pytest.mark.parametrize("make", [
-    lambda b: make_backend("tp", *b, num_slots=2, t=2, c=2),
-    lambda b: make_backend("pp", *b, num_slots=2, p=2, c=2),
     lambda b: port_scheduler.Scheduler(
         make_backend("gspmd", *b, num_slots=2, device="cpu", paged=True),
         admission="optimistic"),
     lambda b: port_scheduler.Scheduler(
         make_backend("gspmd", *b, num_slots=2, device="cpu"), faults=object()),
     lambda b: port_scheduler.DisaggScheduler(None, None),
-], ids=["tp", "pp", "optimistic", "faults", "disagg"])
+], ids=["optimistic", "faults", "disagg"])
 def test_later_items_raise_with_their_roadmap_item(weights, make):
     _, _, tcfg, tparams = weights
     with pytest.raises(NotImplementedError, match=r"A\d"):
+        make((tcfg, tparams))
+
+
+@pytest.mark.parametrize("make,match", [
+    (lambda b: make_backend("tp", *b, num_slots=2, t=2, c=2, paged=True,
+                            device="cpu"), None),
+    (lambda b: port_scheduler.Scheduler(
+        make_backend("tp", *b, num_slots=2, t=2, c=2, paged=True,
+                     device="cpu"), chunk_size=4), "alternative"),
+    (lambda b: make_backend("pp", *b, num_slots=2, p=2, c=2, device="cpu"),
+     None),
+    (lambda b: make_backend("pp", *b, num_slots=2, t=3, p=2, c=2,
+                            device="cpu"), "num_heads"),
+], ids=["tp", "tp-chunked", "pp", "pp-t3"])
+def test_context_parallel_backends_and_what_they_refuse(weights, make,
+                                                       match):
+    """c > 1 backends construct; chunked prefill on them and TP degrees
+    that do not divide the heads are refused."""
+    _, _, tcfg, tparams = weights
+    if match is None:
+        assert make((tcfg, tparams)).c == 2
+        return
+    with pytest.raises(ValueError, match=match):
         make((tcfg, tparams))
 
 
