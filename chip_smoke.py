@@ -77,7 +77,25 @@ Phases:
      backend's, tokens/s; (f) one 2048-token prefill at t = 1, c = 1, 2,
      4: host wall, device busy, B2 and the ring copies beside
      slo.predict_slo's TTFT;
-  9. one JSON line with the kernel table, then the ok line.
+  9. failure semantics, the prefix cache and disaggregated pools, full
+     width of llama32-3b: (a) a template trace (2 templates of 256
+     tokens, one prompt a template alone) on the paged Scheduler with the
+     prefix cache off and on: hits page-aligned (or capped one short),
+     copy-on-writes replayed, no page leaked, launches (a warm chunk L
+     B2, a one-token suffix L B4), warm streams against cold, and the
+     trace's prefill work cold and warm (host wall, device busy);
+     (b) f32 at L = 4: optimistic admission on an oversubscribed pool
+     (gspmd, TP t = 2) preempts, streams equal a conservative run's,
+     recompute rows equal preemption_recompute_ops; scripted transient
+     faults at every site (PP (1, 2)) retried, streams the fault-free
+     ones; a deadline and a cancel; (c) (b)'s trace in bf16 at full
+     depth: the share of recompute tokens equal to the stream's
+     (measured); (d) DisaggScheduler on gspmd and TP t = 2 pools sharing
+     one KVPool: handoff bytes equal kv_handoff_ops, export/import ms per
+     page and GB/s beside predict_slo's handoff term, the bf16
+     cross-pool first-token agreement (measured), f32 at L = 4 end to
+     end with the cross-pool identity check, streams against colocated;
+ 10. one JSON line with the kernel table, then the ok line.
 
 It imports nothing of JAX, exits non-zero with no ok line when there is no
 card or when it is not inside a checkout of the repository, and lets every
@@ -2499,6 +2517,504 @@ def cp_prefill_breakdown(dev, smi, cfg, shards):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 9: failure semantics, the prefix cache and disaggregated pools
+# ---------------------------------------------------------------------------
+
+FAIL_SLOTS, FAIL_PAGES = 3, 21          # 20 usable pages: oversubscribed
+FAIL_LENS = ((96, 48), (160, 40), (64, 56), (128, 32), (112, 64),
+             (80, 60))                  # (prompt, new tokens)
+DISAGG_ROUTE = 512                      # prompts of 512+ tokens hand off
+HANDOFF_PAGES = 64                      # pages timed in (d)
+
+
+def prefix_trace(cfg):
+    """(a)'s trace: 8 requests on 2 templates of 256 tokens (16 pages)
+    with suffixes of 16–128 tokens and 16–64 new tokens, all arriving at
+    once, and the first template alone: a fully cached prompt, whose hit
+    is capped one position short, its last page copied on write and its
+    suffix one token (B4, not B2)."""
+    from repro_torch.runtime.request import Request, make_template_trace
+    reqs = make_template_trace(8, 0, cfg.vocab_size, n_templates=2,
+                               template_len=256, suffix_lens=(16, 128),
+                               decode_lens=(16, 64), seed=5)
+    reqs.append(Request(rid=8, prompt=reqs[0].prompt[:256].copy(),
+                        max_new_tokens=16))
+    return reqs
+
+
+def fail_trace(cfg, seed: int = 6):
+    """(b)'s and (c)'s trace: 6 requests whose worst cases (9, 13, 8, 10,
+    11 and 9 pages of 16) overrun the 20-page pool under optimistic
+    admission."""
+    from repro_torch.runtime.request import Request
+    g = torch.Generator().manual_seed(seed)
+    return [Request(rid=i, prompt=torch.randint(
+        2, cfg.vocab_size, (s,), generator=g).to(torch.int32).numpy(),
+        max_new_tokens=n) for i, (s, n) in enumerate(FAIL_LENS)]
+
+
+def disagg_trace(cfg, seed: int = 7):
+    """(d)'s trace: 4 prompts of 512–1024 tokens (the prefill pool's) and
+    4 of 64–256 (straight to the decode pool), 16–32 new tokens each."""
+    from repro_torch.runtime.request import Request
+    g = torch.Generator().manual_seed(seed)
+    lens = (1024, 96, 700, 256, 512, 64, 833, 180)
+    return [Request(rid=i, prompt=torch.randint(
+        2, cfg.vocab_size, (s,), generator=g).to(torch.int32).numpy(),
+        max_new_tokens=16 + (5 * i) % 17) for i, s in enumerate(lens)]
+
+
+def count_into(totals):
+    """A context for one counted run: launch counts reset on entry and
+    added to ``totals`` on exit (the counts of the run, ``dict``)."""
+    import contextlib
+    from repro_torch.kernels import _build
+
+    @contextlib.contextmanager
+    def run():
+        _build.reset_launches()
+        counts = {}
+        yield counts
+        torch.cuda.synchronize()
+        counts.update(_build.LAUNCHES)
+        for k in totals:
+            totals[k] += counts[k]
+    return run()
+
+
+def require_drained(what, backend):
+    """Raise unless the pool holds nothing once the index lets go."""
+    if backend.prefix_index is not None:
+        backend.prefix_index.clear()
+    pool = backend.pool
+    if pool.owners() or pool.free_pages != pool.num_pages - 1:
+        raise AssertionError(f"{what}: pages leaked ({pool.stats()})")
+
+
+def agreement_scheduler():
+    """A Scheduler that records whether each recompute pass's token equals
+    the stream's and goes on with the stream's, where the scheduler's own
+    check raises: (c) measures bf16, it does not hold it."""
+    from repro_torch.runtime.scheduler import Scheduler
+
+    class Measured(Scheduler):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.agree = []
+
+        def _resume_active(self, slot, req, m, resume, prefix_len, tok):
+            self.agree.append(tok == resume[-1])
+            super()._resume_active(slot, req, m, resume, prefix_len,
+                                   resume[-1])
+    return Measured
+
+
+def disagg_scheduler():
+    """A DisaggScheduler that keeps the prefill pool's first tokens aside
+    instead of asserting them against the decode pool's: (d)'s bf16 runs
+    measure the cross-pool agreement, the f32 run holds it."""
+    from repro_torch.runtime.scheduler import DisaggScheduler
+
+    class Measured(DisaggScheduler):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.first = {}
+
+        def _prefill_one(self, req):
+            done = super()._prefill_one(req)
+            self.first.update(self._expected_first)
+            self._expected_first.clear()
+            return done
+    return Measured
+
+
+def prefix_cache_run(dev, smi, cfg, params, totals):
+    """(a): the template trace on the paged Scheduler (4 slots, chunk
+    256) with the prefix cache off and on; the hits, the copy-on-writes
+    replayed, no leak, the launch formula (a warm chunk L B2, a one-token
+    suffix L B4 pairs), streams against cold; then the trace's prefill
+    work alone, cold and warm: host wall and device busy."""
+    from repro_torch.runtime.backends import make_backend
+    from repro_torch.runtime.scheduler import Scheduler
+
+    L, ps = cfg.num_layers, 16
+    streams = {}
+    for cached in (False, True):
+        what = f"prefix cache {'on' if cached else 'off'}"
+        trace = prefix_trace(cfg)
+        backend = make_backend("gspmd", cfg, params, num_slots=4,
+                               max_len=1024, paged=True, page_size=ps,
+                               prefix_cache=cached, device=dev)
+        sizes, cows = [], []
+        chunk, copy = backend.prefill_chunk, backend._copy_page
+
+        def sized(slot, tokens, start, chunk=chunk):
+            sizes.append(len(tokens))
+            return chunk(slot, tokens, start)
+
+        def copied(src, dst, copy=copy):
+            cows.append((src, dst))
+            return copy(src, dst)
+        backend.prefill_chunk, backend._copy_page = sized, copied
+        t0 = time.perf_counter()
+        with count_into(totals) as counts:
+            report = Scheduler(backend, chunk_size=256).run(trace)
+        wall = time.perf_counter() - t0
+        require_all_finished(what, trace, report)
+        n_dec = sum(1 for r in report.steps if r.phase == "decode")
+        ones = sum(1 for s in sizes if s == 1)
+        expect_launches(what, counts, L, passes=len(sizes) + n_dec,
+                        flash=len(sizes) - ones, decode=0,
+                        paged=n_dec + ones)
+        hits = {m.rid: m.cached_prefix_len for m in report.metrics}
+        cow_copies = backend.pool.stats().cow_copies
+        if len(cows) != cow_copies:
+            raise AssertionError(f"{what}: {cow_copies} copy-on-writes, "
+                                 f"{len(cows)} replayed on the card")
+        if cached:
+            lens = {r.rid: r.prompt_len for r in trace}
+            bad = [r for r, h in hits.items() if h > lens[r] - 1 or
+                   (h % ps and h != lens[r] - 1)]
+            if bad or hits[8] != 255 or ones != 1 or not cows or \
+                    sum(1 for h in hits.values() if h) < 4:
+                raise AssertionError(
+                    f"{what}: hits {hits}, one-token suffixes {ones}, "
+                    f"copy-on-writes {cows}")
+        elif any(hits.values()) or cows:
+            raise AssertionError(f"{what}: hits {hits}, copies {cows}")
+        require_drained(what, backend)
+        streams[cached] = report.tokens_by_rid()
+        log(f"[prefix {what}] {len(trace)} requests, "
+            f"{report.total_tokens} tokens, {len(sizes)} prefill chunks "
+            f"({ones} of one token), {n_dec} decode steps, hits {hits}, "
+            f"{len(cows)} copy-on-writes, in {wall:.2f} s ({smi})")
+        del backend
+    same = sum(streams[True][r] == streams[False][r] for r in streams[False])
+    log(f"[prefix] warm streams equal to cold: {same}/{len(streams[False])} "
+        f"(bf16)")
+    prefill_work(dev, smi, cfg, params)
+
+
+def prefill_work(dev, smi, cfg, params):
+    """The template trace's prefills alone, one after another in slot 0:
+    cold (every prompt whole) and warm (both templates indexed first;
+    each prompt adopts its template's pages and prefills its suffix).
+    Host wall (synchronised, no profiler) and device busy (the union of
+    the profiler's kernel records, ``device_busy_us``)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime.backends import make_backend
+
+    trace = prefix_trace(cfg)
+    prompts = [r.prompt for r in trace]
+    out = {}
+    for cached in (False, True):
+        be = make_backend("gspmd", cfg, params, num_slots=1, max_len=1024,
+                          paged=True, page_size=16, prefix_cache=cached,
+                          device=dev)
+        if cached:
+            for tmpl in {p[:256].tobytes(): p[:256] for p in prompts}.values():
+                be.begin_prefill(0, len(tmpl), 1)
+                be.prefill_whole(0, tmpl)
+                be.cache_prefix(0, tmpl)
+                be.free_slots([0])
+        hits = []
+
+        def work():
+            hits.clear()
+            for p in prompts:
+                hit = be.begin_prefill_cached(0, p, 1)
+                be.prefill_whole(0, p, start=hit)
+                be.free_slots([0])
+                hits.append(hit)
+        walls = []
+        with torch.inference_mode():
+            work()                                           # warm-up
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                work()
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t0))
+            wall_ms = sorted(walls)[1]
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                work()
+                torch.cuda.synchronize()
+        busy_us, _ = device_busy_us(prof)
+        computed = sum(len(p) - h for p, h in zip(prompts, hits))
+        out[cached] = (wall_ms, busy_us / 1e3)
+        log(f"[prefix prefill {'warm' if cached else 'cold'}] "
+            f"{len(prompts)} prompts, {computed} of "
+            f"{sum(len(p) for p in prompts)} positions computed: host wall "
+            f"{wall_ms:.3f} ms (median of "
+            f"{', '.join(f'{w:.3f}' for w in walls)}), device busy "
+            f"{busy_us / 1e3:.3f} ms, idle "
+            f"share {1 - busy_us / 1e3 / wall_ms:.3f} ({smi})")
+        require_drained("prefill work", be)
+        del be
+    log(f"[prefix prefill] warm / cold: host wall "
+        f"{out[True][0] / out[False][0]:.3f}, device busy "
+        f"{out[True][1] / max(out[False][1], 1e-9):.3f}")
+
+
+def failure_f32_run(dev, smi, cfg, totals):
+    """(b), f32 at L = 4, full width: optimistic admission on an
+    oversubscribed pool preempts (gspmd and TP t = 2), the scheduler's
+    token-identity check holds and the streams equal a conservative
+    run's; the recompute rows equal ``preemption_recompute_ops``;
+    scripted transient faults at every site (PP (1, 2), which draws
+    pp_transfer) are retried and the streams equal the fault-free ones;
+    a deadline and a cancel finish with their reasons."""
+    from repro_torch.core.commodel import preemption_recompute_ops
+    from repro_torch.models.transformer import get_model
+    from repro_torch.runtime.backends import make_backend
+    from repro_torch.runtime.faults import Fault, FaultInjector
+    from repro_torch.runtime.scheduler import (Scheduler, VirtualClock,
+                                               _count)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, num_layers=4, dtype="float32")
+    p32 = get_model(cfg32).init(seed=5, device=dev)
+    kw = dict(num_slots=FAIL_SLOTS, max_len=1024, paged=True, page_size=16,
+              device=dev)
+    with count_into(totals):
+        ref = Scheduler(make_backend("gspmd", cfg32, p32, **kw)).run(
+            fail_trace(cfg32)).tokens_by_rid()
+    for kind, t in (("gspmd", 1), ("tp", 2)):
+        what = f"f32 L=4 optimistic {kind} t={t}"
+        backend = make_backend(kind, cfg32, p32, t=t, num_pages=FAIL_PAGES,
+                               **kw)
+        with count_into(totals):
+            report = Scheduler(backend, admission="optimistic").run(
+                fail_trace(cfg32))
+        recs = [r for r in report.steps if r.phase == "recompute"]
+        wrong = [r.prefix_len for r in recs if r.collective_counts != _count(
+            preemption_recompute_ops(cfg32, r.prefix_len, t, b=4,
+                                     gather_mode="allgather"))]
+        if report.preemptions < 1 or len(recs) != report.preemptions or \
+                wrong or report.tokens_by_rid() != ref:
+            raise AssertionError(
+                f"{what}: {report.preemptions} preemptions, {len(recs)} "
+                f"recompute rows, rows off the closed form at {wrong}, "
+                f"streams equal: {report.tokens_by_rid() == ref}")
+        require_drained(what, backend)
+        log(f"[fail] {what}: {report.preemptions} preemptions, recompute "
+            f"rows {[(r.prefix_len, r.collective_counts) for r in recs]} "
+            f"== preemption_recompute_ops, streams == conservative run")
+    plan = {("decode", 2): "transient", ("prefill", 1): "transient",
+            ("pool", 3): "oom", ("pp_transfer", 4): "transient"}
+    inj = FaultInjector.scripted({k: Fault(k[0], v) for k, v in plan.items()})
+    backend = make_backend("pp", cfg32, p32, t=1, p=2, **kw)
+    clock = VirtualClock()
+    with count_into(totals):
+        report = Scheduler(backend, clock=clock, faults=inj,
+                           retry_backoff=0.01).run(fail_trace(cfg32))
+    if len(inj.injected) != len(plan) or report.retries < 3 or \
+            report.preemptions != 1 or report.tokens_by_rid() != ref:
+        raise AssertionError(
+            f"faults: {inj.injected} injected, {report.retries} retries, "
+            f"{report.preemptions} preemptions, streams equal: "
+            f"{report.tokens_by_rid() == ref}")
+    require_drained("faults", backend)
+    log(f"[fail] f32 L=4 pp (1, 2): transient faults at decode, prefill, "
+        f"pp_transfer and a pool exhaustion absorbed: {report.retries} "
+        f"retries, 1 preemption, {clock.now():.2f} s of backoff on the "
+        f"virtual clock, streams == fault-free run")
+    reqs = fail_trace(cfg32)
+    reqs[3].ttft_deadline = 0.5                # queued when it expires
+    backend = make_backend("gspmd", cfg32, p32, **kw)
+    clock = VirtualClock()
+    sched = Scheduler(backend, clock=clock)
+    with count_into(totals):
+        sched.submit(reqs)
+        for _ in range(3):
+            sched.step()
+        cancelled = sched.cancel(0)            # decoding
+        clock.advance(1.0)
+        report = sched.run()
+    by = {m.rid: m for m in report.metrics}
+    if not cancelled or by[0].finish_reason != "cancelled" or \
+            by[3].finish_reason != "deadline" or by[3].tokens or \
+            by[0].tokens != ref[0][:by[0].num_generated] or \
+            by[1].tokens != ref[1] or by[2].tokens != ref[2]:
+        raise AssertionError("deadline/cancel: " + str(
+            [(m.rid, m.finish_reason) for m in report.metrics]))
+    require_drained("deadline/cancel", backend)
+    log(f"[fail] cancel of a decoding request after "
+        f"{by[0].num_generated} tokens: cancelled, its stream a prefix of "
+        f"the reference; a TTFT deadline shed a queued request")
+    del p32
+    return cfg32
+
+
+def recompute_agreement_bf16(dev, smi, cfg, params, totals):
+    """(c): (b)'s preemption trace in bf16 at full depth, measured and not
+    held: the share of recompute passes whose token equals the token the
+    request decoded step by step."""
+    from repro_torch.runtime.backends import make_backend
+    backend = make_backend("gspmd", cfg, params, num_slots=FAIL_SLOTS,
+                           max_len=1024, paged=True, page_size=16,
+                           num_pages=FAIL_PAGES, device=dev)
+    sched = agreement_scheduler()(backend, admission="optimistic")
+    with count_into(totals):
+        report = sched.run(fail_trace(cfg))
+    require_drained("bf16 recompute", backend)
+    agree = sum(sched.agree)
+    log(f"[fail bf16] full depth, optimistic: {report.preemptions} "
+        f"preemptions; recompute token == stream token on {agree}/"
+        f"{len(sched.agree)} ({agree / max(len(sched.agree), 1):.3f}; "
+        f"measured, not held) ({smi})")
+    if not sched.agree:
+        raise AssertionError("bf16 recompute: no preemption")
+    return agree, len(sched.agree)
+
+
+def disagg_pools(cfg, params, dev, kind, t, dec_slots=4):
+    """A decode pool (paged, prefix cache) and a prefill pool that shares
+    its KVPool under the owner ids past the decode pool's slots."""
+    from repro_torch.runtime.backends import make_backend
+    kw = dict(max_len=2048, paged=True, page_size=16, t=t, device=dev)
+    dec = make_backend(kind, cfg, params, num_slots=dec_slots,
+                       num_pages=1 + (dec_slots + 1) * 128,
+                       prefix_cache=True, **kw)
+    pre = make_backend(kind, cfg, params, num_slots=1, pool=dec.pool,
+                       owner_base=dec_slots, **kw)
+    return pre, dec
+
+
+def handoff_timing(dev, smi, cfg, pre, dec, pages):
+    """Export (device to host) and import (host to device) of ``pages``
+    K/V pages, one page at a time, synchronised: ms per page and GB/s,
+    beside ``predict_slo``'s handoff term at ``H100_NODE.inter_bw``."""
+    from repro_torch.config.base import H100_NODE
+    from repro_torch.core.commodel import kv_page_bytes
+    from repro_torch.core.slo import predict_slo
+    from repro_torch.models.layers import torch_dtype
+    nbytes = kv_page_bytes(cfg, 16, b=torch_dtype(cfg.dtype).itemsize)
+    for pg in pages[:4]:                        # warm-up
+        dec.import_page(pg, pre.export_page(pg))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = [pre.export_page(pg) for pg in pages]
+    t1 = time.perf_counter()
+    landed = sum(dec.import_page(pg, r) for pg, r in zip(pages, rows))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if landed != nbytes * len(pages):
+        raise AssertionError(f"handoff: {landed} bytes landed, "
+                             f"{nbytes * len(pages)} exported")
+    exp_ms, imp_ms = 1e3 * (t1 - t0) / len(pages), 1e3 * (t2 - t1) / len(pages)
+    # the same rows into pinned host buffers (not the port's path): how
+    # much of the export is the pageable copy
+    pools = pre._page_pools()
+    pinned = [{key: torch.empty(pl[key][:, 0].shape, dtype=pl[key].dtype,
+                                pin_memory=torch.cuda.is_available())
+               for key in ("k", "v")}
+              for _, pl in pools]
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    for pg in pages:
+        for (_, pl), buf in zip(pools, pinned):
+            for key in ("k", "v"):
+                buf[key].copy_(pl[key][:, pg])
+    torch.cuda.synchronize()
+    pin_ms = 1e3 * (time.perf_counter() - t3) / len(pages)
+    model_ms = 1e3 * predict_slo(cfg, 1024, 16, handoff_pages=1,
+                                 page_size=16).breakdown["handoff_s"]
+    log(f"[disagg handoff] {len(pages)} pages of {nbytes} B: export "
+        f"(D2H) {exp_ms:.4f} ms/page {nbytes / exp_ms / 1e6:.2f} GB/s, "
+        f"import (H2D) {imp_ms:.4f} ms/page {nbytes / imp_ms / 1e6:.2f} "
+        f"GB/s, both {exp_ms + imp_ms:.4f} ms/page; D2H into pinned "
+        f"buffers {pin_ms:.4f} ms/page {nbytes / pin_ms / 1e6:.2f} GB/s; "
+        f"predict_slo's handoff "
+        f"term {model_ms:.4f} ms for one page at inter_bw "
+        f"{H100_NODE.inter_bw / 1e9:.0f} GB/s + inter_alpha "
+        f"{H100_NODE.inter_alpha * 1e6:.0f} us ({smi})")
+
+
+def disagg_run(dev, smi, cfg, params, cfg32, totals):
+    """(d): DisaggScheduler on one card, gspmd pools and TP t = 2 pools.
+    bf16 at full depth: every handoff's bytes equal kv_handoff_ops (the
+    scheduler raises otherwise), the handoff timed per page, the
+    cross-pool first-token agreement measured; f32 at L = 4 end to end
+    with the scheduler's cross-pool identity check, streams against the
+    colocated backend's."""
+    from repro_torch.core.commodel import kv_handoff_pages, kv_page_bytes
+    from repro_torch.models.layers import torch_dtype
+    from repro_torch.models.transformer import get_model
+    from repro_torch.runtime.backends import make_backend
+    from repro_torch.runtime.scheduler import DisaggScheduler, Scheduler
+
+    page_bytes = kv_page_bytes(cfg, 16, b=torch_dtype(cfg.dtype).itemsize)
+    for kind, t in (("gspmd", 1), ("tp", 2)):
+        what = f"disagg {kind} t={t} bf16"
+        trace = disagg_trace(cfg)
+        pre, dec = disagg_pools(cfg, params, dev, kind, t)
+        sched = disagg_scheduler()(pre, dec, route_prompt_len=DISAGG_ROUTE)
+        t0 = time.perf_counter()
+        with count_into(totals):
+            rep = sched.run(trace)
+        wall = time.perf_counter() - t0
+        require_all_finished(what, trace, rep)
+        lens = {r.rid: r.prompt_len for r in trace}
+        want = {r for r, n in lens.items() if n >= DISAGG_ROUTE}
+        bad = [h.rid for h in rep.handoffs if h.bytes != h.predicted_bytes
+               or h.bytes != kv_handoff_pages(lens[h.rid], 16) * page_bytes]
+        if {h.rid for h in rep.handoffs} != want or bad:
+            raise AssertionError(f"{what}: handoffs {rep.handoffs}")
+        agree = sum(rep.tokens_by_rid()[r][0] == tok
+                    for r, tok in sched.first.items())
+        log(f"[{what}] {len(trace)} requests, {rep.total_tokens} tokens, "
+            f"{len(rep.handoffs)} handoffs of {rep.handoff_pages} pages, "
+            f"{rep.handoff_bytes} B == kv_handoff_ops, in {wall:.2f} s; "
+            f"cross-pool first token equal on {agree}/{len(sched.first)} "
+            f"(measured, not held) ({smi})")
+        if kind == "gspmd":
+            handoff_timing(dev, smi, cfg, pre, dec,
+                           list(range(1, 1 + HANDOFF_PAGES)))
+        require_drained(what, dec)
+        del pre, dec
+    p32 = get_model(cfg32).init(seed=5, device=dev)
+    with count_into(totals):
+        colo = make_backend("gspmd", cfg32, p32, num_slots=4, max_len=2048,
+                            paged=True, page_size=16, device=dev)
+        ref = Scheduler(colo).run(disagg_trace(cfg32)).tokens_by_rid()
+        del colo
+        pre, dec = disagg_pools(cfg32, p32, dev, "gspmd", 1)
+        rep = DisaggScheduler(pre, dec, route_prompt_len=DISAGG_ROUTE).run(
+            disagg_trace(cfg32))
+    if rep.tokens_by_rid() != ref:
+        raise AssertionError("f32 disagg streams differ from colocated")
+    require_drained("f32 disagg", dec)
+    log(f"[disagg f32] L=4 full width: {len(rep.handoffs)} handoffs, "
+        f"cross-pool identity held, streams == colocated run")
+
+
+def failure_phase(dev, smi, params):
+    """Phase 9 (A8, A9) at the full width of llama32-3b: (a) the prefix
+    cache, (b) failure semantics in f32 at L = 4, (c) bf16 recompute
+    agreement, (d) disaggregated pools."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+
+    cfg = get_config(ARCH)
+    totals = {name: 0 for name in _build.LAUNCHES}
+    t_phase = time.perf_counter()
+    prefix_cache_run(dev, smi, cfg, params, totals)
+    t_a = time.perf_counter()
+    cfg32 = failure_f32_run(dev, smi, cfg, totals)
+    t_b = time.perf_counter()
+    recompute_agreement_bf16(dev, smi, cfg, params, totals)
+    t_c = time.perf_counter()
+    disagg_run(dev, smi, cfg, params, cfg32, totals)
+    t_d = time.perf_counter()
+    log(f"[failure phase] (a) {t_a - t_phase:.1f} s, (b) {t_b - t_a:.1f} s, "
+        f"(c) {t_c - t_b:.1f} s, (d) {t_d - t_c:.1f} s, "
+        f"{t_d - t_phase:.1f} s; launches {totals}")
+    return totals
+
+
 _RMS = "src/repro/kernels/rmsnorm/rmsnorm_kernel.py:25"
 REPLACES = {
     "rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu", _RMS),
@@ -2593,6 +3109,8 @@ def main(argv=None) -> int:
         launches[name] += n
     for name, n in cp_phase(dev, smi, params, prompt, kernel_rows,
                             streams).items():
+        launches[name] += n
+    for name, n in failure_phase(dev, smi, params).items():
         launches[name] += n
     del params, prompt, kernel_rows
     for name, n in rwkv_phase(dev, smi).items():

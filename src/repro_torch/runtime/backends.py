@@ -5,7 +5,6 @@ Counterpart of ``repro.runtime.backends``: the single-device engine
 tensor-parallel engine on virtual ranks (``make_backend("tp", ...)`` ->
 ``TPBackend``) and the pipeline / hybrid engine on virtual stages
 (``make_backend("pp", ...)`` -> ``PPBackend``), core/parallel_exec.py.
-``export_page`` / ``import_page`` (disaggregation) wait for A9.
 
 The protocol:
 
@@ -32,6 +31,17 @@ row or is scattered into the slot's pages (``_seed_pages``) from a staging
 cache of the padded width.  The pad rows' K/V sit past the prompt, where
 decode overwrites them.  Decode is the c = 1 step.  CP and chunked prefill
 are alternative long-prompt strategies: a c > 1 backend prefills whole.
+
+Prefix caching (``prefix_cache=True``, paged, c = 1) attaches a
+``PrefixIndex`` to the pool: ``begin_prefill_cached`` adopts the longest
+cached prefix's pages and ``prefill_whole(..., start=hit)`` runs one
+suffix chunk at query offset ``hit``; every pool claim goes through
+``_claim_guard`` (LRU eviction under pressure) and every extend is
+followed by ``_apply_cow``, which replays the pool's copy-on-write events
+as in-place device page copies (``_copy_page``).  ``pool`` / ``owner_base``
+let two backends share one ``KVPool`` under disjoint owner ranges (the
+disaggregated prefill and decode pools); page content crosses between
+their device pools through ``export_page`` / ``import_page``.
 """
 from __future__ import annotations
 
@@ -49,6 +59,7 @@ from repro_torch.models.layers import torch_dtype
 from repro_torch.models.transformer import get_model, resolve_device
 from repro_torch.runtime.engine import check_params_device
 from repro_torch.runtime.kvpool import KVPool
+from repro_torch.runtime.prefix_index import PrefixIndex
 from repro_torch.runtime.schedule import DynamicPPQueue, FusedQueue
 
 
@@ -94,21 +105,34 @@ class _BackendBase:
     the device side every backend shares: one ``self.model`` pass per
     decode step or paged chunk (``Model`` or ``TPModel``), caches on
     ``self.device`` updated in place.  A subclass sets ``device``,
-    ``model``, ``params`` and the cache, and writes a prefill into a slot
-    (``_write_slot``); a c > 1 one runs its CP pass (``_cp_prefill``) and
-    seeds a slot's pages from it (``_seed_slot_pages``)."""
+    ``model``, ``params`` and the cache, writes a prefill into a slot
+    (``_write_slot``) and lists its device page pools (``_page_pools``,
+    which page copies and the handoff walk); a c > 1 one runs its CP pass
+    (``_cp_prefill``) and seeds a slot's pages from it
+    (``_seed_slot_pages``)."""
 
     def __init__(self, cfg: ModelConfig, num_slots: int, max_len: int,
                  t: int, p: int, paged: bool = False, page_size: int = 16,
                  num_pages: Optional[int] = None, c: int = 1,
                  quant_collectives: Optional[str] = None,
-                 quant_chunk: int = DEFAULT_QUANT_CHUNK):
+                 quant_chunk: int = DEFAULT_QUANT_CHUNK,
+                 prefix_cache: bool = False,
+                 pool: Optional[KVPool] = None, owner_base: int = 0):
         if not cfg.is_decoder:
             raise ValueError(f"{cfg.name} is encoder-only: no decode")
         if quant_collectives is not None and paged:
             raise ValueError(
                 "quantized collectives cover the contiguous decode step; "
                 "the paged engines run full-width")
+        if prefix_cache and not paged:
+            raise ValueError(
+                "prefix caching shares KV pages across requests — "
+                "construct the backend with paged=True")
+        if prefix_cache and c > 1:
+            raise ValueError(
+                "a cache hit prefills only the novel suffix, which needs "
+                "the chunked (offset) prefill path; CP prefills the whole "
+                "sequence at once — use c=1")
         self.cfg = cfg
         self.quant = quant_collectives
         self.quant_chunk = int(quant_chunk)
@@ -120,6 +144,13 @@ class _BackendBase:
         self.inflight = 1
         self.group_size = self.num_slots
         self.paged = bool(paged)
+        if owner_base < 0:
+            raise ValueError(
+                f"owner_base must be >= 0 (negative ids belong to the "
+                f"prefix index), got {owner_base}")
+        self._owner_base = int(owner_base)
+        if pool is not None and not paged:
+            raise ValueError("a shared KVPool needs paged=True")
         if self.paged:
             if cfg.family != "dense":
                 raise ValueError(
@@ -131,23 +162,39 @@ class _BackendBase:
                     f"{cfg.name} uses a sliding window — serve it contiguous")
             self.page_size = int(page_size)
             self.pages_per_slot = -(-self.max_len // self.page_size)
-            if num_pages is None:
-                # capacity parity with the contiguous slot cache, + the
-                # reserved scratch page
-                num_pages = 1 + self.num_slots * self.pages_per_slot
-            self.pool = KVPool(num_pages, self.page_size)
+            if pool is not None:
+                # two backends on one page space (disaggregated pools):
+                # their block tables name pages of one host allocator,
+                # while each keeps its own device page pools
+                if pool.page_size != self.page_size:
+                    raise ValueError(
+                        f"shared pool page_size {pool.page_size} != "
+                        f"backend page_size {self.page_size}")
+                self.pool = pool
+            else:
+                if num_pages is None:
+                    # capacity parity with the contiguous slot cache, + the
+                    # reserved scratch page
+                    num_pages = 1 + self.num_slots * self.pages_per_slot
+                self.pool = KVPool(num_pages, self.page_size)
             self.block_tables = np.zeros(
                 (self.num_slots, self.pages_per_slot), np.int32)
             self._decodable: set = set()
             self._worst: dict = {}      # slot -> worst-case pages committed
+        self.prefix_index = PrefixIndex(self.pool) if prefix_cache else None
 
     # -- paged bookkeeping --------------------------------------------------
     def _require_paged(self):
         if not self.paged:
             raise RuntimeError("chunked-prefill API needs paged=True")
 
+    def _owner(self, slot: int) -> int:
+        """Pool owner id of a local slot: ``owner_base + slot`` (backends
+        sharing one KVPool claim disjoint owner ranges)."""
+        return self._owner_base + slot
+
     def _set_table(self, slot: int) -> None:
-        table = self.pool.block_table(slot)
+        table = self.pool.block_table(self._owner(slot))
         row = np.zeros(self.pages_per_slot, np.int32)
         row[:len(table)] = table
         self.block_tables[slot] = row
@@ -164,17 +211,107 @@ class _BackendBase:
         return max(self._alloc_len(prompt_len),
                    prompt_len + max_new_tokens - 1)
 
-    def can_admit(self, prompt_len: int, max_new_tokens: int = 1) -> bool:
+    def can_admit(self, prompt_len: int, max_new_tokens: int = 1,
+                  optimistic: bool = False) -> bool:
         """True when the pool covers this request's worst case (prompt +
         max_new_tokens - 1 positions, or the CP-padded prompt if longer)
-        on top of every live request's committed growth — conservative
-        admission: a decode step can never run out of pages."""
+        on top of the committed growth of every live request of this
+        backend — conservative admission: a decode step can never run out
+        of pages.  ``optimistic=True`` gates only on the pages the prompt
+        (or recompute prefix) claims now; the scheduler then covers decode
+        growth by preemption.  Pages that only the prefix index pins count
+        as free: ``_claim_guard`` reclaims them on demand."""
         self._require_paged()
+        free = self.pool.free_pages + (self.prefix_index.reclaimable_pages()
+                                       if self.prefix_index else 0)
+        if optimistic:
+            return free >= self._pages_for(self._alloc_len(prompt_len))
+        # the index's owners (negative) never grow, and a pool-sharing
+        # sibling backend's live pages are already out of ``free``
         committed = sum(
-            max(0, self._worst.get(o, 0) - len(self.pool.block_table(o)))
-            for o in self.pool.owners() if 0 <= o < self.num_slots)
+            max(0, self._worst.get(o - self._owner_base, 0)
+                - len(self.pool.block_table(o)))
+            for o in self.pool.owners()
+            if 0 <= o - self._owner_base < self.num_slots)
         need = self._pages_for(self._worst_len(prompt_len, max_new_tokens))
-        return self.pool.free_pages - committed >= need
+        return free - committed >= need
+
+    def _claim_guard(self, fn):
+        """Run a pool claim; under pressure evict LRU cached prefixes until
+        it succeeds, or let the MemoryError reach the scheduler (which
+        preempts) once the index is empty."""
+        while True:
+            try:
+                return fn()
+            except MemoryError:
+                if self.prefix_index is None \
+                        or not self.prefix_index.evict_one():
+                    raise
+
+    def _apply_cow(self) -> None:
+        """Replay the pool's pending copy-on-write events as device page
+        copies; runs after every ``pool.extend``, before the next pass
+        writes the privatised page."""
+        for ev in self.pool.take_cow_events():
+            self._copy_page(ev.src, ev.dst)
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Copy physical page src -> dst in every device pool of this
+        backend (every rank, every stage), in place.  The whole page is
+        copied: rows past the owner's length are never read."""
+        with torch.inference_mode():
+            for _, pools in self._page_pools():
+                for key in ("k", "v"):
+                    pools[key][:, dst].copy_(pools[key][:, src])
+
+    # -- KV-page handoff (disaggregated pools) -------------------------------
+    def _page_pools(self):
+        """[(layer offset, {k, v: [L_part, P, ps, Hkv_part, D]}) ...] of
+        every device page pool of this backend, in rank order within each
+        group of layers: the pieces one exported page is cut into."""
+        raise NotImplementedError
+
+    def export_page(self, page: int) -> dict:
+        """Physical ``page``'s K/V rows as host tensors {k, v: [L, ps, Hkv,
+        D]} of the model's dtype — CPU ``torch`` tensors, so bfloat16 rows
+        keep their bits (numpy has no bfloat16).  The ranks' head slices
+        are concatenated over the head axis, the stages' layers over the
+        layer axis: the unit ``commodel.kv_handoff_ops`` prices."""
+        self._require_paged()
+        with torch.inference_mode():
+            out = {}
+            for key in ("k", "v"):
+                groups: dict = {}
+                for lo, pools in self._page_pools():
+                    groups.setdefault(lo, []).append(pools[key][:, page])
+                out[key] = torch.cat(
+                    [torch.cat(parts, dim=2) for _, parts in
+                     sorted(groups.items())], dim=0).cpu()
+        return out
+
+    def import_page(self, page: int, data: dict) -> int:
+        """Land exported rows {k, v: [L, ps, Hkv, D]} (CPU tensors or
+        numpy arrays, cast to the model's type) at physical ``page`` of
+        this backend's device pools, split back over stages and ranks;
+        returns the device bytes written."""
+        self._require_paged()
+        dt = torch_dtype(self.cfg.dtype)
+        total = 0
+        with torch.inference_mode():
+            for key in ("k", "v"):
+                rows = data[key]
+                if not isinstance(rows, torch.Tensor):
+                    rows = torch.from_numpy(np.array(rows))
+                rows = rows.to(self.device, dt)
+                h0: dict = {}
+                for lo, pools in self._page_pools():
+                    dst = pools[key][:, page]
+                    L_s, _, H_s, _ = dst.shape
+                    h = h0.get(lo, 0)
+                    dst.copy_(rows[lo:lo + L_s, :, h:h + H_s])
+                    h0[lo] = h + H_s
+                    total += dst.numel() * dst.element_size()
+        return total
 
     def begin_prefill(self, slot: int, prompt_len: int,
                       max_new_tokens: int = 1) -> None:
@@ -182,12 +319,58 @@ class _BackendBase:
         c > 1) and commit its worst-case decode growth (see
         ``can_admit``)."""
         self._require_paged()
-        self.pool.free(slot)               # the slot may be reused
+        self.pool.free(self._owner(slot))   # the slot may be reused
         self._decodable.discard(slot)
-        self.pool.allocate(slot, self._alloc_len(prompt_len))
+        self._claim_guard(
+            lambda: self.pool.allocate(self._owner(slot),
+                                       self._alloc_len(prompt_len)))
         self._worst[slot] = self._pages_for(
             self._worst_len(prompt_len, max_new_tokens))
         self._set_table(slot)
+
+    def begin_prefill_cached(self, slot: int, prompt,
+                             max_new_tokens: int = 1) -> int:
+        """Cache-aware admission: adopt the longest cached prefix's pages
+        into the slot and extend to the whole prompt (fresh pages for the
+        suffix; a partly shared last page is copied on write here, before
+        the suffix chunk writes it — a fully cached prompt's hit is capped
+        one position short, so its last page is always such a page).
+        Returns the hit length (0: a miss, a plain ``begin_prefill``); the
+        caller prefills positions hit..prompt_len-1."""
+        self._require_paged()
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if self.prefix_index is None:
+            self.begin_prefill(slot, len(prompt), max_new_tokens)
+            return 0
+        self.pool.free(self._owner(slot))
+        self._decodable.discard(slot)
+        hit = self.prefix_index.lookup(prompt)
+        if not hit.hit:
+            self.begin_prefill(slot, len(prompt), max_new_tokens)
+            return 0
+        self.pool.adopt(self._owner(slot), hit.pages, hit.length)
+        try:
+            self._claim_guard(
+                lambda: self.pool.extend(self._owner(slot),
+                                         self._alloc_len(len(prompt))))
+        except MemoryError:
+            self.pool.free(self._owner(slot))   # extend claims atomically
+            raise
+        self._apply_cow()
+        self._worst[slot] = self._pages_for(
+            self._worst_len(len(prompt), max_new_tokens))
+        self._set_table(slot)
+        return hit.length
+
+    def cache_prefix(self, slot: int, tokens) -> int:
+        """Index a fully prefilled slot's full prompt blocks (its first
+        pages, which decode never rewrites); returns the entries created
+        (0 without an index)."""
+        if not self.paged or self.prefix_index is None:
+            return 0
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        return self.prefix_index.insert(
+            tokens, self.pool.block_table(self._owner(slot)))
 
     def prefill_chunk(self, slot: int, tokens, start: int) -> int:
         """One chunked-prefill pass for ``tokens`` at positions
@@ -204,14 +387,24 @@ class _BackendBase:
         logits = self._paged_call(chunk, pos, bt)
         return int(np.argmax(logits[0]))
 
-    def prefill_whole(self, slot: int, tokens) -> int:
+    def prefill_whole(self, slot: int, tokens, start: int = 0) -> int:
         """Prefill a whole prompt into the slot's allocated pages: one
         chunk at c = 1, one CP pass at c > 1 whose cache is scattered into
-        the pages; returns the first greedy token."""
-        tokens = np.asarray(tokens, np.int32).reshape(-1)
-        if self.c == 1:
-            return self.prefill_chunk(slot, tokens, 0)
+        the pages; returns the first greedy token.  ``start`` > 0 (a cache
+        hit's length, from ``begin_prefill_cached``) computes only
+        positions start.. — one suffix chunk at query offset ``start``."""
         self._require_paged()
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        if not 0 <= start < len(tokens):
+            raise ValueError(
+                f"start {start} outside [0, {len(tokens)}) — a cache hit "
+                "always leaves at least the final position to prefill")
+        if self.c == 1:
+            return self.prefill_chunk(slot, tokens[start:], start)
+        if start:
+            raise RuntimeError(
+                "suffix prefill needs the chunked (offset) path; a c > 1 "
+                "backend prefills whole")
         padded, last = self._pad_prompt(tokens)
         S = padded.shape[1]
         with torch.inference_mode():
@@ -228,14 +421,24 @@ class _BackendBase:
         self._require_paged()
         self._decodable.add(slot)
 
+    def _extend_decoding(self, pos, lo: int, hi: int) -> None:
+        """Extend the pages of the decoding slots in [lo, hi) to cover
+        their incoming position (each claim under ``_claim_guard``), then
+        replay the copy-on-writes."""
+        for slot in sorted(self._decodable):
+            if lo <= slot < hi:
+                self._claim_guard(
+                    lambda s=slot: self.pool.extend(self._owner(s),
+                                                    int(pos[s]) + 1))
+                self._set_table(slot)
+        self._apply_cow()
+
     def _paged_decode(self, tokens, pos) -> np.ndarray:
         """Extend the decoding slots' pages to cover the incoming position,
         then one paged pass (S = 1) over the whole slot batch; every other
         slot's table row points at scratch page 0."""
         pos = np.asarray(pos)
-        for slot in sorted(self._decodable):
-            self.pool.extend(slot, int(pos[slot]) + 1)
-            self._set_table(slot)
+        self._extend_decoding(pos, 0, self.num_slots)
         bt = self.block_tables.copy()
         for slot in range(self.num_slots):
             if slot not in self._decodable:
@@ -291,7 +494,8 @@ class _BackendBase:
                 raise IndexError(f"slot {s} out of range")
         if self.paged:
             for s in slots:
-                self.pool.free(s)           # no-op for a never-admitted slot
+                # no-op for a never-admitted slot
+                self.pool.free(self._owner(s))
                 self.block_tables[s] = 0
                 self._decodable.discard(s)
                 self._worst.pop(s, None)
@@ -388,10 +592,13 @@ class ModelBackend(_BackendBase):
     def __init__(self, cfg: ModelConfig, params, num_slots: int,
                  max_len: int = 256, paged: bool = False,
                  page_size: int = 16, num_pages: Optional[int] = None,
-                 device=None):
+                 prefix_cache: bool = False, pool: Optional[KVPool] = None,
+                 owner_base: int = 0, device=None):
         self.device = resolve_device(device)
         super().__init__(cfg, num_slots, max_len, t=1, p=1, paged=paged,
-                         page_size=page_size, num_pages=num_pages)
+                         page_size=page_size, num_pages=num_pages,
+                         prefix_cache=prefix_cache, pool=pool,
+                         owner_base=owner_base)
         check_params_device(params, self.device)
         self.model = get_model(cfg)
         self.params = params
@@ -401,6 +608,9 @@ class ModelBackend(_BackendBase):
         # every cache family keeps the batch on axis 1 of each leaf
         for key, val in small.items():
             self.cache[key][:, slot] = val[:, 0]
+
+    def _page_pools(self):
+        return [(0, self.cache)]
 
 
 class TPBackend(_BackendBase):
@@ -420,12 +630,15 @@ class TPBackend(_BackendBase):
                  max_len: int = 256, t: int = 2, paged: bool = False,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  c: int = 1, quant_collectives: Optional[str] = None,
-                 quant_chunk: int = DEFAULT_QUANT_CHUNK, device=None):
+                 quant_chunk: int = DEFAULT_QUANT_CHUNK,
+                 prefix_cache: bool = False, pool: Optional[KVPool] = None,
+                 owner_base: int = 0, device=None):
         self.device = resolve_device(device)
         super().__init__(cfg, num_slots, max_len, t=t, p=1, paged=paged,
                          page_size=page_size, num_pages=num_pages, c=c,
                          quant_collectives=quant_collectives,
-                         quant_chunk=quant_chunk)
+                         quant_chunk=quant_chunk, prefix_cache=prefix_cache,
+                         pool=pool, owner_base=owner_base)
         check_params_device(params, self.device)
         self.model = TPModel(cfg, t, quant=self.quant,
                              quant_chunk=self.quant_chunk, c=c)
@@ -443,6 +656,9 @@ class TPBackend(_BackendBase):
     def _seed_slot_pages(self, small, rows) -> None:
         for pools, part in zip(self.cache, small):
             _seed_pages(pools, part, rows)
+
+    def _page_pools(self):
+        return [(0, rank) for rank in self.cache]
 
 
 class PPBackend(_BackendBase):
@@ -470,14 +686,17 @@ class PPBackend(_BackendBase):
                  num_pages: Optional[int] = None, c: int = 1,
                  inflight: int = 1,
                  quant_collectives: Optional[str] = None,
-                 quant_chunk: int = DEFAULT_QUANT_CHUNK, device=None):
+                 quant_chunk: int = DEFAULT_QUANT_CHUNK,
+                 prefix_cache: bool = False, pool: Optional[KVPool] = None,
+                 owner_base: int = 0, device=None):
         if p < 2:
             raise ValueError(f"pp backend needs p >= 2, got p={p}")
         self.device = resolve_device(device)
         super().__init__(cfg, num_slots, max_len, t=t, p=p, paged=paged,
                          page_size=page_size, num_pages=num_pages, c=c,
                          quant_collectives=quant_collectives,
-                         quant_chunk=quant_chunk)
+                         quant_chunk=quant_chunk, prefix_cache=prefix_cache,
+                         pool=pool, owner_base=owner_base)
         if inflight < 1 or num_slots % inflight:
             raise ValueError(
                 f"inflight must divide num_slots: got inflight={inflight}, "
@@ -511,6 +730,11 @@ class PPBackend(_BackendBase):
         for stage, part in zip(self.caches, small):
             for pools, piece in zip(stage, part):
                 _seed_pages(pools, piece, rows)
+
+    def _page_pools(self):
+        # stage s holds layers [lo, hi) of every page, split over its ranks
+        return [(lo, rank) for stage, (lo, _) in
+                zip(self.caches, self.engine.ranges) for rank in stage]
 
     @torch.inference_mode()
     def _prefill_slot(self, prompt, slot: int) -> int:
@@ -560,18 +784,17 @@ class PPBackend(_BackendBase):
     def start_round(self, g: int, tokens, pos):
         """(stage-0 input, the group's positions, block tables or None) of
         one decode round of group ``g``.  Paged, the group's decoding slots'
-        pages are extended here, before any instruction issues; the other
-        rows of the group point at scratch page 0."""
+        pages are extended here, before any instruction issues, so a
+        MemoryError surfaces with the round not in flight and the
+        scheduler can preempt; the other rows of the group point at
+        scratch page 0."""
         G = self.group_size
         lo = g * G
         toks = np.asarray(tokens, np.int32)[lo:lo + G]
         pos_g = self._tensor(np.asarray(pos)[lo:lo + G])
         if not self.paged:
             return self.engine.feed_tokens(toks), pos_g, None
-        for slot in sorted(self._decodable):
-            if lo <= slot < lo + G:
-                self.pool.extend(slot, int(pos[slot]) + 1)
-                self._set_table(slot)
+        self._extend_decoding(np.asarray(pos), lo, lo + G)
         bt = self.block_tables[lo:lo + G].copy()
         for i, slot in enumerate(range(lo, lo + G)):
             if slot not in self._decodable:
@@ -609,6 +832,8 @@ def make_backend(kind: str, cfg: ModelConfig, params, num_slots: int,
                  inflight: int = 1,
                  quant_collectives: Optional[str] = None,
                  quant_chunk: int = DEFAULT_QUANT_CHUNK,
+                 prefix_cache: bool = False,
+                 pool: Optional[KVPool] = None, owner_base: int = 0,
                  device=None) -> DecodeBackend:
     """Backend factory keyed by engine kind: "gspmd" is the single-device
     engine (t = p = 1), "tp" the explicit TP engine on t >= 2 virtual
@@ -618,8 +843,12 @@ def make_backend(kind: str, cfg: ModelConfig, params, num_slots: int,
     ``inflight`` > 1 splits the slots into microbatch groups on the pp
     backend's dynamic queue; the fused engines have no pipeline bubble to
     fill and reject it.  ``quant_collectives`` needs the explicit engines'
-    hand-placed all-reduces; the single-device engine rejects it."""
+    hand-placed all-reduces; the single-device engine rejects it.
+    ``prefix_cache`` attaches a ``PrefixIndex`` (paged, c = 1);
+    ``pool`` / ``owner_base`` share another backend's ``KVPool`` under a
+    disjoint owner range (the disaggregated prefill and decode pools)."""
     kw = dict(paged=paged, page_size=page_size, num_pages=num_pages,
+              prefix_cache=prefix_cache, pool=pool, owner_base=owner_base,
               device=device)
     if kind != "pp" and inflight != 1:
         raise ValueError(

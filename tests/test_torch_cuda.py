@@ -766,3 +766,108 @@ def test_cp_prefill_ring_is_bitwise_and_matches_plain(cuda):
     _close(got, want, 1e-3)
     for key in ("k", "v"):
         _close(cache[0][key], want_cache[0][key], 1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the prefix cache and the KV-page handoff on the card
+# ---------------------------------------------------------------------------
+
+BACKENDS = [pytest.param("gspmd", {}, id="gspmd"),
+            pytest.param("tp", dict(t=2), id="tp2"),
+            pytest.param("pp", dict(t=1, p=2), id="pp12"),
+            pytest.param("pp", dict(t=2, p=2), id="pp22")]
+
+
+def _serving_cfg(dtype):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("llama32-3b").reduced(num_layers=3),
+                               dtype=dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,kw", BACKENDS)
+def test_page_export_import_and_copy_bitwise(cuda, kind, kw):
+    """bf16: a prefilled page exported (to CPU tensors) and imported into
+    another backend's pools round-trips bitwise with ``kv_page_bytes``
+    bytes, on every rank and stage; ``_copy_page`` copies a page in place
+    on every pool of the backend."""
+    from repro_torch.core.commodel import kv_page_bytes
+    from repro_torch.models.transformer import get_model
+    from repro_torch.runtime.backends import make_backend
+
+    cfg = _serving_cfg("bfloat16")
+    params = get_model(cfg).init(seed=0, device=cuda)
+    mk = dict(max_len=64, paged=True, page_size=16, device=cuda, **kw)
+    dec = make_backend(kind, cfg, params, num_slots=2, num_pages=9, **mk)
+    pre = make_backend(kind, cfg, params, num_slots=1, pool=dec.pool,
+                       owner_base=2, **mk)
+    prompt = torch.randint(2, cfg.vocab_size, (40,),
+                           generator=torch.Generator().manual_seed(3))
+    pre.begin_prefill(0, 40, 1)
+    pre.prefill_whole(0, prompt.numpy())
+    pages = [int(p) for p in pre.pool.block_table(pre._owner(0))]
+    for pg in pages[:2]:
+        data = pre.export_page(pg)
+        assert data["k"].device.type == "cpu"
+        assert data["k"].dtype == torch.bfloat16
+        assert data["k"].abs().sum() > 0
+        assert dec.import_page(pg, data) == kv_page_bytes(cfg, 16, b=2)
+        back = dec.export_page(pg)
+        for key in ("k", "v"):
+            assert torch.equal(back[key], data[key])
+    dec._copy_page(pages[0], 8)
+    for key in ("k", "v"):
+        assert torch.equal(dec.export_page(8)[key],
+                           dec.export_page(pages[0])[key])
+    pre.free_slots([0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("suffix", [9, 0], ids=["suffix9", "one-token"])
+def test_warm_suffix_pass_matches_plain(cuda, suffix):
+    """A cache hit's suffix pass over adopted pages at query offset = hit,
+    reduced width, f32: a 9-token suffix runs B2 (L launches, no B4), the
+    fully cached prompt's one-token suffix (hit capped one short, its last
+    page copied on write) runs B4 (L launches, no B2); logits and pages
+    within 1e-3 of the plain path's on the same pages."""
+    import numpy as np
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import get_model
+    from repro_torch.runtime.backends import make_backend
+    from repro_torch.runtime.request import Request
+    from repro_torch.runtime.scheduler import Scheduler, VirtualClock
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _serving_cfg("float32")
+    params = get_model(cfg).init(seed=0, device=cuda)
+    g = torch.Generator().manual_seed(4)
+    tmpl = torch.randint(2, cfg.vocab_size, (48,), generator=g).numpy()
+    backend = make_backend("gspmd", cfg, params, num_slots=2, max_len=96,
+                           paged=True, page_size=16, prefix_cache=True,
+                           device=cuda)
+    Scheduler(backend, clock=VirtualClock()).run(
+        [Request(rid=0, prompt=tmpl, max_new_tokens=2)])
+    extra = torch.randint(2, cfg.vocab_size, (suffix,), generator=g).numpy()
+    prompt = np.concatenate([tmpl, extra])
+    hit = backend.begin_prefill_cached(0, prompt, 4)
+    assert hit == (48 if suffix else 47)
+    assert backend.pool.stats().cow_copies == (0 if suffix else 1)
+    bt = torch.as_tensor(backend.block_tables[0:1], device=cuda)
+    toks = torch.as_tensor(prompt[hit:], device=cuda)[None]
+    pos = torch.tensor([hit], dtype=torch.int32, device=cuda)
+    plain_cache = {k: v.clone() for k, v in backend.cache.items()}
+    _build.reset_launches()
+    with torch.inference_mode():
+        got, _ = get_model(cfg).paged_step(params, backend.cache, toks, pos,
+                                           bt)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        want, _ = get_model(cfg, plain=True).paged_step(params, plain_cache,
+                                                        toks, pos, bt)
+    L = cfg.num_layers
+    assert launches["flash_attention"] == (L if suffix else 0)
+    assert launches["paged_decode_attention"] == (0 if suffix else L)
+    _close(got, want, 1e-3)
+    for key in ("k", "v"):
+        _close(backend.cache[key], plain_cache[key], 1e-3)
