@@ -95,7 +95,29 @@ Phases:
      page and GB/s beside predict_slo's handoff term, the bf16
      cross-pool first-token agreement (measured), f32 at L = 4 end to
      end with the cross-pool identity check, streams against colocated;
- 10. one JSON line with the kernel table, then the ok line.
+ 10. the moe and hybrid families at full width, after phase 6 (each model
+     freed before the next; peak device memory logged per model):
+     deepseek-moe-16b (28 layers, 64 routed experts top-6 and 2 shared)
+     and hymba-1.5b (32 layers, attention heads beside selective-SSM
+     heads, a window of 1024), bf16 from seed 0: (a) the engine, greedy
+     tokens equal at decode_chunk 1 and 8; (b) the contiguous Scheduler at
+     4 slots over the trace's first 5 requests (a slot refilled while the
+     others decode; hymba: two more prompts of 1100 and 1500 tokens, past
+     the window) against solo batch-1 engine runs, streams equal, the MoE
+     pairs each prefill drops logged and none dropped in decode; every
+     run's launches equal their formula (hymba: 2L more B1, its branch
+     norms); (c) the kernel path against the plain path, teacher-forced,
+     beside the yardstick (f64 attention), with the routing decisions
+     whose expert set differs counted; (d) a decode step's breakdown
+     (deepseek: the MoE FFN's device ms beside the step's bytes bound;
+     hymba also a 256-token prefill with the selective scan's share of
+     host wall and device busy); (e) f32, deepseek at L = 4 and hymba at
+     full depth: greedy tokens kernel path == plain, hymba's on prompts
+     that cross its window during decode and past it at prefill; (f)
+     before the models, B2 and B3 at both models' head shapes against
+     their plain versions, bf16 and f32, hymba's windowed prompts and
+     wrapped rings included;
+ 11. one JSON line with the kernel table, then the ok line.
 
 It imports nothing of JAX, exits non-zero with no ok line when there is no
 card or when it is not inside a checkout of the repository, and lets every
@@ -1043,6 +1065,11 @@ LOGIT_DRIFT_CEILING = 0.5     # max |logit difference|, kernel vs plain
 # bf16: the plain path rounds the scores and the probabilities to bf16
 # (as the JAX package does) where the kernels keep them in f32, and the
 # difference compounds over 28 layers; logits have unit scale here.
+# Where a model misses the floor or the ceiling for a reason the yardstick
+# of its family shows (a more exact plain path moves it as far), the
+# kernel path is held to land no further from the plain path than that
+# yardstick does, within this margin in top-1 match and in max drift.
+YARDSTICK_MARGIN = 0.05
 
 
 def smoke_trace(cfg):
@@ -1088,7 +1115,8 @@ def require_all_finished(what, trace, report):
 
 
 def expect_launches(what, counts, L, passes, flash, decode, paged, t=1,
-                    quant=None, quant_steps=0, scan=0, p=1, cp=0, c=1):
+                    quant=None, quant_steps=0, scan=0, p=1, cp=0, c=1,
+                    branch=0):
     """The launches of one run: 2L+1 norm sites per forward pass (run once
     on the TP group at any t), layer 0's ln1 a B1 and the other 2L an
     add_rms_norm (each closes a residual add), one B2 per layer and rank of
@@ -1106,11 +1134,12 @@ def expect_launches(what, counts, L, passes, flash, decode, paged, t=1,
     each shard's 2L norm sites (layer 0's ln1 a B1, 2L - 1 add_rms_norm),
     one B2 per layer, rank and shard, and B1 once at the head on the row
     the CP all-reduce hands it: c + 1 B1, c(2L - 1) add_rms_norm and
-    L·t·c B2 a pass."""
+    L·t·c B2 a pass.  ``branch`` B1 more per layer of every pass are the
+    hybrid family's branch norms (ln_attn, ln_ssm: 2)."""
     ar = 2 * L * quant_steps if quant else 0
     int4, int8 = (ar, 0) if quant == "int4" else (0, ar)
     hops = (p - 1) * quant_steps if int8 else 0
-    want = {"rmsnorm": passes + cp * (c + 1),
+    want = {"rmsnorm": passes * (1 + branch * L) + cp * (c + 1),
             "add_rms_norm": 2 * L * passes - int8 + hops + cp * c * (2 * L - 1),
             "dequantize_add_rms_norm": int8 - hops,
             "flash_attention": L * t * (flash + c * cp),
@@ -1220,12 +1249,15 @@ def serving_phase(dev, smi):
     return params, totals, reports["contiguous"]
 
 
-def decode_breakdown(dev, model, params, smi, what: str, steps: int = 8):
+def decode_breakdown(dev, model, params, smi, what: str, steps: int = 8,
+                     ranged: str = None):
     """Where one decode step's time goes at 4 slots: host wall per step
     (synchronised, no profiler), the device's busy time per step from
     torch.profiler's kernel records (``device_busy_us``; idle share = 1 -
     busy / wall), the hand-written kernels' launches per step and the
-    device kernels per step the profiler saw."""
+    device kernels per step the profiler saw; with ``ranged`` (a
+    ``record_function`` range of RANGES the caller wraps a function in)
+    also that range's host and device ms per step (``range_times``)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import _build
 
@@ -1272,6 +1304,14 @@ def decode_breakdown(dev, model, params, smi, what: str, steps: int = 8):
         f"hand-written kernel launches {ours:.0f}/step, device kernels "
         f"{kernels:.0f}/step (profiler), split-KV decode pair (split + "
         f"combine) {pair / 1e3 / steps:.3f} ms/step ({smi})")
+    if ranged:
+        host_ms, dev_ms = (v / steps for v in range_times(prof, ranged))
+        log(f"[decode step {what}] {ranged}: device {dev_ms:.3f} ms/step = "
+            f"{dev_ms / busy_ms:.3f} of device busy"
+            if dev_ms > 0 else f"[decode step {what}] {ranged}: device time "
+            "not measured (no device time under the range)")
+        log(f"[decode step {what}] {ranged}: host {host_ms:.3f} ms/step "
+            "(profiled)")
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     for e in top:
         log(f"    device {e.self_device_time_total / 1e3 / steps:8.3f} "
@@ -1285,7 +1325,7 @@ def decode_breakdown(dev, model, params, smi, what: str, steps: int = 8):
 
 # record_function labels of the breakdowns: on the card the profiler shows
 # each as a span from its first to its last device record, gaps included
-RANGES = ("pp.boundary_hop", "cp.ring")
+RANGES = ("pp.boundary_hop", "cp.ring", "moe.ffn", "hybrid.scan")
 
 
 def _on_card(e) -> bool:
@@ -1322,11 +1362,15 @@ def device_busy_us(prof):
 
 
 def prefill_breakdown(dev, model, params, smi, S: int = 333,
-                      kernel: str = "flash_prefill", label: str = "B2"):
+                      kernel: str = "flash_prefill", label: str = "B2",
+                      ranged: str = None):
     """One full-width prefill pass of one S-token prompt: host wall
     (synchronised, no profiler), device busy from torch.profiler's kernel
     records (``device_busy_us``), and one kernel's share of it (the
-    records whose name holds ``kernel``: B2's flash_prefill by default)."""
+    records whose name holds ``kernel``: B2's flash_prefill by default);
+    with ``ranged`` (a ``record_function`` range of RANGES the caller
+    wraps a function in) also that range's share of the profiled pass's
+    host wall and of device busy (``range_times``)."""
     from torch.profiler import ProfilerActivity, profile
 
     prompt = torch.randint(2, model.cfg.vocab_size, (1, S), device=dev,
@@ -1340,8 +1384,10 @@ def prefill_breakdown(dev, model, params, smi, S: int = 333,
         wall_ms = 1e3 * (time.perf_counter() - t0)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             model.prefill(params, prompt, 1024)
             torch.cuda.synchronize()
+            prof_ms = 1e3 * (time.perf_counter() - t0)
     events = device_events(prof)
     busy_us, summed_us = device_busy_us(prof)
     busy_ms = busy_us / 1e3
@@ -1357,6 +1403,14 @@ def prefill_breakdown(dev, model, params, smi, S: int = 333,
         f"{sum(e.count for e in mine)} launches = {mine_ms / busy_ms:.3f} "
         f"of device busy, device idle share {1 - busy_ms / wall_ms:.3f} "
         f"({smi})")
+    if ranged:
+        host_ms, dev_ms = range_times(prof, ranged)
+        log(f"[prefill pass] {ranged}: host {host_ms:.3f} ms = "
+            f"{host_ms / prof_ms:.3f} of the profiled pass's host wall "
+            f"({prof_ms:.3f} ms), device "
+            + (f"{dev_ms:.3f} ms = {dev_ms / busy_ms:.3f} of device busy"
+               if dev_ms > 0 else "time not measured (no device time under "
+               "the range)"))
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"    device {e.self_device_time_total / 1e3:8.3f} ms "
             f"{e.count:5d}x  {e.key[:90]}")
@@ -1699,12 +1753,11 @@ RWKV_ARCH = "rwkv6-7b"
 # ulp apart; with random weights the model amplifies that over 32 layers
 # and 129 positions.  The yardstick is the plain path with an exact (f64)
 # recurrence, which moves it as far: the kernel path is held to land no
-# further from the plain path than the yardstick does, within RWKV_MARGIN
-# in top-1 match and in max drift.  Measured on the card (chip_smoke.py,
+# further from the plain path than the yardstick does, within
+# YARDSTICK_MARGIN in top-1 match and in max drift.  Measured on the card (chip_smoke.py,
 # NVIDIA H100 80GB HBM3, 700.00 W, seed 0): kernel path vs plain 0.8372 /
 # 0.3994, exact recurrence vs plain 0.8605 / 0.4118 (top-1 match / max
 # drift).
-RWKV_MARGIN = 0.05
 
 
 def wkv6_exact(r, k, v, w, u, state):
@@ -1807,8 +1860,8 @@ def rwkv_phase(dev, smi):
         f"vs plain (the yardstick): top-1 match {match:.4f}, max logit "
         f"drift {drift:.4f}")
     hold("bf16 rwkv6-7b kernel path (B1 + B10) vs plain, held to the "
-         f"yardstick's {match:.4f} / {drift:.4f} within {RWKV_MARGIN}", got,
-         ref, match - RWKV_MARGIN, drift + RWKV_MARGIN)
+         f"yardstick's {match:.4f} / {drift:.4f} within {YARDSTICK_MARGIN}",
+         got, ref, match - YARDSTICK_MARGIN, drift + YARDSTICK_MARGIN)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg32 = dataclasses.replace(cfg, num_layers=4, dtype="float32")
@@ -3015,6 +3068,470 @@ def failure_phase(dev, smi, params):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the moe and hybrid families at full width
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("deepseek-moe-16b", "hymba-1.5b")
+# of the smoke trace's 8: at 4 slots the fifth waits for a slot to free,
+# so a slot is refilled while the others decode (b)
+FAMILY_REQUESTS = 5
+FAMILY_NEW = 16              # engine tokens a prompt (a)
+FAMILY_LONG = (1100, 1500)   # hymba prompts past its window of 1024 (b)
+FAMILY_LONG_NEW = 8
+FAMILY_STEPS = 2             # decode steps timed and profiled in (d)
+FAMILY_SCAN_S = 256          # hymba's prefill breakdown (d)
+# hymba's f32 check (e): (prompts, length, new tokens); the first crosses
+# the window during decode (the ring wraps between steps), the second is
+# past it at prefill (B2's window binds, decode starts on a wrapped ring)
+FAMILY_F32_WINDOWED = ((2, 1000, 40), (1, 1500, 8))
+
+
+def family_kernel_rows(dev, rows):
+    """Phase 10(f): B2 and B3 at the shapes phase 10's models give them,
+    against their plain versions, bf16 and f32 — deepseek-moe-16b's
+    16/16 heads at D 128 (groups of 1) and hymba-1.5b's attention heads
+    at D 64 over its 5 KV heads: B2 on its 1100- and 1500-token prompts
+    with the window of 1024, B3 on the 1024-row ring at ragged lengths,
+    and B3 on rings built as the model builds them (``build_ring_cache``)
+    from 700 to 1500 positions, wrapped past 1024, against the plain
+    windowed prefill attention of the last query over the whole sequence.
+    Folds the errors into B2's and B3's rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ref as dref
+    from repro_torch.kernels.decode_attention.ops import decode_attention_cuda
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models.blocks import build_ring_cache
+    from repro_torch.models.hybrid import head_split
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    i32 = dict(device=dev, dtype=torch.int32)
+    log("[families kernels] B2 and B3 at phase 10's shapes")
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).replace("torch.", "")
+
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(dt)
+        err = {"flash_attention": 0.0, "decode_attention": 0.0}
+        for arch in FAMILY_ARCHS:
+            cfg = get_config(arch)
+            Hq = head_split(cfg)[0] if cfg.family == "hybrid" \
+                else cfg.num_heads
+            Hkv, D, win = cfg.num_kv_heads, cfg.head_dim, cfg.sliding_window
+            W = min(win or 1024, 1024)
+            for S in (FAMILY_LONG if win else (333,)):
+                q, k, v = randn(1, S, Hq, D), randn(1, S, Hkv, D), \
+                    randn(1, S, Hkv, D)
+                args = (q, k, v, torch.zeros(1, **i32),
+                        torch.full((1,), S, **i32), win)
+                err["flash_attention"] = max(err["flash_attention"], compare(
+                    f"B2 {arch} q[1,{S},{Hq},{D}] kv {Hkv} win={win}",
+                    flash_attention_cuda(*args), flash_attention_ref(*args),
+                    dname))
+            q = randn(4, Hq, D)
+            k, v = randn(4, W, Hkv, D), randn(4, W, Hkv, D)
+            lens = torch.tensor(DECODE_LENGTHS, **i32)
+            err["decode_attention"] = max(err["decode_attention"], compare(
+                f"B3 {arch} q[4,{Hq},{D}] kv[4,{W},{Hkv},{D}]",
+                decode_attention_cuda(q, k, v, lens),
+                dref.decode_attention_ref(q, k, v, lens), dname))
+            if win:
+                P = (700, 1024, 1025, 1500)
+                kf, vf = randn(4, P[-1], Hkv, D), randn(4, P[-1], Hkv, D)
+                rings = [build_ring_cache(kf[b:b + 1, :n], vf[b:b + 1, :n],
+                                          W) for b, n in enumerate(P)]
+                ck = torch.cat([r["k"] for r in rings])
+                cv = torch.cat([r["v"] for r in rings])
+                pos = torch.tensor(P, **i32)
+                err["decode_attention"] = max(err["decode_attention"], compare(
+                    f"B3 {arch} rings of {P} positions in {W} rows",
+                    decode_attention_cuda(q, ck, cv, pos.clamp(max=W)),
+                    flash_attention_ref(q[:, None], kf, vf, pos - 1, pos,
+                                        win)[:, 0], dname))
+        for name, e in err.items():
+            rows[name][dname]["err"] = max(rows[name][dname]["err"], e)
+    torch.cuda.synchronize()
+
+
+class RouteLog:
+    """Records the top-k expert ids of every ``moe.route`` call (sorted
+    per token, kept on the card) while active."""
+
+    def __init__(self):
+        from repro_torch.models import moe as moe_lib
+        self.lib, self.calls = moe_lib, []
+
+    def __enter__(self):
+        route = self.orig = self.lib.route
+
+        def logged(cfg, router, xf):
+            out = route(cfg, router, xf)
+            self.calls.append(torch.sort(out[1], dim=-1).values)
+            return out
+        self.lib.route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.lib.route = self.orig
+
+    def flips(self, other) -> tuple:
+        """(decisions whose expert set differs from ``other``'s, all
+        decisions): one decision per (position, layer)."""
+        if len(self.calls) != len(other.calls):
+            raise AssertionError(f"{len(self.calls)} routing calls against "
+                                 f"{len(other.calls)}")
+        a, b = torch.cat(self.calls), torch.cat(other.calls)
+        return int((a != b).any(-1).sum()), a.shape[0]
+
+
+class DropLog:
+    """Records (tokens of the call, dropped (token, expert) pairs) of every
+    ``moe.dispatch_plan`` call while active; the counts stay on the card
+    until read."""
+
+    def __init__(self):
+        from repro_torch.models import moe as moe_lib
+        self.lib, self.calls = moe_lib, []
+
+    def __enter__(self):
+        plan = self.orig = self.lib.dispatch_plan
+
+        def logged(top_i, num_experts, cap):
+            out = plan(top_i, num_experts, cap)
+            self.calls.append((top_i.shape[0], (~out[3]).sum()))
+            return out
+        self.lib.dispatch_plan = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.lib.dispatch_plan = self.orig
+
+    def per_pass(self, L: int):
+        """[(tokens, dropped pairs)] of each pass of L layers, in order."""
+        counts = torch.stack([n for _, n in self.calls]).cpu().tolist()
+        return [(self.calls[i][0], sum(counts[i:i + L]))
+                for i in range(0, len(counts), L)]
+
+
+def family_trace(cfg):
+    """The smoke trace's first FAMILY_REQUESTS requests, and on a windowed
+    family two prompts past the window (B2's window binds at their
+    prefill, B3's ring wraps)."""
+    import numpy as np
+    from repro_torch.runtime.request import Request
+
+    trace = smoke_trace(cfg)[:FAMILY_REQUESTS]
+    if cfg.sliding_window:
+        rng = np.random.default_rng(11)
+        trace += [Request(rid=len(trace) + i, prompt=rng.integers(
+            2, cfg.vocab_size, s).astype(np.int32),
+            max_new_tokens=FAMILY_LONG_NEW) for i, s in enumerate(FAMILY_LONG)]
+    return trace
+
+
+def step_bytes(cfg, params, slots: int = 4, depth: int = 130) -> dict:
+    """Bytes one decode step of ``slots`` sequences at position ~``depth``
+    must move: every block weight (the dense capacity buffer runs every
+    expert every step), the head, the slots' embedding rows and the KV
+    rows read; ``experts`` the routed experts' share."""
+    blocks = params["blocks"]
+    size = {k: t.numel() * t.element_size() for k, t in blocks.items()}
+    head = params.get("lm_head", params["embed"])
+    kv = (2 * cfg.num_layers * slots * min(depth, cfg.sliding_window or depth)
+          * cfg.num_kv_heads * cfg.head_dim * head.element_size())
+    emb = slots * cfg.d_model * params["embed"].element_size()
+    return {"step": sum(size.values()) + head.numel() * head.element_size()
+            + kv + emb,
+            "experts": sum(size.get(k, 0) for k in ("we1", "we2", "we3"))}
+
+
+def labelled(lib, name: str, label: str):
+    """Wrap ``lib.name`` in a ``record_function(label)`` range; returns a
+    callable that restores it."""
+    from torch.profiler import record_function
+    orig = getattr(lib, name)
+
+    def ranged(*a, **k):
+        with record_function(label):
+            return orig(*a, **k)
+    setattr(lib, name, ranged)
+    return lambda: setattr(lib, name, orig)
+
+
+def range_times(prof, label: str):
+    """(host ms, device ms) of the ``label`` ranges in a profiled window:
+    the host-side ranges' spans and the device time of the records
+    launched inside them (0 device ms: not measured)."""
+    host = [e for e in prof.events() if e.name == label and not _on_card(e)]
+    return (sum(e.time_range.elapsed_us() for e in host) / 1e3,
+            sum(e.device_time_total for e in host) / 1e3)
+
+
+def family_run(dev, smi, arch: str, totals):
+    """Phase 10 for one model: (a) the engine, (b) the contiguous
+    Scheduler against solo runs, (c) the kernel path against the plain
+    path, (d) the time breakdowns, (e) f32 kernel path == plain path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import blocks
+    from repro_torch.models import hybrid as hybrid_lib
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.transformer import get_model
+    from repro_torch.runtime.backends import make_backend
+    from repro_torch.runtime.engine import InferenceEngine
+    from repro_torch.runtime.scheduler import Scheduler
+
+    cfg = get_config(arch)
+    L, moe = cfg.num_layers, cfg.family == "moe"
+    branch = 2 if cfg.family == "hybrid" else 0
+    max_len = 2048 if cfg.sliding_window else 1024
+    tag = f"[{arch}]"
+
+    def drive(what, fn, **expect):
+        return drive_counted(f"{arch} {what}", fn, totals, L, branch=branch,
+                             **expect)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = get_model(cfg).init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in params["blocks"].values()) + sum(
+        params[k].numel() for k in ("embed", "lm_head", "final_norm"))
+    log(f"{tag} full width: L={L} d={cfg.d_model} heads={cfg.num_heads}/"
+        f"{cfg.num_kv_heads} D={cfg.head_dim} window={cfg.sliding_window} "
+        f"vocab={cfg.vocab_size} {cfg.dtype}, {n_params / 1e9:.3f} B "
+        f"parameters, init {time.perf_counter() - t0:.1f} s")
+    finite = FiniteLogits(get_model(cfg))
+    marks = [time.perf_counter()]
+
+    # (a) the engine: 2 prompts x 128 tokens, FAMILY_NEW new (two decode
+    # chunks at 8), decode_chunk 1 and 8
+    n = FAMILY_NEW
+    prompts = torch.randint(2, cfg.vocab_size, (2, 128),
+                            generator=torch.Generator().manual_seed(1))
+    outs = []
+    for chunk in (1, 8):
+        t0 = time.perf_counter()
+        outs.append(drive(f"engine chunk {chunk}", lambda: InferenceEngine(
+            cfg, params, max_len=1024, decode_chunk=chunk, device=dev)
+            .generate(prompts, max_new_tokens=n), passes=n, flash=1,
+            decode=n - 1, paged=0))
+        log(f"{tag} engine decode_chunk {chunk}: 2x128 -> 2x{n} tokens in "
+            f"{time.perf_counter() - t0:.3f} s ({smi})")
+    out = outs[0]
+    if tuple(out.shape) != (2, n) or int(out.min()) < 0 or \
+            int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{arch}: engine output {tuple(out.shape)} out "
+                             "of range")
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError(f"{arch}: decode_chunk 1 and 8 give other "
+                             "tokens")
+    marks.append(time.perf_counter())
+
+    # (b) the contiguous Scheduler at 4 slots against solo batch-1 runs
+    trace = family_trace(cfg)
+    backend = make_backend("gspmd", cfg, params, num_slots=4,
+                           max_len=max_len, device=dev)
+    drops = DropLog() if moe else None
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    if moe:
+        with drops:
+            report = Scheduler(backend).run(trace)
+    else:
+        report = Scheduler(backend).run(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    require_all_finished(f"{arch} contiguous", trace, report)
+    n_dec = sum(1 for r in report.steps if r.phase == "decode")
+    expect_launches(f"{arch} contiguous", counts, L,
+                    passes=len(trace) + n_dec, flash=len(trace),
+                    decode=n_dec, paged=0, branch=branch)
+    for k in totals:
+        totals[k] += counts[k]
+    first_done = min(m.finished for m in report.metrics)
+    refills = sum(m.admitted >= first_done for m in report.metrics)
+    log(f"{tag} serve contiguous: {len(report.metrics)} requests (prompts "
+        f"{sorted(len(r.prompt) for r in trace)}), {report.total_tokens} "
+        f"tokens, {n_dec} decode steps, {refills} admitted into a freed "
+        f"slot, in {wall:.2f} s ({smi})")
+    if not refills:
+        raise AssertionError(f"{arch}: no slot was refilled while others "
+                             "decoded")
+    log(f"{tag} serve contiguous summary {json.dumps(report.summary())}")
+    del backend
+    if moe:
+        passes = drops.per_pass(L)
+        dec = [n for t, n in passes if t == 4]
+        pre = [(t, n) for t, n in passes if t != 4]
+        log(f"{tag} MoE drops: prefill (prompt tokens, dropped (token, "
+            f"expert) pairs over {L} layers) {pre}; decode steps {len(dec)}, "
+            f"dropped {sum(dec)}")
+        if sum(dec):
+            raise AssertionError(f"{arch}: a 4-slot decode step dropped "
+                                 f"{sum(dec)} pairs (capacity 6 a expert)")
+    solo = {}
+
+    def solo_runs():
+        for req in trace:
+            solo[req.rid] = InferenceEngine(
+                cfg, params, max_len=max_len, device=dev).generate(
+                req.prompt[None], max_new_tokens=req.max_new_tokens)[0]
+    n_new = sum(r.max_new_tokens for r in trace)
+    t0 = time.perf_counter()
+    drive("solo engine runs", solo_runs, passes=n_new, flash=len(trace),
+          decode=n_new - len(trace), paged=0)
+    log(f"{tag} solo engine runs: {len(trace)} requests in "
+        f"{time.perf_counter() - t0:.2f} s")
+    streams = report.tokens_by_rid()
+    same = [r for r in streams if streams[r] == solo[r].tolist()]
+    for r in streams:
+        if r not in same:
+            a, b = streams[r], solo[r].tolist()
+            at = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            log(f"{tag} request {r}: stream differs from solo at token {at}")
+    log(f"{tag} contiguous streams equal to solo batch-1 engine runs: "
+        f"{len(same)}/{len(streams)} (bf16)")
+    if len(same) != len(streams):
+        raise AssertionError(f"{arch}: scheduler streams differ from solo")
+    n = finite.assert_all(f"{arch} serving")
+    log(f"{tag} {n} logit batches, all finite")
+    marks.append(time.perf_counter())
+
+    # (c) the kernel path against the plain path, teacher-forced, held to
+    # LOGIT_MATCH_FLOOR / LOGIT_DRIFT_CEILING.  A top-k choice is
+    # discontinuous in x, so a last-bit difference can send a token to
+    # another expert; where a family misses the floor it is held instead to
+    # land no further from the plain path than the yardstick (the plain
+    # path with f64 attention) does, within YARDSTICK_MARGIN, as rwkv6-7b is
+    # held.
+    prompt = torch.randint(2, cfg.vocab_size, (1, FORCED),
+                           generator=torch.Generator().manual_seed(2)).to(dev)
+    logs = [RouteLog() for _ in range(3)] if moe else None
+
+    def traced(i, fn):
+        if not moe:
+            return fn()
+        with logs[i]:
+            return fn()
+    ref = traced(0, lambda: teacher_forced(get_model(cfg, plain=True),
+                                           params, prompt, False))
+    got = traced(1, lambda: drive(
+        "teacher-forced", lambda: teacher_forced(get_model(cfg), params,
+                                                 prompt, False),
+        passes=1 + FORCED - SPLIT, flash=1, decode=FORCED - SPLIT, paged=0))
+    if moe:
+        flips, decisions = logs[1].flips(logs[0])
+        log(f"{tag} routing decisions (position, layer) whose top-"
+            f"{cfg.moe.top_k} expert set differs from the plain path's: "
+            f"kernel path {flips}/{decisions}")
+    what = f"bf16 {arch} kernel path (B1, add_rms_norm, B2 + B3) vs plain"
+    if not within(what, got, ref, LOGIT_MATCH_FLOOR, LOGIT_DRIFT_CEILING):
+        # the yardstick, run only where the floor or the ceiling is missed
+        plain_attention = blocks.gqa_attention
+        blocks.gqa_attention = gqa_attention_exact
+        try:
+            exact = traced(2, lambda: teacher_forced(
+                get_model(cfg, plain=True), params, prompt, False))
+        finally:
+            blocks.gqa_attention = plain_attention
+        y_match, y_drift = agreement(exact, ref)
+        log(f"[compare] bf16 {arch} plain path with f64 attention vs plain "
+            f"(the yardstick): top-1 match {y_match:.4f}, max logit drift "
+            f"{y_drift:.4f}")
+        if moe:
+            y_flips, _ = logs[2].flips(logs[0])
+            log(f"{tag} routing decisions whose expert set differs from the "
+                f"plain path's: yardstick {y_flips}/{decisions}")
+        hold(f"{what}, held to the yardstick's {y_match:.4f} / "
+             f"{y_drift:.4f} within {YARDSTICK_MARGIN}", got, ref,
+             y_match - YARDSTICK_MARGIN, y_drift + YARDSTICK_MARGIN)
+    marks.append(time.perf_counter())
+
+    # (d) time breakdowns
+    model = get_model(cfg)
+    size = step_bytes(cfg, params)
+    if moe:
+        restore = labelled(moe_lib, "moe_ffn", RANGES[2])
+        try:
+            decode_breakdown(dev, model, params, smi, arch, FAMILY_STEPS,
+                             ranged=RANGES[2])
+        finally:
+            restore()
+        log(f"{tag} decode step bytes bound: {size['step'] / 1e9:.2f} GB "
+            f"({size['experts'] / 1e9:.2f} GB of routed experts) at "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s = "
+            f"{1e3 * size['step'] / HBM_BYTES_PER_S:.3f} ms "
+            f"(experts {1e3 * size['experts'] / HBM_BYTES_PER_S:.3f} ms)")
+    else:
+        decode_breakdown(dev, model, params, smi, arch, FAMILY_STEPS)
+        restore = labelled(hybrid_lib, "selective_scan", RANGES[3])
+        try:
+            prefill_breakdown(dev, model, params, smi, FAMILY_SCAN_S,
+                              ranged=RANGES[3])
+        finally:
+            restore()
+    log(f"{tag} bf16 peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    del params, model, ref, got, logs
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+
+    # (e) f32: greedy tokens of the kernel path == the plain path's, moe
+    # at 4 layers (~11 GB; all 28 would not fit), hybrid at full depth on
+    # prompts across and past its window
+    torch.cuda.reset_peak_memory_stats(dev)
+    layers = 4 if moe else L
+    cfg32 = dataclasses.replace(cfg, num_layers=layers, dtype="float32")
+    p32 = get_model(cfg32).init(seed=3, device=dev)
+    gen = torch.Generator().manual_seed(4)
+    for n, S, new in (FAMILY_F32_WINDOWED if cfg.sliding_window
+                      else ((2, 128, 32),)):
+        prompts = torch.randint(2, cfg.vocab_size, (n, S), generator=gen)
+        a, b = (InferenceEngine(cfg32, p32, max_len=max_len, device=dev,
+                                plain=plain).generate(prompts,
+                                                      max_new_tokens=new)
+                for plain in (False, True))
+        same = bool(torch.equal(a, b))
+        log(f"[compare f32] {arch} L={layers} full width, greedy {n}x{S} -> "
+            f"{n}x{new} tokens kernel path == plain path: {same}; peak "
+            f"device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        if not same:
+            raise AssertionError(f"{arch} f32 greedy tokens differ between "
+                                 "the kernel and the plain path")
+    del p32
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+    log(f"{tag} " + ", ".join(f"({k}) {b - a:.1f} s" for k, a, b in zip(
+        "abcde", marks, marks[1:])))
+
+
+def families_phase(dev, smi, rows):
+    """Phase 10 (A11, part 1): B2 and B3 at the two models' shapes (f),
+    then deepseek-moe-16b and hymba-1.5b at full width, one after the
+    other, each freed before the next."""
+    from repro_torch.kernels import _build
+
+    torch.cuda.init()           # the allocator, for the peak memory stats
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    totals = {name: 0 for name in _build.LAUNCHES}
+    t_phase = time.perf_counter()
+    family_kernel_rows(dev, rows)
+    times = [f"(f) {time.perf_counter() - t_phase:.1f} s"]
+    for arch in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        family_run(dev, smi, arch, totals)
+        times.append(f"{arch} {time.perf_counter() - t0:.1f} s")
+    log(f"[families phase] {', '.join(times)}, "
+        f"{time.perf_counter() - t_phase:.1f} s; launches {totals}")
+    return totals
+
+
 _RMS = "src/repro/kernels/rmsnorm/rmsnorm_kernel.py:25"
 REPLACES = {
     "rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu", _RMS),
@@ -3114,6 +3631,8 @@ def main(argv=None) -> int:
         launches[name] += n
     del params, prompt, kernel_rows
     for name, n in rwkv_phase(dev, smi).items():
+        launches[name] += n
+    for name, n in families_phase(dev, smi, rows).items():
         launches[name] += n
 
     table = []

@@ -7,8 +7,9 @@ device.  Both packages keep one layout — ``blocks`` stacked on a leading
 [L, ...] axis, ``embed``, ``lm_head``, ``final_norm`` — so the bridge only
 checks shapes and types and moves the arrays.  Every leaf keeps the type
 the JAX pytree gives it: the model's type, or f32 for the ssm family's
-``w0`` and ``u``.  ``params_to_numpy`` is the inverse; a round trip is
-bitwise, bfloat16 included.
+``w0`` and ``u``, the moe family's ``router`` and the hybrid family's
+``b_dt``, ``A_log`` and ``D``.  ``params_to_numpy`` is the inverse; a
+round trip is bitwise, bfloat16 included.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import numpy as np
 import torch
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.models import hybrid as hybrid_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.transformer import resolve_device
@@ -35,22 +38,62 @@ def _ssm_block_shapes(cfg: ModelConfig) -> dict:
     return shapes
 
 
-def expected_shapes(cfg: ModelConfig) -> dict:
-    """Parameter name -> shape of a model of ``cfg`` (dense or ssm)."""
+def _attention_shapes(cfg: ModelConfig, n_heads: int) -> dict:
     h, L, d = cfg.d_model, cfg.num_layers, cfg.head_dim
+    return {"wq": (L, h, n_heads * d), "wk": (L, h, cfg.num_kv_heads * d),
+            "wv": (L, h, cfg.num_kv_heads * d), "wo": (L, n_heads * d, h)}
+
+
+def _mlp_shapes(cfg: ModelConfig, ff: int, prefix: str = "") -> dict:
+    h, L = cfg.d_model, cfg.num_layers
+    shapes = {"w1": (L, h, ff), "w2": (L, ff, h)}
+    if cfg.activation in ("swiglu", "geglu"):
+        shapes["w3"] = (L, h, ff)
+    return {prefix + k: v for k, v in shapes.items()}
+
+
+def _moe_block_shapes(cfg: ModelConfig) -> dict:
+    """The block parameters of ``moe.init_moe_blocks``."""
+    moe, h, L = cfg.moe, cfg.d_model, cfg.num_layers
+    E, f = moe.num_experts, moe.expert_d_ff
+    shapes = _attention_shapes(cfg, cfg.num_heads)
+    shapes.update(router=(L, h, E), we1=(L, E, h, f), we2=(L, E, f, h),
+                  we3=(L, E, h, f), ln1=(L, h), ln2=(L, h))
+    if moe.num_shared_experts:
+        shapes.update(_mlp_shapes(
+            cfg, moe.shared_d_ff * moe.num_shared_experts, "s"))
+    return shapes
+
+
+def _hybrid_block_shapes(cfg: ModelConfig) -> dict:
+    """The block parameters of ``hybrid.init_hybrid_blocks``."""
+    h, L = cfg.d_model, cfg.num_layers
+    n_attn, n_ssm = hybrid_lib.head_split(cfg)
+    di, N = n_ssm * cfg.head_dim, cfg.ssm.state_size
+    shapes = _attention_shapes(cfg, n_attn)
+    shapes.update(_mlp_shapes(cfg, cfg.d_ff))
+    shapes.update({name: (L, h) for name in ("ln1", "ln2", "ln_attn",
+                                             "ln_ssm")})
+    shapes.update(in_proj=(L, h, 2 * di), w_dt=(L, di, di), b_dt=(L, di),
+                  w_B=(L, di, N), w_C=(L, di, N), A_log=(L, di, N),
+                  D=(L, di), ssm_out=(L, di, h))
+    return shapes
+
+
+def expected_shapes(cfg: ModelConfig) -> dict:
+    """Parameter name -> shape of a model of ``cfg`` (dense, moe, ssm or
+    hybrid)."""
+    h, L = cfg.d_model, cfg.num_layers
     pv = cfg.padded_vocab
     if cfg.family == "ssm":
         blocks = _ssm_block_shapes(cfg)
+    elif cfg.family == "moe":
+        blocks = _moe_block_shapes(cfg)
+    elif cfg.family == "hybrid":
+        blocks = _hybrid_block_shapes(cfg)
     else:
-        blocks = {
-            "wq": (L, h, cfg.num_heads * d),
-            "wk": (L, h, cfg.num_kv_heads * d),
-            "wv": (L, h, cfg.num_kv_heads * d),
-            "wo": (L, cfg.num_heads * d, h),
-            "w1": (L, h, cfg.d_ff), "w2": (L, cfg.d_ff, h),
-            "ln1": (L, h), "ln2": (L, h)}
-        if cfg.activation in ("swiglu", "geglu"):
-            blocks["w3"] = (L, h, cfg.d_ff)
+        blocks = _attention_shapes(cfg, cfg.num_heads)
+        blocks.update(_mlp_shapes(cfg, cfg.d_ff), ln1=(L, h), ln2=(L, h))
     shapes = {"blocks": blocks, "final_norm": (h,), "embed": (pv, h)}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (h, pv)
@@ -59,9 +102,9 @@ def expected_shapes(cfg: ModelConfig) -> dict:
 
 def expected_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
     """The type of block parameter (or top-level leaf) ``name``."""
-    if cfg.family == "ssm" and name in ssm_lib.F32_PARAMS:
-        return torch.float32
-    return torch_dtype(cfg.dtype)
+    f32 = {"ssm": ssm_lib.F32_PARAMS, "moe": moe_lib.F32_PARAMS,
+           "hybrid": hybrid_lib.F32_PARAMS}.get(cfg.family, ())
+    return torch.float32 if name in f32 else torch_dtype(cfg.dtype)
 
 
 def _to_torch(a: np.ndarray) -> torch.Tensor:

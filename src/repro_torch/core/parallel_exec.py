@@ -730,6 +730,9 @@ class PipelineEngine:
                  quant_collectives: str = None,
                  quant_chunk: int = DEFAULT_QUANT_CHUNK, plain: bool = False,
                  device=None):
+        if cfg.family != "dense":
+            raise ValueError(f"PipelineEngine covers the dense family; "
+                             f"{cfg.name} is {cfg.family}")
         check_tp_config(cfg, t)
         if not 1 <= p <= cfg.num_layers:
             raise ValueError(f"p must be in [1, {cfg.num_layers}] for "

@@ -262,13 +262,17 @@ def gqa_attention(q, k, v, mask):
     return out.reshape(B, S, Hq, D)
 
 
-def init_attention(gen, cfg: ModelConfig, num_layers: int, dtype):
+def init_attention(gen, cfg: ModelConfig, num_layers: int, dtype,
+                   n_heads: int = None):
+    """wq/wk/wv/wo of ``n_heads`` query heads (default the config's; the
+    hybrid family's attention half has fewer)."""
+    n_heads = n_heads or cfg.num_heads
     h, d, L = cfg.d_model, cfg.head_dim, num_layers
     return {
-        "wq": dense_init(gen, (L, h, cfg.num_heads * d), dtype),
+        "wq": dense_init(gen, (L, h, n_heads * d), dtype),
         "wk": dense_init(gen, (L, h, cfg.num_kv_heads * d), dtype),
         "wv": dense_init(gen, (L, h, cfg.num_kv_heads * d), dtype),
-        "wo": dense_init(gen, (L, cfg.num_heads * d, h), dtype),
+        "wo": dense_init(gen, (L, n_heads * d, h), dtype),
     }
 
 

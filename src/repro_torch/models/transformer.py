@@ -1,9 +1,10 @@
 """Model trunk of the port: embedding, a loop over stacked blocks, final
 norm and head.
 
-Counterpart of ``repro.models.transformer`` for the dense and ssm
-(RWKV-6) families (the others are ROADMAP item A11); the block and its
-init are picked by ``cfg.family``, as the JAX package's ``_BLOCKS`` does.
+Counterpart of ``repro.models.transformer`` for the dense, moe, ssm
+(RWKV-6) and hybrid (hymba) families (encoder and vlm are ROADMAP item
+A11); the block and its init are picked by ``cfg.family``, as the JAX
+package's ``_BLOCKS`` does.
 Parameters keep the JAX package's layout — a dict with ``blocks`` stacked
 on a leading [L, ...] axis, ``embed`` [V_pad, h], ``lm_head`` [h, V_pad]
 and ``final_norm`` [h] — so ``repro_torch.bridge`` carries JAX weights
@@ -14,8 +15,10 @@ runs inside the norm after it (``blocks`` module doc); the values are the
 JAX package's chain, add then norm.
 
 Entry points:
+  forward(params, tokens)                full-sequence logits + aux loss
   prefill(params, tokens, max_len)       last-position logits + cache (a
-                                         ring KV cache, or the ssm state)
+                                         ring KV cache, the ssm state, or
+                                         both for the hybrid family)
   decode_step(params, cache, tokens, pos) one token against the cache
   decode_steps(..., num_tokens)          greedy multi-token decode
   paged_step(params, cache, tokens, pos, block_table)
@@ -31,13 +34,17 @@ import torch
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import blocks as blocks_lib
+from repro_torch.models import hybrid as hybrid_lib
 from repro_torch.models import layers as layers_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import add_norm, dense_init, torch_dtype
 
 _BLOCKS = {
     "dense": (blocks_lib.init_dense_blocks, blocks_lib.dense_block_apply),
+    "moe": (moe_lib.init_moe_blocks, moe_lib.moe_block_apply),
     "ssm": (ssm_lib.init_ssm_blocks, ssm_lib.ssm_block_apply),
+    "hybrid": (hybrid_lib.init_hybrid_blocks, hybrid_lib.hybrid_block_apply),
 }
 PORTED_FAMILIES = tuple(_BLOCKS)
 
@@ -78,8 +85,9 @@ class Model:
         if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
                 f"{cfg.name} is {cfg.family}: the port covers the "
-                f"{' and '.join(PORTED_FAMILIES)} families; the others are "
-                "ROADMAP item A11")
+                f"{', '.join(PORTED_FAMILIES)} families; encoder and vlm "
+                "are ROADMAP item A11, waiting for B2/B3 at head dims 80 "
+                "and 256 and for the bidirectional and prefix masks")
         self.cfg = cfg
         self.plain = bool(plain)
         self._init_blocks, self._block_apply = _BLOCKS[cfg.family]
@@ -116,14 +124,16 @@ class Model:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
         return x
 
-    def _head(self, params, carried):
-        """Logits [B, v] of the last position.  ``carried`` is the trunk's
-        (h, x) after the last layer: the final norm runs the last layer's
-        closing residual add, at the last position only."""
+    def _head(self, params, carried, last: bool = True):
+        """Logits [B, v] of the last position ([B, S, v] of every position
+        when ``last`` is False).  ``carried`` is the trunk's (h, x) after
+        the last layer: the final norm runs the last layer's closing
+        residual add."""
         cfg = self.cfg
         h, x = carried
-        _, x = add_norm(x[:, -1], None if h is None else h[:, -1],
-                        params["final_norm"], cfg.norm_eps, self.plain)
+        if last:
+            x, h = x[:, -1], None if h is None else h[:, -1]
+        _, x = add_norm(x, h, params["final_norm"], cfg.norm_eps, self.plain)
         if cfg.tie_embeddings:
             logits = x @ params["embed"].T
         else:
@@ -148,11 +158,30 @@ class Model:
                                  plain=self.plain, carry=True, **kw)
 
     # ---------------------------------------------------------- interface
+    def forward(self, params, tokens):
+        """tokens [B, S] -> (logits [B, S, v], aux): the full-sequence pass
+        (causal, with the window where the config has one) and no cache.
+        ``aux`` is the MoE router's auxiliary loss summed over the layers
+        (f32; 0 for the other families)."""
+        x = self._embed(params, tokens)
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        auxes = []
+        kw = {"aux_out": auxes} if self.cfg.family == "moe" else {}
+        x = (None, x)
+        for l in range(self.cfg.num_layers):
+            x, _ = self._block(self._layer(params, l), x, positions, **kw)
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        for a in auxes:
+            aux = aux + a
+        return self._head(params, x, last=False), aux
+
     def prefill(self, params, tokens, max_len: int):
         """tokens [B, S] -> (last-position logits [B, v], cache, S).  The
-        cache is the ring KV cache {k, v: [L, B, W, Hkv, D]} (dense) or
+        cache is the ring KV cache {k, v: [L, B, W, Hkv, D]} (dense, moe),
         the recurrent state {state [L, B, H, hs, hs] f32, tm_prev,
-        cm_prev [L, B, h]} (ssm)."""
+        cm_prev [L, B, h]} (ssm), or the ring KV cache and the selective
+        scan's state {k, v, ssm_state [L, B, di, N] f32} (hybrid)."""
         cfg = self.cfg
         L = cfg.num_layers
         x = self._embed(params, tokens)
@@ -173,14 +202,18 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int, device=None):
         """An empty cache for ``batch`` sequences: the ring KV cache
-        (dense) or the ssm state, whose size does not depend on
-        ``max_len``."""
+        (dense, moe), the ssm state, whose size does not depend on
+        ``max_len``, or both (hybrid)."""
         cfg = self.cfg
         device = resolve_device(device)
         if cfg.family == "ssm":
             return ssm_lib.init_ssm_cache(cfg, cfg.num_layers, batch,
                                           torch_dtype(cfg.dtype), device)
         w = self.cache_width(max_len)
+        if cfg.family == "hybrid":
+            return hybrid_lib.init_hybrid_cache(cfg, cfg.num_layers, batch,
+                                                w, torch_dtype(cfg.dtype),
+                                                device)
         shape = (cfg.num_layers, batch, w, cfg.num_kv_heads, cfg.head_dim)
         return {key: torch.zeros(shape, dtype=torch_dtype(cfg.dtype),
                                  device=device) for key in ("k", "v")}

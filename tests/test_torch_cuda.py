@@ -871,3 +871,137 @@ def test_warm_suffix_pass_matches_plain(cuda, suffix):
     _close(got, want, 1e-3)
     for key in ("k", "v"):
         _close(backend.cache[key], plain_cache[key], 1e-3)
+
+
+# the moe and hybrid families at reduced width; hymba's reduced head
+# dimension (66) is not one B2/B3 take, so its variant has D 64 and 8/2
+# heads (4 of them attention heads, in groups of 2, beside 4 SSM heads)
+FAMILIES = ["deepseek-moe-16b", "mixtral-8x22b", "hymba-1.5b"]
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the repository's root: the card tests hold the
+    families to its limits and its yardstick."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _family_cfg(arch, dtype):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).reduced(num_layers=3)
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, num_heads=8, num_kv_heads=2,
+                                  head_dim=64)
+    return dataclasses.replace(cfg, dtype=dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_kernel_path_matches_plain(cuda, arch):
+    """f32: engine greedy tokens of the kernel path (B1, add_rms_norm, B2
+    windowed past mixtral's and hymba's window of 64, B3 on the wrapped
+    ring) equal the plain path's, with the launches of the formula (hymba:
+    2L more B1 a pass, its branch norms).  bf16: teacher-forced next-token
+    logits (a 64-token prefill, 64 decode steps) within chip_smoke.py's
+    limits of the plain path's (the floor and ceiling, or the yardstick's
+    agreement within the margin)."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import blocks
+    from repro_torch.models.transformer import get_model
+    from repro_torch.runtime.engine import InferenceEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _family_cfg(arch, "float32")
+    L, branch = cfg.num_layers, 2 if cfg.family == "hybrid" else 0
+    params = get_model(cfg).init(seed=0, device=cuda)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(2, cfg.vocab_size, (2, 80), generator=g)
+    out = {}
+    for plain in (False, True):
+        _build.reset_launches()
+        out[plain] = InferenceEngine(cfg, params, max_len=128, device=cuda,
+                                     plain=plain).generate(
+            toks, max_new_tokens=16)
+        torch.cuda.synchronize()
+        if not plain:
+            launches = dict(_build.LAUNCHES)
+    assert torch.equal(out[False], out[True])
+    assert launches["rmsnorm"] == 16 * (1 + branch * L)
+    assert launches["add_rms_norm"] == 16 * 2 * L
+    assert launches["flash_attention"] == L
+    assert launches["decode_attention"] == 15 * L
+
+    cfg = _family_cfg(arch, "bfloat16")
+    params = get_model(cfg).init(seed=0, device=cuda)
+    prompt = torch.randint(2, cfg.vocab_size, (1, 128), generator=g).to(cuda)
+
+    def forced(model):
+        with torch.inference_mode():
+            logits, cache, _ = model.prefill(params, prompt[:, :64], 128)
+            got = [logits]
+            for i in range(64, 128):
+                logits, cache = model.decode_step(params, cache,
+                                                  prompt[:, i], i)
+                got.append(logits)
+        return torch.cat(got).float()
+
+    def agreement(got, ref):
+        return (float((got.argmax(-1) == ref.argmax(-1)).float().mean()),
+                float((got - ref).abs().max()))
+
+    cs = _chip_smoke()
+    ref = forced(get_model(cfg, plain=True))
+    match, drift = agreement(forced(get_model(cfg)), ref)
+    if match >= cs.LOGIT_MATCH_FLOOR and drift <= cs.LOGIT_DRIFT_CEILING:
+        return
+    plain_attention = blocks.gqa_attention
+    blocks.gqa_attention = cs.gqa_attention_exact
+    try:
+        y_match, y_drift = agreement(forced(get_model(cfg, plain=True)), ref)
+    finally:
+        blocks.gqa_attention = plain_attention
+    margin = cs.YARDSTICK_MARGIN
+    assert match >= y_match - margin and drift <= y_drift + margin, \
+        (match, drift, y_match, y_drift)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cf", [64.0, 1.0], ids=["dropless", "drops"])
+def test_moe_dispatch_and_combine_are_deterministic(cuda, cf):
+    """deepseek-moe-16b's routing (64 experts, top-6) at d 512, bf16, over
+    333 tokens: the routed experts run twice give bitwise-equal output and
+    aux loss (the combine is a gather, no atomics), and the card's
+    dispatch plan (kept pairs, buffer slots) equals the CPU's on the same
+    choices, drops included."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_lib
+
+    full = get_config("deepseek-moe-16b")
+    cfg = dataclasses.replace(full, num_layers=1, d_model=512,
+                              moe=dataclasses.replace(
+                                  full.moe, expert_d_ff=256,
+                                  capacity_factor=cf))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = {k: v[0] for k, v in moe_lib.init_moe_blocks(
+        gen, cfg, 1, torch.bfloat16).items()}
+    xf = torch.randn(333, 512, generator=gen, device=cuda).to(torch.bfloat16)
+    cap = moe_lib.moe_capacity(333, cfg)
+    with torch.inference_mode():
+        y1, a1 = moe_lib._moe_compute(cfg, p, xf, cap)
+        y2, a2 = moe_lib._moe_compute(cfg, p, xf, cap)
+        _, top_i, _ = moe_lib.route(cfg, p["router"], xf)
+        top_i = torch.sort(top_i, dim=-1).values
+        plan = moe_lib.dispatch_plan(top_i, 64, cap)
+        cpu = moe_lib.dispatch_plan(top_i.cpu(), 64, cap)
+    assert torch.equal(y1, y2) and torch.equal(a1, a2)
+    assert bool(torch.isfinite(y1).all())
+    for a, b in zip(plan, cpu):
+        assert torch.equal(a.cpu(), b)
+    assert bool((~plan[3]).any()) == (cf == 1.0)
