@@ -117,7 +117,25 @@ Phases:
      before the models, B2 and B3 at both models' head shapes against
      their plain versions, bf16 and f32, hymba's windowed prompts and
      wrapped rings included;
- 11. one JSON line with the kernel table, then the ok line.
+ 11. the encoder and vlm families at full width, after phase 10:
+     (a) beside phase 2, B2 in the bidirectional mask at hubert-xlarge's
+     q[2,1000,16,80] (and at a ragged KV length) and in the prefix mask at
+     paligemma-3b's q[1,256+64,8,256] over one KV head (and with a window
+     and a prefix off the 64-key grid), B3 at q[4,8,256] on the 1024-row
+     ring and B4 at D 256, against their plain versions in bf16 and f32,
+     each model's B2 and B3 timed beside its bound and SDPA;
+     (b) hubert-xlarge (48 layers, D 80), bf16 from seed 0: encode two
+     1000-frame clips and one of 1500 (L B2 a pass, no B3 or B4), the
+     per-frame argmax and max drift against the plain path beside the
+     yardstick, one pass's breakdown, f32 at L = 4 within 1e-4;
+     (c) paligemma-3b (18 layers, 8 query heads over 1 KV head at D 256)
+     with 256 image-prefix embeddings: generate on prompts of 16 and 64
+     text tokens, decode_chunk 1 == 8; teacher-forced kernel vs plain
+     beside the yardstick; its text requests through the contiguous
+     Scheduler against solo runs; f32 at L = 4, greedy tokens kernel ==
+     plain; (d) peak device memory and one prefill pass's breakdown per
+     model; every run's launches equal their formula;
+ 12. one JSON line with the kernel table, then the ok line.
 
 It imports nothing of JAX, exits non-zero with no ok line when there is no
 card or when it is not inside a checkout of the repository, and lets every
@@ -127,6 +145,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -519,6 +538,150 @@ def cp_kernel_rows(dev, iters: int, rows, times):
             f"{t['bound']:.4f} ms ({t['by']})  [{t['shape']}]")
 
 
+# phase 11(a): B2 and B3 at the encoder's and the vlm's shapes.  hubert:
+# two 20-second clips (1000 frames at 50 Hz), the second also at a ragged
+# KV length; paligemma: 256 image-prefix positions and 64 text tokens
+# over its one KV head, a window and a prefix off the tile grid besides;
+# B3 (and B4, which shares its template) at D 256 on the 1024-row ring
+ENC_VLM_B2 = (  # (what, B, S, Hq, Hkv, D, mode, prefix_len, window, kv_lens)
+    ("hubert-xlarge", 2, 1000, 16, 16, 80, "bidirectional", 0, None,
+     (1000, 1000)),
+    ("hubert-xlarge ragged", 2, 1000, 16, 16, 80, "bidirectional", 0, None,
+     (1000, 613)),
+    ("paligemma-3b", 1, 320, 8, 1, 256, "prefix", 256, None, (320,)),
+    ("prefix 200 window 100", 1, 320, 8, 1, 256, "prefix", 200, 100, (320,)),
+    ("prefix 77 window 50 D 80", 2, 333, 16, 16, 80, "prefix", 77, 50,
+     (333, 290)),
+)
+
+
+def sdpa_mask(S, T, mode, prefix_len, window, kv_lens, dev):
+    """The boolean [B, 1, S, T] mask SDPA takes for one B2 case."""
+    from repro_torch.models.layers import make_mask
+    m = make_mask(S, T, mode=mode, window=window, prefix_len=prefix_len,
+                  device=dev)
+    lens = torch.tensor(kv_lens, device=dev)
+    return (m[None] & (torch.arange(T, device=dev) < lens[:, None, None])
+            )[:, None]
+
+
+def encoder_vlm_kernel_rows(dev, iters: int, rows, times):
+    """Phase 11(a), run beside phase 2: B2 in the bidirectional and prefix
+    masks at hubert-xlarge's and paligemma-3b's head shapes (D 80 and 256,
+    ENC_VLM_B2), B3 at paligemma's q[4,8,256] on lengths 1/17/300/1024 of
+    a 1024-wide ring and B4 on the same rows in pages, against their plain
+    versions in bf16 and f32; then each model's B2 and B3 at its main
+    shape timed beside its bound and one SDPA call (``is_causal=False``
+    for the encoder, a boolean mask for the prefix, the mask at the
+    lengths for B3).  Folds the errors into the kernels' rows and the
+    times into ``times[name][dtype]["shapes"]``."""
+    from repro_torch.kernels.decode_attention import ref as dref
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention_cuda, paged_decode_attention_cuda)
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    i32 = dict(device=dev, dtype=torch.int32)
+    log("[encoder/vlm kernels] B2 bidirectional and prefix at D 80 and 256, "
+        "B3 and B4 at D 256")
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).replace("torch.", "")
+        esz = torch.empty((), dtype=dt).element_size()
+
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(dt)
+        err = {"flash_attention": 0.0, "decode_attention": 0.0,
+               "paged_decode_attention": 0.0}
+        timed = {}
+        for what, B, S, Hq, Hkv, D, mode, pl, win, lens in ENC_VLM_B2:
+            q, k, v = randn(B, S, Hq, D), randn(B, S, Hkv, D), \
+                randn(B, S, Hkv, D)
+            args = (q, k, v, torch.zeros(B, **i32), torch.tensor(lens, **i32),
+                    win, mode, pl)
+            err["flash_attention"] = max(err["flash_attention"], compare(
+                f"B2 {what} q[{B},{S},{Hq},{D}] kv {Hkv} {mode}",
+                flash_attention_cuda(*args),
+                flash_attention_ref(*args[:6], mode=mode, prefix_len=pl),
+                dname))
+            if what in ("hubert-xlarge", "paligemma-3b"):
+                mask = sdpa_mask(S, S, mode, pl, win, lens, dev)
+                timed[what] = (args, mask, int(mask.sum()) * Hq,
+                               f"q[{B},{S},{Hq},{D}] kv[{B},{S},{Hkv},{D}] "
+                               f"{mode}" + (f" {pl}" if pl else ""))
+        B, W, Hq, Hkv, D = 4, 1024, 8, 1, 256
+        q, k, v = randn(B, Hq, D), randn(B, W, Hkv, D), randn(B, W, Hkv, D)
+        lens = torch.tensor(DECODE_LENGTHS, **i32)
+        err["decode_attention"] = compare(
+            f"B3 paligemma-3b q[{B},{Hq},{D}] kv[{B},{W},{Hkv},{D}]",
+            decode_attention_cuda(q, k, v, lens),
+            dref.decode_attention_ref(q, k, v, lens), dname)
+        b3_args = (q, k, v, lens)
+        ps = 16
+        pages = torch.arange(1, 1 + B * W // ps, **i32).reshape(B, W // ps)
+        kp = torch.cat([torch.zeros_like(k[0, :ps]), k.reshape(-1, Hkv, D)]
+                       ).reshape(-1, ps, Hkv, D)
+        vp = torch.cat([torch.zeros_like(v[0, :ps]), v.reshape(-1, Hkv, D)]
+                       ).reshape(-1, ps, Hkv, D)
+        err["paged_decode_attention"] = compare(
+            f"B4 D 256 pages[{kp.shape[0]},{ps},{Hkv},{D}]",
+            paged_decode_attention_cuda(q, kp, vp, pages, lens),
+            dref.paged_decode_attention_ref(q, kp, vp, pages, lens), dname)
+        for name, e in err.items():
+            rows[name][dname]["err"] = max(rows[name][dname]["err"], e)
+        torch.cuda.synchronize()
+
+        # times: each model's B2, paligemma's B3
+        out = {}
+        for what, (args, mask, pairs, shape) in timed.items():
+            aq, ak, av = args[:3]
+            nbytes = (2 * aq.numel() + ak.numel() + av.numel()) * esz
+            sets = copies(args[:5], nbytes)
+            kw = dict(window=args[5], mode=args[6], prefix_len=args[7])
+            bidir = args[6] == "bidirectional" and bool(
+                args[4].eq(aq.shape[1]).all())
+            lib_sets = [tuple(a.transpose(1, 2).contiguous() for a in st[:3])
+                        + (None if bidir else mask,) for st in sets]
+            t = dict(
+                kernel=bench(lambda *a: flash_attention_cuda(*a, **kw), sets,
+                             iters),
+                plain=bench(lambda *a: flash_attention_ref(*a, **kw), sets,
+                            max(3, iters // 10)),
+                library=bench(lambda a, b, c, m: F.scaled_dot_product_attention(
+                    a, b, c, attn_mask=m, enable_gqa=True), lib_sets, iters),
+                shape=shape, library_call="SDPA, is_causal=False" if bidir
+                else "SDPA, boolean mask")
+            t["bound"], t["by"] = bound_ms(nbytes, 4.0 * aq.shape[-1] * pairs,
+                                           dname)
+            out[("flash_attention", what)] = t
+        args = b3_args
+        live = sum(min(x, W) for x in DECODE_LENGTHS)
+        nbytes = 2 * q.numel() * esz + 2 * live * Hkv * D * esz
+        sets = copies(args, sum(a.numel() * a.element_size() for a in args))
+        lib_sets = []
+        for a, kk, vv, d in sets:
+            m = (torch.arange(W, device=dev)[None, :]
+                 < d[:, None])[:, None, None, :]
+            lib_sets.append((a[:, :, None].contiguous(),
+                             kk.transpose(1, 2).contiguous(),
+                             vv.transpose(1, 2).contiguous(), m))
+        t = dict(
+            kernel=bench(decode_attention_cuda, sets, iters),
+            plain=bench(dref.decode_attention_ref, sets,
+                        max(3, iters // 10)),
+            library=bench(lambda a, b, c, m: F.scaled_dot_product_attention(
+                a, b, c, attn_mask=m, enable_gqa=True), lib_sets, iters),
+            shape=f"q[{B},{Hq},{D}] kv[{B},{W},{Hkv},{D}]",
+            library_call="SDPA, mask at the lengths")
+        t["bound"], t["by"] = bound_ms(nbytes, 4.0 * D * Hq * live, dname)
+        out[("decode_attention", "paligemma-3b")] = t
+        for (name, what), t in out.items():
+            times[name][dname].setdefault("shapes", {})[what] = t
+            log(f"  time {name} {what:<14s} {dname:8s} kernel "
+                f"{t['kernel']:.4f} ms  plain {t['plain']:.4f} ms  library "
+                f"{t['library']:.4f} ms ({t['library_call']})  bound "
+                f"{t['bound']:.4f} ms ({t['by']})  [{t['shape']}]")
+
 NORM_ROWS = (4, 333)    # a decode step's 4 slots, a 333-token prefill
 # the rows of each kernel's line in the kernel table: B1's and the add's
 # prefill shape; the dequantize variant runs only in decode steps
@@ -531,8 +694,11 @@ def norm_kernel_phase(dev, iters: int):
     dequantize_add_rms_norm (B9, the add and B1, int8 and fp8) against
     their plain versions: s bit for bit, n within the tolerance, and n bit
     for bit B1's of s (one reduction tree in the three kernels); at
-    llama32-3b's h (3072) and rwkv6-7b's (4096) on the 16-byte path, an
-    odd h and a row view off a 16-byte boundary on the element path, the
+    llama32-3b's h (3072), rwkv6-7b's (4096), hubert-xlarge's (1280: 160
+    or 320 16-byte vectors over 128 threads, spread unevenly) and
+    paligemma-3b's (2048, at a decode step's rows and a prefill's) on the
+    16-byte path, an odd h and a row view off a 16-byte boundary on the
+    element path, the
     last position of each prefill sequence (a row-strided view), in bf16
     and f32.  Times in bf16 at 4 and 333 rows of 3072, each beside its
     bound, the launch floor, the unfused chain it replaces (x + y then B1;
@@ -570,6 +736,10 @@ def norm_kernel_phase(dev, iters: int):
         for nrow, h, chunk, shifted in ((4, 3072, 128, False),
                                         (333, 3072, 128, False),
                                         (4, 4096, 128, False),
+                                        (4, 1280, 128, False),
+                                        (333, 1280, 128, False),
+                                        (4, 2048, 128, False),
+                                        (320, 2048, 128, False),
                                         (3, 201, 25, False),
                                         (5, 200, 25, False),
                                         (4, 3072, 128, True)):
@@ -1363,29 +1533,35 @@ def device_busy_us(prof):
 
 def prefill_breakdown(dev, model, params, smi, S: int = 333,
                       kernel: str = "flash_prefill", label: str = "B2",
-                      ranged: str = None):
-    """One full-width prefill pass of one S-token prompt: host wall
-    (synchronised, no profiler), device busy from torch.profiler's kernel
-    records (``device_busy_us``), and one kernel's share of it (the
-    records whose name holds ``kernel``: B2's flash_prefill by default);
-    with ``ranged`` (a ``record_function`` range of RANGES the caller
-    wraps a function in) also that range's share of the profiled pass's
-    host wall and of device busy (``range_times``)."""
+                      ranged: str = None, run=None):
+    """One full-width prefill pass of one S-token prompt (or ``run()``, a
+    pass of S positions the caller sets up): host wall (synchronised, no
+    profiler), device busy from torch.profiler's kernel records
+    (``device_busy_us``), and one kernel's share of it (the records whose
+    name holds ``kernel``: B2's flash_prefill by default); with
+    ``ranged`` (a ``record_function`` range of RANGES the caller wraps a
+    function in) also that range's share of the profiled pass's host wall
+    and of device busy (``range_times``).  Returns (host wall ms, device
+    busy ms, the kernel's device ms)."""
     from torch.profiler import ProfilerActivity, profile
 
-    prompt = torch.randint(2, model.cfg.vocab_size, (1, S), device=dev,
-                           generator=torch.Generator(dev).manual_seed(9))
+    if run is None:
+        prompt = torch.randint(2, model.cfg.vocab_size, (1, S), device=dev,
+                               generator=torch.Generator(dev).manual_seed(9))
+
+        def run():
+            model.prefill(params, prompt, 1024)
     with torch.inference_mode():
-        model.prefill(params, prompt, 1024)                  # warm-up
+        run()                                                # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model.prefill(params, prompt, 1024)
+        run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            model.prefill(params, prompt, 1024)
+            run()
             torch.cuda.synchronize()
             prof_ms = 1e3 * (time.perf_counter() - t0)
     events = device_events(prof)
@@ -1394,7 +1570,7 @@ def prefill_breakdown(dev, model, params, smi, S: int = 333,
     if busy_ms <= 0:
         log(f"[prefill pass] S={S}: host wall {wall_ms:.3f} ms; device busy: "
             "not measured (profiler recorded no device time)")
-        return
+        return wall_ms, None, None
     mine = [e for e in events if kernel in e.key]
     mine_ms = sum(e.self_device_time_total for e in mine) / 1e3
     log(f"[prefill pass] {model.cfg.name} S={S}, 1 prompt: host wall "
@@ -1414,6 +1590,7 @@ def prefill_breakdown(dev, model, params, smi, S: int = 333,
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"    device {e.self_device_time_total / 1e3:8.3f} ms "
             f"{e.count:5d}x  {e.key[:90]}")
+    return wall_ms, busy_ms, mine_ms
 
 
 # ---------------------------------------------------------------------------
@@ -1423,12 +1600,15 @@ def prefill_breakdown(dev, model, params, smi, S: int = 333,
 SPLIT, FORCED = 128, 256       # teacher-forced positions SPLIT-1 .. FORCED-1
 
 
-def teacher_forced(model, params, prompt, paged: bool):
+def teacher_forced(model, params, prompt, paged: bool, prefix_emb=None):
     """Next-token logits at positions SPLIT-1 .. FORCED-1 of ``prompt``
     [1, FORCED]: a prefill (or a paged chunk) of the first SPLIT tokens,
     then one decode step per remaining prompt token.  ``model`` is a
-    ``Model`` or a ``TPModel`` (the same interface)."""
+    ``Model`` or a ``TPModel`` (the same interface).  ``prefix_emb`` [1, P,
+    h] (a vlm's image prefix, contiguous only) goes before the tokens, so
+    token i sits at position P + i."""
     dev = prompt.device
+    npre = 0 if prefix_emb is None else prefix_emb.shape[1]
     rows = []
     with torch.inference_mode():
         if paged:
@@ -1440,8 +1620,9 @@ def teacher_forced(model, params, prompt, paged: bool):
             logits, cache = model.paged_step(params, cache,
                                              prompt[:, :SPLIT], pos, bt)
         else:
+            kw = {} if prefix_emb is None else {"prefix_emb": prefix_emb}
             logits, cache, _ = model.prefill(params, prompt[:, :SPLIT],
-                                             FORCED)
+                                             npre + FORCED, **kw)
         rows.append(logits)
         for i in range(SPLIT, FORCED):
             if paged:
@@ -1450,7 +1631,7 @@ def teacher_forced(model, params, prompt, paged: bool):
                                                  prompt[:, i:i + 1], pos, bt)
             else:
                 logits, cache = model.decode_step(params, cache,
-                                                  prompt[:, i], i)
+                                                  prompt[:, i], npre + i)
             rows.append(logits)
     return torch.cat(rows).float()
 
@@ -1479,6 +1660,17 @@ def hold(what, got, ref, floor: float, ceiling: float) -> None:
         raise AssertionError(f"{what}: drifted past its tolerance")
 
 
+def exact_attention(fn):
+    """fn() with the plain path's attention in f64 (the yardstick)."""
+    from repro_torch.models import blocks
+    plain_attention = blocks.gqa_attention
+    blocks.gqa_attention = gqa_attention_exact
+    try:
+        return fn()
+    finally:
+        blocks.gqa_attention = plain_attention
+
+
 def gqa_attention_exact(q, k, v, mask):
     """``layers.gqa_attention`` in f64 (scores, softmax, P·V), rounded once
     to the input type: the yardstick of how far an attention more exact
@@ -1498,7 +1690,6 @@ def model_compare_phase(dev, params):
     """Returns (prompt, the kernel path's contiguous teacher-forced
     logits), which the TP phase holds its engine to."""
     from repro_torch.configs import get_config
-    from repro_torch.models import blocks
     from repro_torch.models.transformer import get_model
     from repro_torch.runtime.engine import InferenceEngine
 
@@ -1508,13 +1699,8 @@ def model_compare_phase(dev, params):
     ref = teacher_forced(get_model(cfg, plain=True), params, prompt, False)
     # the yardstick (logged, holds nothing): the plain path with f64
     # attention against the plain path
-    plain_attention = blocks.gqa_attention
-    blocks.gqa_attention = gqa_attention_exact
-    try:
-        exact = teacher_forced(get_model(cfg, plain=True), params, prompt,
-                               False)
-    finally:
-        blocks.gqa_attention = plain_attention
+    exact = exact_attention(lambda: teacher_forced(
+        get_model(cfg, plain=True), params, prompt, False))
     match, drift = agreement(exact, ref)
     log(f"[compare] bf16 {ARCH} plain path with f64 attention vs plain (the "
         f"yardstick), {ref.shape[0]} teacher-forced positions: top-1 match "
@@ -3268,19 +3454,99 @@ def range_times(prof, label: str):
             sum(e.device_time_total for e in host) / 1e3)
 
 
+def _full_width(dev, cfg, tag):
+    """Seeded bf16 weights of ``cfg`` on the card, after freeing the
+    allocator's cache and resetting the peak."""
+    from repro_torch.models.transformer import get_model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = get_model(cfg).init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in params["blocks"].values()) + sum(
+        t.numel() for k, t in params.items() if k != "blocks")
+    log(f"{tag} full width: L={cfg.num_layers} d={cfg.d_model} heads="
+        f"{cfg.num_heads}/{cfg.num_kv_heads} D={cfg.head_dim} window="
+        f"{cfg.sliding_window} vocab={cfg.vocab_size} {cfg.dtype}, {n_params / 1e9:.3f} B parameters, "
+        f"init {time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def serve_against_solo(dev, smi, cfg, params, trace, totals, max_len: int,
+                       branch: int = 0, ctx=contextlib.nullcontext()):
+    """The contiguous Scheduler at 4 slots over ``trace`` (run inside
+    ``ctx``), every request finished, a slot refilled while the others
+    decode and the launches of the formula; then each request alone
+    through the engine at batch 1, its stream equal to the scheduler's."""
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.backends import make_backend
+    from repro_torch.runtime.engine import InferenceEngine
+    from repro_torch.runtime.scheduler import Scheduler
+
+    arch, L, tag = cfg.name, cfg.num_layers, f"[{cfg.name}]"
+    backend = make_backend("gspmd", cfg, params, num_slots=4,
+                           max_len=max_len, device=dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with ctx:
+        report = Scheduler(backend).run(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    require_all_finished(f"{arch} contiguous", trace, report)
+    n_dec = sum(1 for r in report.steps if r.phase == "decode")
+    expect_launches(f"{arch} contiguous", counts, L,
+                    passes=len(trace) + n_dec, flash=len(trace),
+                    decode=n_dec, paged=0, branch=branch)
+    for k in totals:
+        totals[k] += counts[k]
+    first_done = min(m.finished for m in report.metrics)
+    refills = sum(m.admitted >= first_done for m in report.metrics)
+    log(f"{tag} serve contiguous: {len(report.metrics)} requests (prompts "
+        f"{sorted(len(r.prompt) for r in trace)}), {report.total_tokens} "
+        f"tokens, {n_dec} decode steps, {refills} admitted into a freed "
+        f"slot, in {wall:.2f} s ({smi})")
+    if not refills:
+        raise AssertionError(f"{arch}: no slot was refilled while others "
+                             "decoded")
+    log(f"{tag} serve contiguous summary {json.dumps(report.summary())}")
+    del backend
+    solo = {}
+
+    def solo_runs():
+        for req in trace:
+            solo[req.rid] = InferenceEngine(
+                cfg, params, max_len=max_len, device=dev).generate(
+                req.prompt[None], max_new_tokens=req.max_new_tokens)[0]
+    n_new = sum(r.max_new_tokens for r in trace)
+    t0 = time.perf_counter()
+    drive_counted(f"{arch} solo engine runs", solo_runs, totals, L,
+                  branch=branch, passes=n_new, flash=len(trace),
+                  decode=n_new - len(trace), paged=0)
+    log(f"{tag} solo engine runs: {len(trace)} requests in "
+        f"{time.perf_counter() - t0:.2f} s")
+    streams = report.tokens_by_rid()
+    same = [r for r in streams if streams[r] == solo[r].tolist()]
+    for r in streams:
+        if r not in same:
+            a, b = streams[r], solo[r].tolist()
+            at = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            log(f"{tag} request {r}: stream differs from solo at token {at}")
+    log(f"{tag} contiguous streams equal to solo batch-1 engine runs: "
+        f"{len(same)}/{len(streams)} (bf16)")
+    if len(same) != len(streams):
+        raise AssertionError(f"{arch}: scheduler streams differ from solo")
+
+
 def family_run(dev, smi, arch: str, totals):
     """Phase 10 for one model: (a) the engine, (b) the contiguous
     Scheduler against solo runs, (c) the kernel path against the plain
     path, (d) the time breakdowns, (e) f32 kernel path == plain path."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import _build
-    from repro_torch.models import blocks
     from repro_torch.models import hybrid as hybrid_lib
     from repro_torch.models import moe as moe_lib
     from repro_torch.models.transformer import get_model
-    from repro_torch.runtime.backends import make_backend
     from repro_torch.runtime.engine import InferenceEngine
-    from repro_torch.runtime.scheduler import Scheduler
 
     cfg = get_config(arch)
     L, moe = cfg.num_layers, cfg.family == "moe"
@@ -3292,17 +3558,7 @@ def family_run(dev, smi, arch: str, totals):
         return drive_counted(f"{arch} {what}", fn, totals, L, branch=branch,
                              **expect)
 
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    params = get_model(cfg).init(seed=0, device=dev)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in params["blocks"].values()) + sum(
-        params[k].numel() for k in ("embed", "lm_head", "final_norm"))
-    log(f"{tag} full width: L={L} d={cfg.d_model} heads={cfg.num_heads}/"
-        f"{cfg.num_kv_heads} D={cfg.head_dim} window={cfg.sliding_window} "
-        f"vocab={cfg.vocab_size} {cfg.dtype}, {n_params / 1e9:.3f} B "
-        f"parameters, init {time.perf_counter() - t0:.1f} s")
+    params = _full_width(dev, cfg, tag)
     finite = FiniteLogits(get_model(cfg))
     marks = [time.perf_counter()]
 
@@ -3331,38 +3587,9 @@ def family_run(dev, smi, arch: str, totals):
     marks.append(time.perf_counter())
 
     # (b) the contiguous Scheduler at 4 slots against solo batch-1 runs
-    trace = family_trace(cfg)
-    backend = make_backend("gspmd", cfg, params, num_slots=4,
-                           max_len=max_len, device=dev)
-    drops = DropLog() if moe else None
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    if moe:
-        with drops:
-            report = Scheduler(backend).run(trace)
-    else:
-        report = Scheduler(backend).run(trace)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = dict(_build.LAUNCHES)
-    require_all_finished(f"{arch} contiguous", trace, report)
-    n_dec = sum(1 for r in report.steps if r.phase == "decode")
-    expect_launches(f"{arch} contiguous", counts, L,
-                    passes=len(trace) + n_dec, flash=len(trace),
-                    decode=n_dec, paged=0, branch=branch)
-    for k in totals:
-        totals[k] += counts[k]
-    first_done = min(m.finished for m in report.metrics)
-    refills = sum(m.admitted >= first_done for m in report.metrics)
-    log(f"{tag} serve contiguous: {len(report.metrics)} requests (prompts "
-        f"{sorted(len(r.prompt) for r in trace)}), {report.total_tokens} "
-        f"tokens, {n_dec} decode steps, {refills} admitted into a freed "
-        f"slot, in {wall:.2f} s ({smi})")
-    if not refills:
-        raise AssertionError(f"{arch}: no slot was refilled while others "
-                             "decoded")
-    log(f"{tag} serve contiguous summary {json.dumps(report.summary())}")
-    del backend
+    drops = DropLog() if moe else contextlib.nullcontext()
+    serve_against_solo(dev, smi, cfg, params, family_trace(cfg), totals,
+                       max_len, branch, drops)
     if moe:
         passes = drops.per_pass(L)
         dec = [n for t, n in passes if t == 4]
@@ -3373,30 +3600,6 @@ def family_run(dev, smi, arch: str, totals):
         if sum(dec):
             raise AssertionError(f"{arch}: a 4-slot decode step dropped "
                                  f"{sum(dec)} pairs (capacity 6 a expert)")
-    solo = {}
-
-    def solo_runs():
-        for req in trace:
-            solo[req.rid] = InferenceEngine(
-                cfg, params, max_len=max_len, device=dev).generate(
-                req.prompt[None], max_new_tokens=req.max_new_tokens)[0]
-    n_new = sum(r.max_new_tokens for r in trace)
-    t0 = time.perf_counter()
-    drive("solo engine runs", solo_runs, passes=n_new, flash=len(trace),
-          decode=n_new - len(trace), paged=0)
-    log(f"{tag} solo engine runs: {len(trace)} requests in "
-        f"{time.perf_counter() - t0:.2f} s")
-    streams = report.tokens_by_rid()
-    same = [r for r in streams if streams[r] == solo[r].tolist()]
-    for r in streams:
-        if r not in same:
-            a, b = streams[r], solo[r].tolist()
-            at = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
-            log(f"{tag} request {r}: stream differs from solo at token {at}")
-    log(f"{tag} contiguous streams equal to solo batch-1 engine runs: "
-        f"{len(same)}/{len(streams)} (bf16)")
-    if len(same) != len(streams):
-        raise AssertionError(f"{arch}: scheduler streams differ from solo")
     n = finite.assert_all(f"{arch} serving")
     log(f"{tag} {n} logit batches, all finite")
     marks.append(time.perf_counter())
@@ -3431,13 +3634,8 @@ def family_run(dev, smi, arch: str, totals):
     what = f"bf16 {arch} kernel path (B1, add_rms_norm, B2 + B3) vs plain"
     if not within(what, got, ref, LOGIT_MATCH_FLOOR, LOGIT_DRIFT_CEILING):
         # the yardstick, run only where the floor or the ceiling is missed
-        plain_attention = blocks.gqa_attention
-        blocks.gqa_attention = gqa_attention_exact
-        try:
-            exact = traced(2, lambda: teacher_forced(
-                get_model(cfg, plain=True), params, prompt, False))
-        finally:
-            blocks.gqa_attention = plain_attention
+        exact = exact_attention(lambda: traced(2, lambda: teacher_forced(
+            get_model(cfg, plain=True), params, prompt, False)))
         y_match, y_drift = agreement(exact, ref)
         log(f"[compare] bf16 {arch} plain path with f64 attention vs plain "
             f"(the yardstick): top-1 match {y_match:.4f}, max logit drift "
@@ -3532,6 +3730,235 @@ def families_phase(dev, smi, rows):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the encoder and vlm families at full width
+# ---------------------------------------------------------------------------
+
+ENC_CLIPS = ((2, 1000), (1, 1500))  # (clips, frames): 20 s and 30 s at 50 Hz
+VLM_ARCH, ENC_ARCH = "paligemma-3b", "hubert-xlarge"
+VLM_TEXT = (16, 64)         # text tokens after the 256 image-prefix positions
+VLM_NEW = 16                # greedy tokens a prompt (two decode chunks at 8)
+VLM_F32 = (2, 48, 16)       # f32 at L = 4: (prompts, text tokens, new tokens)
+
+
+def _held_to_plain(what, got, ref, exact):
+    """The kernel path's logits against the plain path's, beside the
+    yardstick (``exact``: the plain path with f64 attention): held to
+    LOGIT_MATCH_FLOOR / LOGIT_DRIFT_CEILING, or, where it misses them, to
+    land no further from the plain path than the yardstick within
+    YARDSTICK_MARGIN."""
+    y_match, y_drift = agreement(exact, ref)
+    log(f"[compare] {what}: yardstick (the plain path with f64 attention) "
+        f"vs plain: top-1 match {y_match:.4f}, max logit drift "
+        f"{y_drift:.4f}; the plain path's largest |logit| "
+        f"{float(ref.abs().max()):.1f}")
+    if not within(what, got, ref, LOGIT_MATCH_FLOOR, LOGIT_DRIFT_CEILING):
+        hold(f"{what}, held to the yardstick's {y_match:.4f} / "
+             f"{y_drift:.4f} within {YARDSTICK_MARGIN}", got, ref,
+             y_match - YARDSTICK_MARGIN, y_drift + YARDSTICK_MARGIN)
+
+
+def encoder_run(dev, smi, totals):
+    """Phase 11(b): hubert-xlarge at full width, bf16 from seed 0: encode
+    two 1000-frame clips and one of 1500 frames (1 B1, 2L add_rms_norm and
+    L B2 bidirectional a pass; no B3, no B4), the logits' argmax over
+    frames and max drift against the plain path's beside the yardstick;
+    one pass's breakdown; f32 at L = 4, logits within 1e-4 of the plain
+    path's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import get_model
+    from repro_torch.runtime.engine import InferenceEngine
+
+    cfg = get_config(ENC_ARCH)
+    L, tag = cfg.num_layers, f"[{ENC_ARCH}]"
+    params = _full_width(dev, cfg, tag)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    clips = [torch.randn((n, S, cfg.d_model), generator=gen, device=dev
+                         ).to(torch.bfloat16) for n, S in ENC_CLIPS]
+    eng = InferenceEngine(cfg, params, device=dev)
+    t0 = time.perf_counter()
+    got = drive_counted(f"{ENC_ARCH} encode", lambda: [
+        eng.encode(c) for c in clips], totals, L, passes=len(clips),
+        flash=len(clips), decode=0, paged=0)
+    log(f"{tag} encode {' + '.join(f'{n}x{S}' for n, S in ENC_CLIPS)} "
+        f"frames in {time.perf_counter() - t0:.3f} s ({smi})")
+    for out, (n, S) in zip(got, ENC_CLIPS):
+        if tuple(out.shape) != (n, S, cfg.padded_vocab) or \
+                not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{ENC_ARCH}: encode gave "
+                                 f"{tuple(out.shape)} or non-finite logits")
+    plain = InferenceEngine(cfg, params, device=dev, plain=True)
+
+    def frames(outs):
+        return torch.cat([o[..., :cfg.vocab_size].reshape(-1, cfg.vocab_size)
+                          for o in outs]).float()
+    ref = frames([plain.encode(c) for c in clips])
+    exact = frames(exact_attention(lambda: [plain.encode(c)
+                                            for c in clips]))
+    _held_to_plain(f"bf16 {ENC_ARCH} encode (B1, add_rms_norm, B2 "
+                   f"bidirectional at D 80) vs plain, per frame",
+                   frames(got), ref, exact)
+    del got, ref, exact
+    prefill_breakdown(dev, get_model(cfg), params, smi, ENC_CLIPS[0][1],
+                      run=lambda: eng.encode(clips[0][:1]))
+    log(f"{tag} bf16 peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    del params, eng, plain, clips
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, num_layers=4, dtype="float32")
+    p32 = get_model(cfg32).init(seed=3, device=dev)
+    f = torch.randn((2, 1000, cfg.d_model), generator=gen, device=dev)
+    a, b = (InferenceEngine(cfg32, p32, device=dev, plain=plain).encode(f)
+            for plain in (False, True))
+    compare(f"{ENC_ARCH} f32 L=4 encode logits, kernel vs plain", a, b,
+            "float32")
+    del p32, a, b
+    torch.cuda.empty_cache()
+
+
+def vlm_run(dev, smi, totals):
+    """Phase 11(c): paligemma-3b at full width, bf16 from seed 0, with 256
+    image-prefix embeddings (randn · 0.02): generate on two prompts of 16
+    and 64 text tokens, greedy tokens equal at decode_chunk 1 and 8 (L B2
+    prefix mode a prefill, L B3 at D 256 a decode step); the kernel path
+    teacher-forced against the plain path beside the yardstick, with and
+    without each position's input-token column (at random init the model
+    echoes its input, so tokens and top-1 alone would pass a wrong
+    kernel); text requests through the contiguous Scheduler against solo
+    runs; one prefill pass's breakdown; f32 at L = 4, logits within 1e-4
+    of the plain path's at the prefill's last position and every decode
+    step, and greedy tokens kernel == plain."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import get_model
+    from repro_torch.runtime.engine import InferenceEngine
+
+    cfg = get_config(VLM_ARCH)
+    L, P, tag = cfg.num_layers, cfg.num_prefix_tokens, f"[{VLM_ARCH}]"
+    params = _full_width(dev, cfg, tag)
+    gen = torch.Generator(device=dev).manual_seed(22)
+
+    def prefix(n, h=cfg.d_model):
+        return 0.02 * torch.randn((n, P, h), generator=gen, device=dev)
+
+    def prompts(n, S):
+        return torch.randint(2, cfg.vocab_size, (n, S), generator=gen,
+                             device=dev, dtype=torch.int32)
+    marks = [time.perf_counter()]
+
+    # (c1) the engine with the image prefix, decode_chunk 1 and 8
+    n = VLM_NEW
+    for S in VLM_TEXT:
+        toks, pe = prompts(1, S), prefix(1)
+        outs = [drive_counted(
+            f"{VLM_ARCH} engine {P}+{S} chunk {chunk}", lambda: InferenceEngine(
+                cfg, params, max_len=P + S + n, decode_chunk=chunk,
+                device=dev).generate(toks, max_new_tokens=n, prefix_emb=pe),
+            totals, L, passes=n, flash=1, decode=n - 1, paged=0)
+            for chunk in (1, 8)]
+        if tuple(outs[0].shape) != (1, n) or int(outs[0].min()) < 0 or \
+                int(outs[0].max()) >= cfg.vocab_size:
+            raise AssertionError(f"{VLM_ARCH}: engine output out of range")
+        if not torch.equal(outs[0], outs[1]):
+            raise AssertionError(f"{VLM_ARCH}: decode_chunk 1 and 8 give "
+                                 "other tokens")
+        log(f"{tag} engine {P} prefix + {S} text -> {n} tokens, "
+            f"decode_chunk 1 == 8")
+    marks.append(time.perf_counter())
+
+    # (c2) teacher-forced after the prefix: kernel path vs plain path
+    prompt, pe = prompts(1, FORCED), prefix(1)
+    ref = teacher_forced(get_model(cfg, plain=True), params, prompt, False,
+                         pe)
+    got = drive_counted(f"{VLM_ARCH} teacher-forced", lambda: teacher_forced(
+        get_model(cfg), params, prompt, False, pe), totals, L,
+        passes=1 + FORCED - SPLIT, flash=1, decode=FORCED - SPLIT, paged=0)
+    exact = exact_attention(lambda: teacher_forced(
+        get_model(cfg, plain=True), params, prompt, False, pe))
+    V = cfg.vocab_size          # the pad columns hold finfo.min on both
+    _held_to_plain(f"bf16 {VLM_ARCH} kernel path (B1, add_rms_norm, B2 "
+                   "prefix + B3 at D 256) vs plain", got[:, :V], ref[:, :V],
+                   exact[:, :V])
+    # at random init the tied, sqrt(h)-scaled embedding gives each
+    # position's own token a logit near h, far above the rest, so the
+    # top-1 above says little; the same comparison without that column
+    keep = torch.ones_like(ref[:, :V], dtype=torch.bool).scatter_(
+        1, prompt[0, SPLIT - 1:FORCED, None].long(), False)
+    _held_to_plain(f"bf16 {VLM_ARCH} kernel path vs plain, the input "
+                   "token's column removed", *(
+                       x[:, :V][keep].view(-1, V - 1)
+                       for x in (got, ref, exact)))
+    del ref, got, exact
+    marks.append(time.perf_counter())
+
+    # (c3) text requests through the contiguous Scheduler (no prefix: the
+    # backends take none, as in JAX)
+    finite = FiniteLogits(get_model(cfg))
+    serve_against_solo(dev, smi, cfg, params,
+                       smoke_trace(cfg)[:FAMILY_REQUESTS], totals, 1024)
+    log(f"{tag} {finite.assert_all(f'{VLM_ARCH} serving')} logit batches, "
+        "all finite")
+    marks.append(time.perf_counter())
+
+    # (d) one prefill pass of the prefix and 64 text tokens
+    model, toks, pe = get_model(cfg), prompts(1, VLM_TEXT[-1]), prefix(1)
+    prefill_breakdown(dev, model, params, smi, P + VLM_TEXT[-1],
+                      run=lambda: model.prefill(params, toks, 1024, pe))
+    log(f"{tag} bf16 peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+
+    # (c5) f32 at L = 4: the kernel path's logits within the f32 tolerance
+    # of the plain path's at the prefill's last position and every decode
+    # step (teacher-forced after the prefix); greedy tokens equal
+    nb, S, new = VLM_F32
+    cfg32 = dataclasses.replace(cfg, num_layers=4, dtype="float32")
+    p32 = get_model(cfg32).init(seed=3, device=dev)
+    prompt, pe = prompts(1, FORCED), prefix(1)
+    a, b = (teacher_forced(get_model(cfg32, plain=plain), p32, prompt, False,
+                           pe)[:, :cfg.vocab_size] for plain in (False, True))
+    compare(f"{VLM_ARCH} f32 L=4 logits, prefill + {FORCED - SPLIT} decode "
+            "steps, kernel vs plain", a, b, "float32")
+    toks, pe = prompts(nb, S), prefix(nb)
+    a, b = (InferenceEngine(cfg32, p32, max_len=P + S + new, device=dev,
+                            plain=plain).generate(toks, max_new_tokens=new,
+                                                  prefix_emb=pe)
+            for plain in (False, True))
+    same = bool(torch.equal(a, b))
+    log(f"[compare f32] {VLM_ARCH} L=4 full width, greedy {nb}x({P}+{S}) -> "
+        f"{nb}x{new} tokens kernel path == plain path: {same}")
+    if not same:
+        raise AssertionError(f"{VLM_ARCH} f32 greedy tokens differ between "
+                             "the kernel and the plain path")
+    del p32
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+    log(f"{tag} " + ", ".join(f"({k}) {b - a:.1f} s" for k, a, b in zip(
+        ("c1", "c2", "c3", "d", "c5"), marks, marks[1:])))
+
+
+def encoder_vlm_phase(dev, smi):
+    """Phase 11 (A11, part 2): hubert-xlarge, then paligemma-3b, at full
+    width, each freed before the next (B2 and B3 at their shapes, 11(a),
+    run beside phase 2)."""
+    from repro_torch.kernels import _build
+
+    torch.cuda.init()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    totals = {name: 0 for name in _build.LAUNCHES}
+    times = []
+    t_phase = time.perf_counter()
+    for arch, run in ((ENC_ARCH, encoder_run), (VLM_ARCH, vlm_run)):
+        t0 = time.perf_counter()
+        run(dev, smi, totals)
+        times.append(f"{arch} {time.perf_counter() - t0:.1f} s")
+    log(f"[encoder/vlm phase] {', '.join(times)}, "
+        f"{time.perf_counter() - t_phase:.1f} s; launches {totals}")
+    return totals
+
 _RMS = "src/repro/kernels/rmsnorm/rmsnorm_kernel.py:25"
 REPLACES = {
     "rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu", _RMS),
@@ -3616,6 +4043,7 @@ def main(argv=None) -> int:
         rows.update(more_rows)
         times.update(more_times)
     cp_kernel_rows(dev, args.iters, rows, times)
+    encoder_vlm_kernel_rows(dev, args.iters, rows, times)
     if args.kernels_only:
         return 0
     params, launches, streams = serving_phase(dev, smi)
@@ -3633,6 +4061,8 @@ def main(argv=None) -> int:
     for name, n in rwkv_phase(dev, smi).items():
         launches[name] += n
     for name, n in families_phase(dev, smi, rows).items():
+        launches[name] += n
+    for name, n in encoder_vlm_phase(dev, smi).items():
         launches[name] += n
 
     table = []
@@ -3661,7 +4091,14 @@ def main(argv=None) -> int:
                 "bound_ms": t["cp_shard"]["bound"],
                 "bound_by": t["cp_shard"]["by"],
                 "library_ms": t["cp_shard"]["library"]}}
-               if "cp_shard" in t else {})))
+               if "cp_shard" in t else {}),
+            **({"shapes": {what: {
+                "shape": r["shape"], "ms": r["kernel"],
+                "plain_ms": r["plain"], "bound_ms": r["bound"],
+                "bound_by": r["by"], "library_ms": r["library"],
+                "library_call": r["library_call"]}
+                for what, r in t["shapes"].items()}}
+               if "shapes" in t else {})))
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the main path")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

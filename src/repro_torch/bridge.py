@@ -81,8 +81,7 @@ def _hybrid_block_shapes(cfg: ModelConfig) -> dict:
 
 
 def expected_shapes(cfg: ModelConfig) -> dict:
-    """Parameter name -> shape of a model of ``cfg`` (dense, moe, ssm or
-    hybrid)."""
+    """Parameter name -> shape of a model of ``cfg`` (any family)."""
     h, L = cfg.d_model, cfg.num_layers
     pv = cfg.padded_vocab
     if cfg.family == "ssm":
@@ -94,7 +93,9 @@ def expected_shapes(cfg: ModelConfig) -> dict:
     else:
         blocks = _attention_shapes(cfg, cfg.num_heads)
         blocks.update(_mlp_shapes(cfg, cfg.d_ff), ln1=(L, h), ln2=(L, h))
-    shapes = {"blocks": blocks, "final_norm": (h,), "embed": (pv, h)}
+    shapes = {"blocks": blocks, "final_norm": (h,)}
+    if cfg.family != "encoder":         # the encoder takes frame embeddings
+        shapes["embed"] = (pv, h)
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (h, pv)
     return shapes

@@ -47,7 +47,7 @@ SIGNATURES = {
     "repro_dequantize_add_rmsnorm": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _F,
                                      _I, _I, _P],
     "repro_flash_prefill": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _I, _I, _F, _I, _P],
+                            _I, _I, _I, _F, _I, _P],
     "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _I, _I, _LL, _LL, _LL, _F, _I, _P],
     "repro_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -3,7 +3,9 @@
 //
 // Replaces: src/repro/kernels/decode_attention/decode_kernel.py:56 ·
 // decode_attention_pallas (B3) and paged_kernel.py:70 ·
-// paged_decode_attention_pallas (B4).
+// paged_decode_attention_pallas (B4).  Head dims 32, 64, 128 and 256
+// (paligemma-3b decodes 8 query heads over one KV head at D 256), 1 to 8
+// query heads a KV head.
 //
 // Bound on the H100: device-memory bytes.  Every cached K/V row of a live
 // sequence is read once per step for 4 * G * D FLOPs per 4 * D bytes (bf16),
@@ -23,17 +25,21 @@
 //     over the 132 SMs.  Inside a CTA of 8 warps:
 //       - B4: the CTA's slice of block_tables goes into shared memory once,
 //         loaded beside the sequence's length (B3 has no table);
-//       - K and V rows come in by cp.async, 16 bytes a lane (8 bf16 or 4
-//         f32: a 128-wide bf16 row is 16 lanes, a warp reads two rows per
-//         instruction), into a ring of four stages of 32 rows (two pages
-//         at ps 16; 64 at bf16 D 32, one row per lane group), so a 128-key
-//         split is in flight at once; a row past the length, or (B4) on a
-//         table entry outside [0, P), is zero-filled and flagged masked in
-//         shared memory, so no read leaves the cache or the pool (inactive
-//         slots carry rows of scratch page 0);
-//       - a lane owns 16 bytes of columns of one row at a time, and a
-//         score is reduced across that row's lanes only (4 shuffles for
-//         bf16 D 128, not 5);
+//       - K and V rows come in by cp.async, 16 bytes a copy (8 bf16 or 4
+//         f32), into a ring of four stages of 32 rows (two pages at ps 16;
+//         64 at bf16 D 32, one row per lane group), so a 128-key split is
+//         in flight at once; f32 at D 256 (1 KB rows, 64 KB a stage) keeps
+//         three stages, 192 KB of the 227 KB a block may have; a row past
+//         the length, or (B4) on a table entry outside [0, P), is
+//         zero-filled and flagged masked in shared memory, so no read
+//         leaves the cache or the pool (inactive slots carry rows of
+//         scratch page 0);
+//       - a lane owns one 16-byte vector of columns of one row at a time
+//         (a 128-wide bf16 row is 16 lanes, a warp reads two rows per
+//         instruction), or, where a row is wider than a warp's 32 vectors
+//         (f32 at D 256), NV = 2 vectors 32 lanes apart, so each load of
+//         the warp still reads 512 consecutive bytes; a score is reduced
+//         across that row's lanes only (4 shuffles for bf16 D 128, not 5);
 //       - the G query heads of the KV head share every staged row, each
 //         with its own f32 online softmax (max, sum, accumulator);
 //       - the row streams of a warp merge by shuffles, the 8 warps through
@@ -65,6 +71,7 @@ constexpr int kSplitKeys = 128; // B3's rows per split (SPLIT_KEYS in ops.py)
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 4;      // ring depth: a 128-row split is in flight at once
+constexpr int kMaxRing = 200 * 1024;  // the ring's shared memory at most
 constexpr int kMaxTable = 128;  // pages one split covers at most (ps >= 1)
 
 // Contiguous caches [B, W, Hkv, D] (element strides sb, sw, sh, unit
@@ -108,7 +115,10 @@ struct PagedAddr {
 
 template <typename T, int D>
 struct Geo {
-  static constexpr int EPL = 16 / static_cast<int>(sizeof(T));  // per lane
+  static constexpr int VEC = 16 / static_cast<int>(sizeof(T));  // a vector
+  static constexpr int CPR = D / VEC;            // 16-byte vectors per row
+  static constexpr int NV = CPR > 32 ? CPR / 32 : 1;  // vectors per lane
+  static constexpr int EPL = NV * VEC;           // elements per lane
   static constexpr int LPR = D / EPL;            // lanes per row
   static constexpr int RPW = 32 / LPR;           // rows a warp holds at once
   static constexpr int NS = kWarps * RPW;        // row streams per CTA
@@ -116,9 +126,17 @@ struct Geo {
   static constexpr int RPS = ROWS / NS;          // rows per stream per stage
   static constexpr int ROW = D * static_cast<int>(sizeof(T));  // bytes
   static constexpr int STAGE = 2 * ROWS * ROW;   // K and V rows
-  static constexpr int SMEM = kStages * STAGE;
-  static_assert(ROWS * LPR % kThreads == 0 && ROWS % NS == 0, "geometry");
+  static constexpr int STAGES = kStages * STAGE <= kMaxRing ? kStages
+                                                            : kStages - 1;
+  static constexpr int SMEM = STAGES * STAGE;
+  static_assert(LPR * EPL == D && 32 % LPR == 0, "a row is whole lanes");
+  static_assert(ROWS * CPR % kThreads == 0 && ROWS % NS == 0, "geometry");
+  static_assert(SMEM <= kMaxRing, "the ring fits a block's shared memory");
   static_assert(kWarps * kMaxG * D * 4 <= SMEM, "merge area fits the ring");
+  // the column of element e of this lane's share of a row (lane seg of LPR)
+  __device__ static int col(int seg, int e) {
+    return ((e / VEC) * LPR + seg) * VEC + e % VEC;
+  }
 };
 
 __device__ __forceinline__ void load16(const float* p, float (&f)[4]) {
@@ -136,6 +154,17 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&f)[8]) {
   }
 }
 
+// this lane's EPL elements of one row: its NV vectors, LPR vectors apart
+template <typename T, int D>
+__device__ __forceinline__ void load_lane(const T* row, int seg,
+                                          float (&f)[Geo<T, D>::EPL]) {
+  using Gm = Geo<T, D>;
+#pragma unroll
+  for (int n = 0; n < Gm::NV; ++n)
+    load16(row + (n * Gm::LPR + seg) * Gm::VEC,
+           *reinterpret_cast<float(*)[Gm::VEC]>(f + n * Gm::VEC));
+}
+
 template <typename T, int D, class Addr>
 __global__ void __launch_bounds__(kThreads)
 split_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -145,9 +174,10 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
              float scale) {
   using Gm = Geo<T, D>;
   constexpr int EPL = Gm::EPL, LPR = Gm::LPR, ROWS = Gm::ROWS;
+  constexpr int CPR = Gm::CPR, STAGES = Gm::STAGES;
   extern __shared__ __align__(16) uint8_t ring[];
   __shared__ int tbl[kMaxTable];
-  __shared__ bool live_row[kStages][ROWS];
+  __shared__ bool live_row[STAGES][ROWS];
   __shared__ float sm_m[kWarps][kMaxG], sm_l[kWarps][kMaxG];
 
   const int h = blockIdx.x, b = blockIdx.y, sx = blockIdx.z;
@@ -159,7 +189,7 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int seg = lane % LPR;                   // this lane's 16 bytes
+  const int seg = lane % LPR;                   // this lane's columns
   const int stream = warp * Gm::RPW + lane / LPR;
   const int Hq = Hkv * G;
   const uint32_t ring_s = smem_u32(ring);
@@ -167,25 +197,25 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // cp.async the K and V rows of ring chunk c (zero-filled where masked)
   const int n_chunks = (nrows + ROWS - 1) / ROWS;
   auto fetch = [&](int c) {
-    const int st = c % kStages;
+    const int st = c % STAGES;
     const uint32_t sk = ring_s + st * Gm::STAGE;
     const uint32_t sv = sk + ROWS * Gm::ROW;
 #pragma unroll
-    for (int j = 0; j < ROWS * LPR / kThreads; ++j) {
+    for (int j = 0; j < ROWS * CPR / kThreads; ++j) {
       const int i = tid + j * kThreads;
-      const int r = i / LPR, sg = i % LPR;
+      const int r = i / CPR, sg = i % CPR;
       const int idx = c * ROWS + r;
       const int64_t off =
           idx < nrows ? addr.offset(b, sx, row0 + idx, h, tbl) : -1;
       const bool ok = off >= 0;
       if (sg == 0) live_row[st][r] = ok;
-      const int64_t e = (ok ? off : 0) + sg * EPL;
+      const int64_t e = (ok ? off : 0) + sg * Gm::VEC;
       cp_async16(sk + r * Gm::ROW + sg * 16, k + e, ok);
       cp_async16(sv + r * Gm::ROW + sg * 16, v + e, ok);
     }
   };
 #pragma unroll
-  for (int c = 0; c < kStages - 1; ++c) {
+  for (int c = 0; c < STAGES - 1; ++c) {
     if (c < n_chunks) fetch(c);
     cp_async_commit();
   }
@@ -199,17 +229,17 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < EPL; ++e) {
       acc[g][e] = 0.f;
       qv[g][e] = g < G ? to_f32(q[(static_cast<int64_t>(b) * Hq + h * G + g) * D +
-                                  seg * EPL + e])
+                                  Gm::col(seg, e)])
                        : 0.f;
     }
   }
 
   for (int c = 0; c < n_chunks; ++c) {
-    if (c + kStages - 1 < n_chunks) fetch(c + kStages - 1);
+    if (c + STAGES - 1 < n_chunks) fetch(c + STAGES - 1);
     cp_async_commit();
-    cp_async_wait<kStages - 1>();  // chunk c has landed
+    cp_async_wait<STAGES - 1>();  // chunk c has landed
     __syncthreads();
-    const int st = c % kStages;
+    const int st = c % STAGES;
     const T* sk = reinterpret_cast<const T*>(ring + st * Gm::STAGE);
     const T* sv = sk + ROWS * D;
 
@@ -221,7 +251,7 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = stream + rr * Gm::NS;
       ok[rr] = live_row[st][r];
       float kf[EPL];
-      load16(sk + r * D + seg * EPL, kf);
+      load_lane<T, D>(sk + r * D, seg, kf);
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g) {
         float part = 0.f;
@@ -252,7 +282,7 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int rr = 0; rr < Gm::RPS; ++rr) {
       const int r = stream + rr * Gm::NS;
       float vf[EPL];
-      load16(sv + r * D + seg * EPL, vf);
+      load_lane<T, D>(sv + r * D, seg, vf);
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g) {
         if (g >= G) continue;
@@ -292,7 +322,7 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (lane < LPR) {
 #pragma unroll
       for (int e = 0; e < EPL; ++e)
-        sm_acc[(warp * kMaxG + g) * D + seg * EPL + e] = acc[g][e];
+        sm_acc[(warp * kMaxG + g) * D + Gm::col(seg, e)] = acc[g][e];
     }
     if (lane == 0) {
       sm_m[warp][g] = m[g];
@@ -385,6 +415,7 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
     case 32: return launch<T, 32>(q, k, v, out, lengths, addr, pm, pl, pacc, B, Hkv, G, n_splits, span, split_rows, scale, s);
     case 64: return launch<T, 64>(q, k, v, out, lengths, addr, pm, pl, pacc, B, Hkv, G, n_splits, span, split_rows, scale, s);
     case 128: return launch<T, 128>(q, k, v, out, lengths, addr, pm, pl, pacc, B, Hkv, G, n_splits, span, split_rows, scale, s);
+    case 256: return launch<T, 256>(q, k, v, out, lengths, addr, pm, pl, pacc, B, Hkv, G, n_splits, span, split_rows, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -10,7 +10,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, paged_decode_attention_ref)
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 MAX_GROUPS = 8          # query heads per KV head the kernel holds
 SPLIT_KEYS = 128        # keys one split covers: B3 exactly, B4 about
 

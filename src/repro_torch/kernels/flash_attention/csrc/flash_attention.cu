@@ -1,12 +1,25 @@
-// B2 — causal (+ sliding window) GQA flash attention for prefill, Hopper.
+// B2 — GQA flash attention for prefill, Hopper: causal, bidirectional or
+// prefix masks, each with an optional sliding window.
 //
 // Replaces: src/repro/kernels/flash_attention/flash_kernel.py:80 ·
-// flash_attention_pallas, generalised in two ways:
+// flash_attention_pallas, generalised in three ways:
 //   * per-sequence query offset q_offset[b] and KV length kv_len[b], so one
 //     kernel serves whole-prompt prefill (offset 0, kv_len = S) and a paged
 //     prefill chunk over the gathered KV view (offset pos[b], kv_len
 //     pos[b] + S): query s of sequence b sits at absolute position
-//     q_offset[b] + s and attends to KV positions <= it (and > it - window);
+//     q_offset[b] + s;
+//   * the mask modes of the JAX package's make_mask (models/layers.py:97),
+//     where the TPU kernel has the causal one alone.  They differ only in
+//     `prefix`, the number of leading keys every query sees: 0 is causal,
+//     the image prefix's length is the vlm's prefix mask, and T (all keys)
+//     the encoder's bidirectional mask.  Query position qpos sees key kj
+//     when kj < kv_len, kj <= max(qpos, prefix - 1) — make_mask's
+//     (kj <= qpos) | (kj < prefix_len) — and, with a window, kj > qpos -
+//     window, ANDed on top in every mode as make_mask does.  The per-row
+//     bound max(qpos, prefix - 1) is computed once before the KV loop, so
+//     the causal element test costs what it did; the KV tiles a query tile
+//     walks end at min(kv_len, max(its last qpos + 1, prefix)), so a
+//     prefix query loads the prefix tiles past its own position;
 //   * a ragged last tile is masked, in place of the TPU kernel's
 //     S % block == 0 assertion: serving prompts have any length.
 //
@@ -23,7 +36,9 @@
 //     of shared memory each); the KV head is q_head / G, so the G query
 //     heads of a KV head reread the same K/V tiles through L2 (1.4 MB at
 //     that shape).  The grid's y index runs over query tiles in reverse,
-//     so the heaviest causal tiles (the last ones) launch first;
+//     so the heaviest causal tiles (the last ones) launch first.  At D 256
+//     (paligemma-3b) the five tiles take 161 KB, one CTA per SM, and a
+//     thread holds 128 f32 output accumulators beside its 32 scores;
 //   * S = Q·Kᵀ and O += P·V are wgmma.m64n64k16 (bf16 operands, f32
 //     accumulators in registers): Q and K from shared memory (K-major), P
 //     from registers as the A operand of P·V, V from shared memory
@@ -31,15 +46,19 @@
 //     output columns;
 //   * Q, K and V tiles are [64 rows x 128 B] blocks in the 128-byte swizzle
 //     wgmma reads without bank conflicts (16-byte chunk c of row r at chunk
-//     c ^ (r % 8)), one block per 64 columns; D = 32 fills half of one
-//     block and zeroes the rest, so P·V reads zeros there;
+//     c ^ (r % 8)), one block per 64 columns (D 32, 64, 80, 128, 256: 1,
+//     1, 2, 2, 4 blocks); where D is not a multiple of 64 the last block's
+//     unloaded columns are zeroed once, in Q and in every ring stage, so
+//     no stale bits reach an operand (Q·Kᵀ's k-steps stop at D, and P·V's
+//     dead output columns are never stored);
 //   * K/V tiles of 64 rows come in by cp.async (16 bytes a thread,
 //     zero-filled past kv_len) into a ring of two stages: tile j+1 is in
 //     flight while tile j is multiplied;
 //   * f32 online softmax on the accumulator fragments: a thread holds 16
 //     scores of each of two rows, reduced over its quad by two shuffles;
-//   * KV tiles wholly outside the causal frontier or before the window are
-//     never loaded, as flash_kernel.py skips them with pl.when.
+//   * KV tiles wholly past the tile's last visible key (its causal
+//     frontier, or the prefix's end) or before the window are never
+//     loaded, as flash_kernel.py skips them with pl.when.
 // Numerics: f32 scores, max and denominator; masked scores at
 // finfo(f32).min; the softmax is taken in base 2 on scores pre-scaled by
 // log2(e) (the same function, rounded differently in the last f32 bits);
@@ -52,7 +71,8 @@
 // f32 (the reduced-config checks): the CUDA-core kernel of the first port,
 // unchanged — tensor cores would compute in TF32 (~10 bits) and miss the f32
 // tolerance:
-//   * one CTA of 256 threads per (64-query tile, query head, batch row);
+//   * one CTA of 256 threads per (64-query tile, query head, batch row),
+//     140 KB of shared memory at D 256;
 //   * K/V tiles of 32 rows staged in shared memory as f32 (row stride D + 1
 //     floats so that the score loop reads distinct banks);
 //   * four threads own one query row: each holds 8 of the tile's 32 scores
@@ -86,7 +106,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
                      const int* __restrict__ q_offset,
                      const int* __restrict__ kv_len, int S, int T_kv, int Hq,
-                     int Hkv, int window, float scale) {
+                     int Hkv, int window, int prefix, float scale) {
   constexpr int DP = D + 1;
   constexpr int PP = kBK + 1;
   constexpr int KC = kBK / 4;  // scores per thread per tile
@@ -120,9 +140,13 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qi = q0 + r;
   const bool row_ok = qi < S;
   const int qpos = qoff + qi;
+  // this row's keys: up to k_last (its own position, or the prefix's last
+  // key), from k_first (the window's first) on; none past S
+  const int k_last = row_ok ? max(qpos, prefix - 1) : -1;
+  const int k_first = window > 0 ? qpos - window + 1 : 0;
   // KV tiles any query of this tile can see
   const int q_last = min(q0 + kBQ, S) - 1;
-  const int k_hi = min(kvl, qoff + q_last + 1);
+  const int k_hi = min(kvl, max(qoff + q_last + 1, prefix));
   int k_lo = window > 0 ? max(0, qoff + q0 - window + 1) : 0;
   k_lo = (k_lo / kBK) * kBK;
 
@@ -161,8 +185,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < KC; ++j) {
       const int kj = k0 + j * 4 + c;
-      ok[j] = row_ok && kj < kvl && kj <= qpos &&
-              (window <= 0 || kj > qpos - window);
+      ok[j] = kj < kvl && kj <= k_last && kj >= k_first;
       s[j] = ok[j] ? s[j] * scale : kNegInf;
       bmax = fmaxf(bmax, s[j]);
     }
@@ -216,7 +239,7 @@ constexpr int kThreads = 128;            // one warpgroup
 constexpr int kBlockBytes = 64 * 128;    // 64 rows x 128 B: 64 columns
 
 template <int D>
-__host__ __device__ constexpr int col_blocks() { return D < 64 ? 1 : D / 64; }
+__host__ __device__ constexpr int col_blocks() { return (D + 63) / 64; }
 template <int D>
 __host__ __device__ constexpr int tile_bytes() {
   return col_blocks<D>() * kBlockBytes;
@@ -311,6 +334,7 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* g,
                                           int64_t rs, int row0, int valid,
                                           int tid) {
   constexpr int CPR = D / 8;  // 16-byte chunks per row
+  static_assert(64 * CPR % kThreads == 0, "a tile is whole 16-byte chunks");
 #pragma unroll
   for (int j = 0; j < 64 * CPR / kThreads; ++j) {
     const int i = tid + j * kThreads;
@@ -327,7 +351,8 @@ flash_prefill_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out,
                  const int* __restrict__ q_offset,
                  const int* __restrict__ kv_len, int S, int T_kv, int Hq,
-                 int Hkv, int window, float scale_log2) {
+                 int Hkv, int window, int prefix, float scale_log2) {
+  static_assert(D % 16 == 0, "Q·Kᵀ runs D / 16 k-steps");
   constexpr int NB = col_blocks<D>();  // 64-column blocks of O
   constexpr int TB = tile_bytes<D>();
   extern __shared__ uint8_t smem_raw[];
@@ -348,8 +373,8 @@ flash_prefill_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + static_cast<int64_t>(b) * T_kv * kv_rs + static_cast<int64_t>(hk) * D;
   const bf16* vb = v + static_cast<int64_t>(b) * T_kv * kv_rs + static_cast<int64_t>(hk) * D;
 
-  if constexpr (D < 64) {
-    // the unloaded half of every tile reads as zeros
+  if constexpr (D % 64 != 0) {
+    // the unloaded columns of every tile's last block read as zeros
     uint4* s4 = reinterpret_cast<uint4*>(smem_raw + (sQ - raw));
     for (int i = tid; i < 5 * TB / 16; i += kThreads) s4[i] = make_uint4(0, 0, 0, 0);
     __syncthreads();
@@ -357,7 +382,7 @@ flash_prefill_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // KV tiles any query of this tile can see
   const int q_last = min(q0 + kBQ, S) - 1;
-  const int k_hi = min(kvl, qoff + q_last + 1);
+  const int k_hi = min(kvl, max(qoff + q_last + 1, prefix));
   int k_lo = window > 0 ? max(0, qoff + q0 - window + 1) : 0;
   k_lo = (k_lo / kBK) * kBK;
   const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kBK - 1) / kBK : 0;
@@ -379,6 +404,17 @@ flash_prefill_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[nb][i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  // each of the thread's two rows sees keys k_first[h] .. k_last[h]: up
+  // to its own position or the prefix's last key, from the window's first
+  // key on (none for a row past S)
+  int k_first[2], k_last[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = q0 + r0 + 8 * h;
+    const int qpos = qoff + qi;
+    k_last[h] = qi < S ? max(qpos, prefix - 1) : -1;
+    k_first[h] = window > 0 ? qpos - window + 1 : 0;
+  }
 
   for (int it = 0; it < n_tiles; ++it) {
     const int st = it & 1;
@@ -415,11 +451,8 @@ flash_prefill_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int h = (i >> 1) & 1;
-      const int qi = q0 + r0 + 8 * h;
       const int kj = k0 + 8 * (i >> 2) + t2 + (i & 1);
-      const int qpos = qoff + qi;
-      const bool ok = qi < S && kj < kvl && kj <= qpos &&
-                      (window <= 0 || kj > qpos - window);
+      const bool ok = kj < kvl && kj <= k_last[h] && kj >= k_first[h];
       okm |= static_cast<uint32_t>(ok) << i;
       s[i] = ok ? s[i] * scale_log2 : kNegInf;
       bmax[h] = fmaxf(bmax[h], s[i]);
@@ -505,8 +538,8 @@ flash_prefill_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
                        const int* q_offset, const int* kv_len, int B, int S,
-                       int T_kv, int Hq, int Hkv, int window, float scale,
-                       cudaStream_t stream) {
+                       int T_kv, int Hq, int Hkv, int window, int prefix,
+                       float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   static bool configured = false;
   if (!configured) {
@@ -520,7 +553,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
   flash_prefill_kernel<float, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), q_offset,
-      kv_len, S, T_kv, Hq, Hkv, window, scale);
+      kv_len, S, T_kv, Hq, Hkv, window, prefix, scale);
   return cudaGetLastError();
 }
 
@@ -529,7 +562,7 @@ template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, const int* q_offset, const int* kv_len,
                         int B, int S, int T_kv, int Hq, int Hkv, int window,
-                        float scale, cudaStream_t stream) {
+                        int prefix, float scale, cudaStream_t stream) {
   constexpr size_t smem = tc::smem_bytes<D>();
   static bool configured = false;
   if (!configured) {
@@ -545,26 +578,28 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   tc::flash_prefill_tc<D><<<grid, tc::kThreads, smem, stream>>>(
       static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
       static_cast<const tc::bf16*>(v), static_cast<tc::bf16*>(out), q_offset,
-      kv_len, S, T_kv, Hq, Hkv, window, scale * 1.4426950408889634f);
+      kv_len, S, T_kv, Hq, Hkv, window, prefix, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 template <bool BF16>
 cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
                      void* out, const int* qo, const int* kl, int B, int S,
-                     int T_kv, int Hq, int Hkv, int window, float scale,
-                     cudaStream_t s) {
+                     int T_kv, int Hq, int Hkv, int window, int prefix,
+                     float scale, cudaStream_t s) {
 #define REPRO_LAUNCH(DD)                                                      \
   if constexpr (BF16)                                                         \
     return launch_bf16<DD>(q, k, v, out, qo, kl, B, S, T_kv, Hq, Hkv, window, \
-                           scale, s);                                         \
+                           prefix, scale, s);                                 \
   else                                                                        \
     return launch_f32<DD>(q, k, v, out, qo, kl, B, S, T_kv, Hq, Hkv, window,  \
-                          scale, s)
+                          prefix, scale, s)
   switch (D) {
     case 32: REPRO_LAUNCH(32);
     case 64: REPRO_LAUNCH(64);
+    case 80: REPRO_LAUNCH(80);
     case 128: REPRO_LAUNCH(128);
+    case 256: REPRO_LAUNCH(256);
     default: return cudaErrorInvalidValue;
   }
 #undef REPRO_LAUNCH
@@ -575,22 +610,23 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
 
 // q [B,S,Hq,D], k/v [B,T,Hkv,D], out [B,S,Hq,D], all contiguous (bf16:
 // 16-byte aligned); q_offset/kv_len [B] int32 on the device; window <= 0
-// means none.
+// means none; keys [0, prefix) are visible to every query (0: causal, the
+// prefix's length: the prefix mask, T: bidirectional).
 REPRO_EXPORT int repro_flash_prefill(const void* q, const void* k,
                                      const void* v, void* out,
                                      const void* q_offset, const void* kv_len,
                                      int B, int S, int T_kv, int Hq, int Hkv,
-                                     int D, int window, float scale,
-                                     int dtype, void* stream) {
+                                     int D, int window, int prefix,
+                                     float scale, int dtype, void* stream) {
   if (B <= 0 || S <= 0 || T_kv <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
-      Hq > 65535 || B > 65535)
+      Hq > 65535 || B > 65535 || prefix < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* qo = static_cast<const int*>(q_offset);
   const int* kl = static_cast<const int*>(kv_len);
   if (dtype == repro::kFloat32)
-    return repro::dispatch<false>(D, q, k, v, out, qo, kl, B, S, T_kv, Hq, Hkv, window, scale, s);
+    return repro::dispatch<false>(D, q, k, v, out, qo, kl, B, S, T_kv, Hq, Hkv, window, prefix, scale, s);
   if (dtype == repro::kBFloat16)
-    return repro::dispatch<true>(D, q, k, v, out, qo, kl, B, S, T_kv, Hq, Hkv, window, scale, s);
+    return repro::dispatch<true>(D, q, k, v, out, qo, kl, B, S, T_kv, Hq, Hkv, window, prefix, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

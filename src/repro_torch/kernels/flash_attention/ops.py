@@ -7,22 +7,29 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
+                                                     visible_prefix)
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128, 256)
 
 
-def flash_attention(q, k, v, q_offset, kv_len, window=None):
+def flash_attention(q, k, v, q_offset, kv_len, window=None,
+                    mode="causal", prefix_len=0):
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, q_offset, kv_len, window)
-    return flash_attention_cuda(q, k, v, q_offset, kv_len, window)
+        return flash_attention_ref(q, k, v, q_offset, kv_len, window,
+                                   mode=mode, prefix_len=prefix_len)
+    return flash_attention_cuda(q, k, v, q_offset, kv_len, window, mode,
+                                prefix_len)
 
 
-def flash_attention_cuda(q, k, v, q_offset, kv_len, window=None):
+def flash_attention_cuda(q, k, v, q_offset, kv_len, window=None,
+                         mode="causal", prefix_len=0):
     """Launch B2: the tensor-core kernel for bf16, the CUDA-core kernel
     for f32.  q [B,S,Hq,D]; k, v [B,T,Hkv,D]; q_offset, kv_len [B] int32 —
     all contiguous on one CUDA device, q, k and v on 16-byte boundaries
-    (the bf16 kernel copies 16 bytes a thread)."""
+    (the bf16 kernel copies 16 bytes a thread).  ``mode`` is the mask
+    ("causal", "bidirectional" or "prefix" over the first ``prefix_len``
+    keys), the window ANDed on top (``flash_attention_ref``)."""
     name = "flash_attention_cuda"
     if q.device.type != "cuda":
         raise ValueError(f"{name}: q on {q.device}, expected a CUDA device")
@@ -33,6 +40,7 @@ def flash_attention_cuda(q, k, v, q_offset, kv_len, window=None):
                          f"{Hq} query heads over {Hkv} KV heads")
     if window is not None and window < 1:
         raise ValueError(f"{name}: window must be >= 1, got {window}")
+    prefix = visible_prefix(mode, prefix_len, T)
     dev, dt = q.device, q.dtype
     _build.require(name, "q", q, dev, dt)
     _build.require(name, "k", k, dev, dt, (B, T, Hkv, D))
@@ -49,7 +57,7 @@ def flash_attention_cuda(q, k, v, q_offset, kv_len, window=None):
         rc = _build.lib().repro_flash_prefill(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             q_offset.data_ptr(), kv_len.data_ptr(), B, S, T, Hq, Hkv, D,
-            int(window or 0), 1.0 / math.sqrt(D), code,
+            int(window or 0), prefix, 1.0 / math.sqrt(D), code,
             _build.stream_ptr(dev))
     _build.check(rc, name)
     _build.count("flash_attention")

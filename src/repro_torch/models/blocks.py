@@ -1,11 +1,12 @@
-"""Dense (GQA) transformer block of the port.
+"""Dense (GQA) transformer block of the port, shared by the dense,
+encoder and vlm families.
 
-Counterpart of ``repro.models.blocks`` (dense family).  Block API, as the
-trunk in ``transformer.py`` calls it per layer:
+Counterpart of ``repro.models.blocks``.  Block API, as the trunk in
+``transformer.py`` calls it per layer:
 
     dense_block_apply(cfg, p_l, x, positions, cache=None, pos=None,
                       build_cache_w=None, block_table=None, plain=False,
-                      carry=False)
+                      carry=False, prefix_len=0)
         -> (y, cache_out)
 
 ``p_l`` is one layer's slice of the stacked [L, ...] parameters.  With
@@ -17,7 +18,10 @@ returns ((mlp_out, s), cache_out), its own closing add left to the next
 norm site (the next layer's ln1, or the final norm).  The
 attention branches go through the hand-written kernels (``plain=False``):
 
-  * full-sequence prefill            -> B2 (offset 0, kv_len = S)
+  * full-sequence prefill            -> B2 (offset 0, kv_len = S) in the
+                                        family's mask: causal, encoder
+                                        bidirectional, vlm prefix over
+                                        the first ``prefix_len`` keys
   * contiguous decode (ring cache)   -> B3 (lengths = min(pos + 1, W))
   * paged decode (S == 1)            -> B4 (pages read in place)
   * paged prefill chunk (S > 1)      -> paged_gather, then B2 with query
@@ -78,7 +82,8 @@ def _qkv(cfg: ModelConfig, p, xn, positions, Hq: int, Hkv: int):
 def attention_apply(cfg: ModelConfig, p, xn, positions, cache=None,
                     pos=None, build_cache_w=None, block_table=None,
                     plain: bool = False, num_heads: int = None,
-                    num_kv_heads: int = None, cp_group=None):
+                    num_kv_heads: int = None, cp_group=None,
+                    prefix_len: int = 0):
     """Self-attention over a normalised input xn [B, S, h].  Returns
     (attn_out [B, S, Hq*D], cache_out); ``cache`` is updated in place.
     ``num_heads``/``num_kv_heads`` are the head counts of the weights in
@@ -88,7 +93,12 @@ def attention_apply(cfg: ModelConfig, p, xn, positions, cache=None,
     context-parallel prefill: xn and ``positions`` are then lists of the c
     sequence shards [B, S/c, h] and their absolute positions, and the
     result is (the c shards' outputs, the cache built from the assembled
-    K/V or None)."""
+    K/V or None).
+
+    A full-sequence pass takes the family's mask (``layers.mask_mode``),
+    the vlm's over a prefix of ``prefix_len`` positions; decode needs none
+    (the cache's valid slots are its mask), and the paged and CP branches
+    are causal, reached only by the dense family."""
     Hq = cfg.num_heads if num_heads is None else num_heads
     Hkv = cfg.num_kv_heads if num_kv_heads is None else num_kv_heads
     if cp_group is not None:
@@ -132,13 +142,15 @@ def attention_apply(cfg: ModelConfig, p, xn, positions, cache=None,
                 layers.decode_lengths(w, pos, B, dev))[:, None]
         cache_out = {"k": ck, "v": cv}
     else:
+        mode = layers.mask_mode(cfg)
         if plain:
             out = gqa_attention(q, k, v, layers.make_mask(
-                S, S, window=window, device=dev))
+                S, S, mode=mode, window=window, prefix_len=prefix_len,
+                device=dev))
         else:
             out = flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), _i32(0, B, dev),
-                                  _i32(S, B, dev), window)
+                                  _i32(S, B, dev), window, mode, prefix_len)
         cache_out = None
         if build_cache_w is not None:
             cache_out = build_ring_cache(k, v, build_cache_w)
@@ -188,12 +200,14 @@ def init_dense_blocks(gen, cfg: ModelConfig, L: int, dtype):
 
 def dense_block_apply(cfg: ModelConfig, p, x, positions, cache=None,
                       pos=None, build_cache_w=None, block_table=None,
-                      plain: bool = False, carry: bool = False):
+                      plain: bool = False, carry: bool = False,
+                      prefix_len: int = 0):
     h, x = x if carry else (None, x)
     x, xn = layers.add_norm(x, h, p["ln1"], cfg.norm_eps, plain)
     attn_out, cache_out = attention_apply(
         cfg, p, xn, positions, cache=cache, pos=pos,
-        build_cache_w=build_cache_w, block_table=block_table, plain=plain)
+        build_cache_w=build_cache_w, block_table=block_table, plain=plain,
+        prefix_len=prefix_len)
     x, xn = layers.add_norm(x, attn_out @ p["wo"], p["ln2"], cfg.norm_eps,
                             plain)
     out = mlp_apply(p, xn, cfg.activation)

@@ -1,5 +1,6 @@
-"""Shared layers of the dense family: init, RMSNorm, RoPE, masks, KV-cache
-updates, the plain GQA attention and the SwiGLU/GeGLU MLP.
+"""Shared layers of the dense-block families (dense, encoder, vlm): init,
+RMSNorm, RoPE, masks, KV-cache updates, the plain GQA attention and the
+SwiGLU/GeGLU/GELU MLP.
 
 Counterpart of ``repro.models.layers`` (dense subset).  ``rms_norm`` goes
 through kernel B1 on a CUDA tensor, ``add_norm`` (a norm site of the
@@ -17,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.kernels.flash_attention.ref import visible_prefix
 from repro_torch.kernels.rmsnorm.ops import add_rms_norm, rms_norm  # (B1)
 from repro_torch.kernels.rmsnorm.ref import add_rms_norm_ref, rms_norm_ref
 
@@ -81,14 +83,28 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 
-def make_mask(q_len: int, kv_len: int, *, q_offset: int = 0, window=None,
+# the attention mask each family's full-sequence pass takes (the JAX
+# trunk's ``_mask``): the encoder sees the whole clip, the vlm its image
+# prefix from every position and the text causally
+_MASK_MODES = {"encoder": "bidirectional", "vlm": "prefix"}
+
+
+def mask_mode(cfg: ModelConfig) -> str:
+    return _MASK_MODES.get(cfg.family, "causal")
+
+
+def make_mask(q_len: int, kv_len: int, *, mode: str = "causal",
+              q_offset: int = 0, window=None, prefix_len: int = 0,
               device=None):
-    """Boolean causal [q_len, kv_len] mask (True = attend), with an
-    optional sliding window; query i sits at position q_offset + i (a CP
-    shard's rows of the sequence)."""
+    """Boolean [q_len, kv_len] mask (True = attend); query i sits at
+    position q_offset + i (a CP shard's rows of the sequence).  ``mode``:
+    "causal", "bidirectional", or "prefix" (the first ``prefix_len`` keys
+    visible to every query, the rest causal, PaliGemma-style); ``window``
+    ANDs a sliding window on top in every mode."""
     q_pos = q_offset + torch.arange(q_len, device=device)[:, None]
     kv_pos = torch.arange(kv_len, device=device)[None, :]
-    mask = kv_pos <= q_pos
+    mask = (kv_pos <= q_pos) | (kv_pos < visible_prefix(mode, prefix_len,
+                                                        kv_len))
     if window is not None:
         mask &= kv_pos > q_pos - window
     return mask

@@ -1,22 +1,26 @@
 """Model trunk of the port: embedding, a loop over stacked blocks, final
 norm and head.
 
-Counterpart of ``repro.models.transformer`` for the dense, moe, ssm
-(RWKV-6) and hybrid (hymba) families (encoder and vlm are ROADMAP item
-A11); the block and its init are picked by ``cfg.family``, as the JAX
-package's ``_BLOCKS`` does.
+Counterpart of ``repro.models.transformer`` for all six families: dense,
+encoder (hubert: frame embeddings in, the bidirectional mask, no
+decode), vlm (paligemma: image-prefix embeddings before the tokens, the
+prefix mask), moe, ssm (RWKV-6) and hybrid (hymba); the block and its
+init are picked by ``cfg.family``, as the JAX package's ``_BLOCKS`` does.
 Parameters keep the JAX package's layout — a dict with ``blocks`` stacked
-on a leading [L, ...] axis, ``embed`` [V_pad, h], ``lm_head`` [h, V_pad]
-and ``final_norm`` [h] — so ``repro_torch.bridge`` carries JAX weights
-over unchanged.  The layer loop is a Python loop (the JAX package scanned
-it), and caches are updated in place (the JAX package donated them).  The
-loop carries the residual stream as a pair (h, x), so every residual add
-runs inside the norm after it (``blocks`` module doc); the values are the
-JAX package's chain, add then norm.
+on a leading [L, ...] axis, ``embed`` [V_pad, h] (none for the encoder),
+``lm_head`` [h, V_pad] and ``final_norm`` [h] — so ``repro_torch.bridge``
+carries JAX weights over unchanged.  The layer loop is a Python loop (the
+JAX package scanned it), and caches are updated in place (the JAX package
+donated them).  The loop carries the residual stream as a pair (h, x), so
+every residual add runs inside the norm after it (``blocks`` module doc);
+the values are the JAX package's chain, add then norm.
 
 Entry points:
-  forward(params, tokens)                full-sequence logits + aux loss
-  prefill(params, tokens, max_len)       last-position logits + cache (a
+  forward(params, tokens, prefix_emb=None, features=None)
+                                         full-sequence logits + aux loss
+                                         (the encoder takes ``features``)
+  prefill(params, tokens, max_len, prefix_emb=None)
+                                         last-position logits + cache (a
                                          ring KV cache, the ssm state, or
                                          both for the hybrid family)
   decode_step(params, cache, tokens, pos) one token against the cache
@@ -42,11 +46,12 @@ from repro_torch.models.layers import add_norm, dense_init, torch_dtype
 
 _BLOCKS = {
     "dense": (blocks_lib.init_dense_blocks, blocks_lib.dense_block_apply),
+    "encoder": (blocks_lib.init_dense_blocks, blocks_lib.dense_block_apply),
+    "vlm": (blocks_lib.init_dense_blocks, blocks_lib.dense_block_apply),
     "moe": (moe_lib.init_moe_blocks, moe_lib.moe_block_apply),
     "ssm": (ssm_lib.init_ssm_blocks, ssm_lib.ssm_block_apply),
     "hybrid": (hybrid_lib.init_hybrid_blocks, hybrid_lib.hybrid_block_apply),
 }
-PORTED_FAMILIES = tuple(_BLOCKS)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -82,12 +87,6 @@ class Model:
     kernels are held to."""
 
     def __init__(self, cfg: ModelConfig, plain: bool = False):
-        if cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name} is {cfg.family}: the port covers the "
-                f"{', '.join(PORTED_FAMILIES)} families; encoder and vlm "
-                "are ROADMAP item A11, waiting for B2/B3 at head dims 80 "
-                "and 256 and for the bidirectional and prefix masks")
         self.cfg = cfg
         self.plain = bool(plain)
         self._init_blocks, self._block_apply = _BLOCKS[cfg.family]
@@ -108,9 +107,10 @@ class Model:
                                       device=device),
         }
         pv = cfg.padded_vocab
-        emb = dense_init(gen, (pv, cfg.d_model), dtype, scale=1.0)
-        emb[cfg.vocab_size:] = 0
-        params["embed"] = emb
+        if cfg.family != "encoder":     # the encoder takes frame embeddings
+            emb = dense_init(gen, (pv, cfg.d_model), dtype, scale=1.0)
+            emb[cfg.vocab_size:] = 0
+            params["embed"] = emb
         if not cfg.tie_embeddings:
             head = dense_init(gen, (cfg.d_model, pv), dtype)
             head[:, cfg.vocab_size:] = 0
@@ -118,11 +118,26 @@ class Model:
         return params
 
     # ------------------------------------------------------------ helpers
-    def _embed(self, params, tokens):
+    def _embed(self, params, tokens, prefix_emb=None, features=None):
+        """[B, S, h] inputs of the first layer: the encoder's ``features``
+        in the model's type; otherwise the token embeddings (times sqrt(h)
+        where the config scales them), after ``prefix_emb`` [B, P, h] when
+        given."""
+        cfg = self.cfg
+        if cfg.family == "encoder":
+            return features.to(torch_dtype(cfg.dtype))
         x = params["embed"][tokens.long()]
-        if self.cfg.scale_embedding:
-            x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
+        if cfg.scale_embedding:
+            x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+        if prefix_emb is not None:
+            x = torch.cat([prefix_emb.to(x.dtype), x], dim=1)
         return x
+
+    def _prefix_kw(self, prefix_emb) -> dict:
+        """The block's ``prefix_len`` where the family's mask takes one."""
+        if prefix_emb is None or self.cfg.family != "vlm":
+            return {}
+        return {"prefix_len": prefix_emb.shape[1]}
 
     def _head(self, params, carried, last: bool = True):
         """Logits [B, v] of the last position ([B, S, v] of every position
@@ -134,7 +149,7 @@ class Model:
         if last:
             x, h = x[:, -1], None if h is None else h[:, -1]
         _, x = add_norm(x, h, params["final_norm"], cfg.norm_eps, self.plain)
-        if cfg.tie_embeddings:
+        if cfg.tie_embeddings and cfg.family != "encoder":
             logits = x @ params["embed"].T
         else:
             logits = x @ params["lm_head"]
@@ -158,41 +173,47 @@ class Model:
                                  plain=self.plain, carry=True, **kw)
 
     # ---------------------------------------------------------- interface
-    def forward(self, params, tokens):
-        """tokens [B, S] -> (logits [B, S, v], aux): the full-sequence pass
-        (causal, with the window where the config has one) and no cache.
-        ``aux`` is the MoE router's auxiliary loss summed over the layers
-        (f32; 0 for the other families)."""
-        x = self._embed(params, tokens)
+    def forward(self, params, tokens=None, prefix_emb=None, features=None):
+        """tokens [B, S] (the vlm's after ``prefix_emb`` [B, P, h]; the
+        encoder takes ``features`` [B, S, h] instead) -> (logits
+        [B, P + S, v], aux): the full-sequence pass in the family's mask
+        (causal, bidirectional for the encoder, the prefix mask over the P
+        prefix positions for the vlm; with the window where the config
+        has one) and no cache.  ``aux`` is the MoE router's auxiliary loss
+        summed over the layers (f32; 0 for the other families)."""
+        x = self._embed(params, tokens, prefix_emb, features)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device).expand(B, S)
         auxes = []
-        kw = {"aux_out": auxes} if self.cfg.family == "moe" else {}
+        kw = {"aux_out": auxes} if self.cfg.family == "moe" else \
+            self._prefix_kw(prefix_emb)
         x = (None, x)
         for l in range(self.cfg.num_layers):
             x, _ = self._block(self._layer(params, l), x, positions, **kw)
-        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x[1].device)
         for a in auxes:
             aux = aux + a
         return self._head(params, x, last=False), aux
 
-    def prefill(self, params, tokens, max_len: int):
-        """tokens [B, S] -> (last-position logits [B, v], cache, S).  The
-        cache is the ring KV cache {k, v: [L, B, W, Hkv, D]} (dense, moe),
-        the recurrent state {state [L, B, H, hs, hs] f32, tm_prev,
-        cm_prev [L, B, h]} (ssm), or the ring KV cache and the selective
-        scan's state {k, v, ssm_state [L, B, di, N] f32} (hybrid)."""
+    def prefill(self, params, tokens, max_len: int, prefix_emb=None):
+        """tokens [B, S] (after ``prefix_emb`` [B, P, h] for the vlm) ->
+        (last-position logits [B, v], cache, P + S).  The cache is the ring
+        KV cache {k, v: [L, B, W, Hkv, D]} (dense, vlm, moe), the recurrent
+        state {state [L, B, H, hs, hs] f32, tm_prev, cm_prev [L, B, h]}
+        (ssm), or the ring KV cache and the selective scan's state {k, v,
+        ssm_state [L, B, di, N] f32} (hybrid)."""
         cfg = self.cfg
         L = cfg.num_layers
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, prefix_emb)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device).expand(B, S)
         w = self.cache_width(max_len)
+        kw = self._prefix_kw(prefix_emb)
         cache = None
         x = (None, x)
         for l in range(L):
             x, c = self._block(self._layer(params, l), x, positions,
-                               build_cache_w=w)
+                               build_cache_w=w, **kw)
             if cache is None:
                 cache = {key: val.new_empty((L, *val.shape))
                          for key, val in c.items()}

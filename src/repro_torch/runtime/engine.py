@@ -5,6 +5,8 @@ Counterpart of ``repro.runtime.engine.InferenceEngine``.  Decode runs
 the tail; the [L, B, W, Hkv, D] cache is updated in place for the whole
 generation (the JAX engine donated it).  The output is identical for every
 ``decode_chunk``.  Replaying the chunk as a CUDA graph is a later step.
+An encoder-only config builds an engine that encodes (``encode``) and
+raises in ``generate``, as the JAX engine does.
 """
 from __future__ import annotations
 
@@ -36,8 +38,6 @@ class InferenceEngine:
     def __init__(self, cfg: ModelConfig, params, max_len: int = 2048,
                  decode_chunk: int = 8, device=None, plain: bool = False):
         self.device = resolve_device(device)
-        if not cfg.is_decoder:
-            raise ValueError(f"{cfg.name} is encoder-only: no decode")
         check_params_device(params, self.device)
         self.cfg = cfg
         self.model = get_model(cfg, plain)
@@ -46,13 +46,19 @@ class InferenceEngine:
         self.decode_chunk = max(int(decode_chunk), 1)
 
     @torch.inference_mode()
-    def generate(self, tokens, max_new_tokens: int = 32) -> torch.Tensor:
-        """tokens [B, S_p] -> generated [B, max_new_tokens] int32 (greedy)."""
+    def generate(self, tokens, max_new_tokens: int = 32,
+                 prefix_emb=None) -> torch.Tensor:
+        """tokens [B, S_p] (after ``prefix_emb`` [B, P, h], the vlm's image
+        prefix) -> generated [B, max_new_tokens] int32 (greedy); decode
+        starts at position P + S_p."""
+        if not self.cfg.is_decoder:
+            raise ValueError(f"{self.cfg.name} is encoder-only: no decode")
         tokens = torch.as_tensor(tokens, dtype=torch.int32,
                                  device=self.device)
-        logits, cache, _ = self.model.prefill(self.params, tokens,
-                                              self.max_len)
-        pos = tokens.shape[1]
+        if prefix_emb is not None:
+            prefix_emb = torch.as_tensor(prefix_emb, device=self.device)
+        logits, cache, pos = self.model.prefill(self.params, tokens,
+                                                self.max_len, prefix_emb)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         pieces = [tok[:, None]]
         remaining = max_new_tokens - 1
@@ -70,3 +76,11 @@ class InferenceEngine:
             pieces.append(tok[:, None])
             pos += 1
         return torch.cat(pieces, dim=1)
+
+    @torch.inference_mode()
+    def encode(self, features) -> torch.Tensor:
+        """features [B, S, h] -> logits [B, S, v]: the full-sequence pass
+        (``Model.forward(features=)``)."""
+        features = torch.as_tensor(features, device=self.device)
+        logits, _ = self.model.forward(self.params, features=features)
+        return logits

@@ -160,9 +160,54 @@ def test_flash_kernel(cuda, dtype, tol, B, S, T, off, kl, window, d, hkv,
            fref.flash_attention_ref(q, k, v, off, kl, window), tol)
 
 
+# B2's mask modes (the encoder's bidirectional mask, the vlm's prefix mask
+# over a prefix off the 64-key tile grid, with and without a window, and
+# the causal mask) at every head dim: two sequences of 150 queries (a
+# ragged last tile), one with a shorter KV length
+FLASH_MODES = [pytest.param("causal", 0, None, id="causal"),
+               pytest.param("bidirectional", 0, None, id="bidir"),
+               pytest.param("bidirectional", 0, 40, id="bidir-w40"),
+               pytest.param("prefix", 77, None, id="prefix77"),
+               pytest.param("prefix", 77, 20, id="prefix77-w20"),
+               pytest.param("prefix", 150, None, id="prefix-all")]
+FLASH_DIMS = [pytest.param(d, hkv, g, id=f"d{d}") for d, hkv, g in
+              ((32, 1, 4), (64, 2, 2), (80, 2, 1), (128, 2, 3), (256, 1, 8))]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("d,g", [(128, 3), (64, 1), (32, 8)])
+@pytest.mark.parametrize("d,hkv,g", FLASH_DIMS)
+@pytest.mark.parametrize("mode,prefix_len,window", FLASH_MODES)
+def test_flash_kernel_mask_modes(cuda, dtype, tol, mode, prefix_len, window,
+                                 d, hkv, g):
+    rnd = _rand(cuda, dtype, seed=d + prefix_len)
+    q, k, v = rnd(2, 150, hkv * g, d), rnd(2, 150, hkv, d), rnd(2, 150, hkv, d)
+    off, kl = _i32(cuda, [0, 0]), _i32(cuda, [150, 101])
+    _close(fops.flash_attention_cuda(q, k, v, off, kl, window, mode,
+                                     prefix_len),
+           fref.flash_attention_ref(q, k, v, off, kl, window, mode=mode,
+                                    prefix_len=prefix_len), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_flash_kernel_prefix_mode_at_an_offset(cuda, dtype, tol):
+    """The prefix mask where queries start past the prefix (a chunk at
+    offset 300 over a 256-key prefix, D 256): every query still sees the
+    prefix, loaded in tiles below its own position."""
+    rnd = _rand(cuda, dtype, seed=7)
+    q, k, v = rnd(1, 70, 8, 256), rnd(1, 370, 1, 256), rnd(1, 370, 1, 256)
+    off, kl = _i32(cuda, [300]), _i32(cuda, [370])
+    for window in (None, 100):
+        _close(fops.flash_attention_cuda(q, k, v, off, kl, window, "prefix",
+                                         256),
+               fref.flash_attention_ref(q, k, v, off, kl, window,
+                                        mode="prefix", prefix_len=256), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("d,g", [(128, 3), (64, 1), (32, 8), (256, 8)])
 def test_decode_kernel(cuda, dtype, tol, d, g):
     rnd = _rand(cuda, dtype, seed=g)
     q, k, v = rnd(3, 2 * g, d), rnd(3, 90, 2, d), rnd(3, 90, 2, d)
@@ -179,7 +224,8 @@ def test_decode_kernel(cuda, dtype, tol, d, g):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("d,hkv,g", [(128, 8, 3), (64, 2, 1), (32, 1, 8)])
+@pytest.mark.parametrize("d,hkv,g", [(128, 8, 3), (64, 2, 1), (32, 1, 8),
+                                     (256, 1, 8)])
 def test_decode_split_boundaries(cuda, dtype, tol, d, hkv, g):
     """B3's split pass + combine pass (128 rows a split) at lengths 1, 127,
     128, 129 and W = 300 (a ragged last split), so the short rows' later
@@ -189,6 +235,29 @@ def test_decode_split_boundaries(cuda, dtype, tol, d, hkv, g):
     lens = _i32(cuda, [1, 127, 128, 129, 300])
     _close(dops.decode_attention_cuda(q, k, v, lens),
            dref.decode_attention_ref(q, k, v, lens), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_decode_kernel_d256_wrapped_ring(cuda, dtype, tol):
+    """B3 at paligemma's head shape (8 query heads over 1 KV head, D 256)
+    on ring caches built as the model builds them (``build_ring_cache``)
+    from 200 to 700 positions into 256 rows, wrapped past the width,
+    against the plain attention of the last query over the last 256
+    positions."""
+    from repro_torch.models.blocks import build_ring_cache
+    rnd = _rand(cuda, dtype, seed=256)
+    P, W = (200, 256, 257, 700), 256
+    q = rnd(4, 8, 256)
+    kf, vf = rnd(4, P[-1], 1, 256), rnd(4, P[-1], 1, 256)
+    rings = [build_ring_cache(kf[b:b + 1, :n], vf[b:b + 1, :n], W)
+             for b, n in enumerate(P)]
+    ck = torch.cat([r["k"] for r in rings])
+    cv = torch.cat([r["v"] for r in rings])
+    pos = _i32(cuda, P)
+    _close(dops.decode_attention_cuda(q, ck, cv, pos.clamp(max=W)),
+           fref.flash_attention_ref(q[:, None], kf, vf, pos - 1, pos,
+                                    W)[:, 0], tol)
 
 
 @pytest.mark.gpu
@@ -206,7 +275,8 @@ def test_paged_decode_kernel(cuda, dtype, tol, ps):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("d,hkv,g", [(128, 8, 3), (64, 2, 1), (32, 1, 8)])
+@pytest.mark.parametrize("d,hkv,g", [(128, 8, 3), (64, 2, 1), (32, 1, 8),
+                                     (256, 1, 8)])
 @pytest.mark.parametrize("ps", [16, 5])
 def test_paged_decode_split_boundaries(cuda, dtype, tol, ps, d, hkv, g):
     """B4's split pass + combine pass at lengths 1, exactly on a split
@@ -1005,3 +1075,57 @@ def test_moe_dispatch_and_combine_are_deterministic(cuda, cf):
     for a, b in zip(plan, cpu):
         assert torch.equal(a.cpu(), b)
     assert bool((~plan[3]).any()) == (cf == 1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,head_dim", [("hubert-xlarge", 80),
+                                           ("paligemma-3b", 256)])
+def test_encoder_vlm_kernel_path_matches_plain(cuda, arch, head_dim):
+    """f32, 3 layers at the full models' head dims: hubert's encode logits
+    (B2 bidirectional at D 80) within 1e-4 of the plain path's, with L B2,
+    1 B1 and 2L add_rms_norm and no decode kernel; paligemma's greedy
+    tokens after 16 prefix embeddings (B2 prefix mode at D 256, then B3
+    at D 256 over one KV head) equal the plain path's, with L B2 a
+    prefill and L B3 a decode step."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import get_model
+    from repro_torch.runtime.engine import InferenceEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).reduced(num_layers=3),
+                              head_dim=head_dim)
+    L = cfg.num_layers
+    params = get_model(cfg).init(seed=0, device=cuda)
+    g = torch.Generator().manual_seed(2)
+    out = {}
+    for plain in (False, True):
+        eng = InferenceEngine(cfg, params, max_len=128, device=cuda,
+                              plain=plain)
+        _build.reset_launches()
+        if cfg.family == "encoder":
+            f = torch.randn((2, 150, cfg.d_model), generator=g)
+            out[plain] = eng.encode(f)
+            g.manual_seed(2)
+        else:
+            toks = torch.randint(2, cfg.vocab_size, (2, 40), generator=g)
+            pe = 0.02 * torch.randn((2, cfg.num_prefix_tokens, cfg.d_model),
+                                    generator=g)
+            g.manual_seed(2)
+            out[plain] = eng.generate(toks, max_new_tokens=12, prefix_emb=pe)
+        torch.cuda.synchronize()
+        if not plain:
+            launches = dict(_build.LAUNCHES)
+    if cfg.family == "encoder":
+        _close(out[False], out[True], 1e-4)
+        passes, decode = 1, 0
+    else:
+        assert torch.equal(out[False], out[True])
+        passes, decode = 12, 11
+    assert launches["rmsnorm"] == passes
+    assert launches["add_rms_norm"] == 2 * L * passes
+    assert launches["flash_attention"] == L
+    assert launches["decode_attention"] == decode * L
+    assert launches["paged_decode_attention"] == 0
+

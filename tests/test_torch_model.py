@@ -282,6 +282,11 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
 
 
 @pytest.mark.parametrize("arch", ["hubert-xlarge", "paligemma-3b"])
-def test_other_families_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="A11"):
-        port_model(port_config(arch).reduced())
+def test_encoder_and_vlm_families_construct(arch):
+    """Every family of the repo builds a Model and an engine (the encoder
+    and vlm ones are held to JAX in tests/test_torch_encoder_vlm.py)."""
+    cfg = port_config(arch).reduced()
+    model = port_model(cfg)
+    params = model.init(seed=0, device="cpu")
+    assert set(params) == set(bridge.expected_shapes(cfg))
+    assert InferenceEngine(cfg, params, device="cpu").model is model
