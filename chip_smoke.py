@@ -135,7 +135,25 @@ Phases:
      Scheduler against solo runs; f32 at L = 4, greedy tokens kernel ==
      plain; (d) peak device memory and one prefill pass's breakdown per
      model; every run's launches equal their formula;
- 12. one JSON line with the kernel table, then the ok line.
+ 12. training at the full width of llama32-3b, after phase 9 on its
+     params (which (c) trains in place): (a) f32 at L = 4, B = 2, S =
+     512: make_loss_fn's gradient on the kernel path (B1, add_rms_norm,
+     B2 forward; each backward the plain version's gradient) against the
+     plain path's, remat "full" and "dots" against none, the fused loss
+     against the dense one, every leaf within GRAD_BOUND of its largest
+     value; (b) bf16 at full depth: the loss and each leaf's cosine and
+     relative norm error against the plain path, beside the yardstick;
+     (c) 8 AdamW steps on one batch, the loss falling, every value
+     finite; (d) every pass's launches equal their formula, none in the
+     backward (remat: the recomputed layers' again); (e) one step's
+     breakdown: host wall, device busy, idle share, the train.fwd / bwd /
+     opt ranges' device ms, B2's forward beside its backward, tokens/s,
+     peak memory; (f) params and AdamW state (L = 4 f32) saved and loaded
+     back bitwise, the resumed step bitwise the continued one; (g)
+     rwkv6-7b (B10), deepseek-moe-16b, hymba-1.5b (B2 windowed),
+     hubert-xlarge and paligemma-3b at L = 2 f32, kernel vs plain
+     gradients as (a);
+ 13. one JSON line with the kernel table, then the ok line.
 
 It imports nothing of JAX, exits non-zero with no ok line when there is no
 card or when it is not inside a checkout of the repository, and lets every
@@ -1495,7 +1513,8 @@ def decode_breakdown(dev, model, params, smi, what: str, steps: int = 8,
 
 # record_function labels of the breakdowns: on the card the profiler shows
 # each as a span from its first to its last device record, gaps included
-RANGES = ("pp.boundary_hop", "cp.ring", "moe.ffn", "hybrid.scan")
+RANGES = ("pp.boundary_hop", "cp.ring", "moe.ffn", "hybrid.scan",
+          "train.fwd", "train.bwd", "train.opt")
 
 
 def _on_card(e) -> bool:
@@ -1521,14 +1540,19 @@ def device_busy_us(prof):
     so records that overlap — B5 and B6 start while their predecessor
     drains, by programmatic dependent launch — count once; summed adds
     their durations, as the breakdowns before the union did."""
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if _work_on_card(e))
+    spans = [(e.time_range.start, e.time_range.end)
+             for e in prof.events() if _work_on_card(e)]
+    return _union_us(spans), sum(b - a for a, b in spans)
+
+
+def _union_us(spans) -> float:
+    """The length of the union of (start, end) intervals."""
     busy, end = 0.0, float("-inf")
-    for a, b in spans:
+    for a, b in sorted(spans):
         if b > end:
             busy += b - max(a, end)
             end = b
-    return busy, sum(b - a for a, b in spans)
+    return busy
 
 
 def prefill_breakdown(dev, model, params, smi, S: int = 333,
@@ -3959,6 +3983,481 @@ def encoder_vlm_phase(dev, smi):
         f"{time.perf_counter() - t_phase:.1f} s; launches {totals}")
     return totals
 
+# ---------------------------------------------------------------------------
+# phase 12: training at the full width of llama32-3b
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S = 2, 512      # every llama32-3b batch: B sequences of S
+TRAIN_F32_LAYERS = 4           # (a) and (f): f32 at full width, cut depth
+TRAIN_STEPS = 8                # (c): AdamW steps on one fixed batch
+TRAIN_LR = (1e-3, 2)           # (c): cosine_schedule(peak, warmup, steps)
+# (a), (g): every f32 gradient leaf of the kernel path within this share of
+# the leaf's largest |gradient| on the plain path (the kernels' f32 sums in
+# another order move the activations by ~1e-6 of their scale, and their
+# backward is the plain versions' gradient)
+GRAD_BOUND = 1e-3
+GRAD_COS_FLOOR = 0.99          # (b): the worst bf16 leaf's cosine
+# (e): 7.2 GB of bf16 parameters, 7.2 of gradients, 28.9 of f32 moments
+# and ~5 of activations at B = 2, S = 512
+TRAIN_MEMORY_GB = 48
+# (g): (arch, B, S) at L = 2 in f32; hymba's 1100 tokens pass its window
+# of 1024, paligemma's S text tokens follow its 256 prefix positions
+TRAIN_FAMILIES = (("rwkv6-7b", 2, 512), ("deepseek-moe-16b", 2, 512),
+                  ("hymba-1.5b", 1, 1100), ("hubert-xlarge", 2, 512),
+                  ("paligemma-3b", 2, 256))
+
+
+def train_launches(cfg, passes: int = 1, remat: str = "none") -> dict:
+    """The hand-written launches of ``passes`` training passes: each
+    forward runs the serving pass's norm sites (1 B1, hymba 1 + 2L; 2L
+    add_rms_norm) and L B2 (B10 for the ssm family); the backward runs the
+    plain versions' gradients and launches none, but under remat its
+    recompute runs each layer's kernels again (all but the final norm)."""
+    from repro_torch.kernels import _build
+    L, again = cfg.num_layers, remat != "none"
+    branch = 2 * L if cfg.family == "hybrid" else 0
+    want = dict.fromkeys(_build.LAUNCHES, 0)
+    want["rmsnorm"] = passes * (1 + branch) * (1 + again)
+    want["add_rms_norm"] = passes * (2 * L + again * (2 * L - 1))
+    layer = "wkv6" if cfg.family == "ssm" else "flash_attention"
+    want[layer] = passes * L * (1 + again)
+    return want
+
+
+def counted(what, want, totals, fn):
+    """fn() as one counted run (``count_into``), its launches held to
+    ``want``."""
+    with count_into(totals) as counts:
+        out = fn()
+    log(f"  launches {what}: "
+        f"{ {k: n for k, n in counts.items() if n} }")
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts} != expected {want}")
+    return out
+
+
+def train_batch(cfg, B: int, S: int, dev, seed: int = 0) -> dict:
+    """A batch on the card as the training launcher makes it from ``seed``:
+    SyntheticTokens rows [B, S] (after the vlm's image-prefix embeddings;
+    the encoder's frames and targets instead)."""
+    import numpy as np
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models.layers import torch_dtype
+    tokens = SyntheticTokens(cfg.vocab_size, S, B, seed=seed).batch_at(0)
+    batch = make_batch(cfg, tokens, np.random.default_rng(seed), B, S,
+                       torch_dtype(cfg.dtype))
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def loss_grads(cfg, params, batch, plain: bool = False,
+               remat: str = "none", loss_impl: str = "dense"):
+    """(loss, gradient tree) of make_loss_fn on the kernel or plain path."""
+    from repro_torch.models.transformer import get_model
+    from repro_torch.runtime import train
+    model = get_model(dataclasses.replace(cfg, remat=remat), plain=plain)
+    loss, _, grads = train.loss_and_grads(
+        train.make_loss_fn(model, loss_impl), params, batch)
+    return float(loss), grads
+
+
+def grads_within(what, got, want, bound: float = GRAD_BOUND) -> float:
+    """Hold every leaf of ``got`` within ``bound`` · max |leaf of want| of
+    ``want``; log the worst leaf; returns its ratio."""
+    import math
+    from repro_torch.checkpoint.store import flatten
+    ref = flatten(want)
+    worst, at = 0.0, None
+    for key, g in flatten(got).items():
+        ratio = float((g.float() - ref[key].float()).abs().max()) / max(
+            float(ref[key].float().abs().max()), 1e-30)
+        if not math.isfinite(ratio) or ratio > worst:
+            worst, at = ratio, key
+        if not math.isfinite(ratio):
+            break
+    ok = worst <= bound
+    log(f"[train] {what}: worst leaf {at}: max |diff| / max |grad| "
+        f"{worst:.3e} (bound {bound:g}): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: gradient leaf {at} off by {worst}")
+    return worst
+
+
+def grad_agreement(got, want):
+    """(worst cosine, its leaf, worst relative norm error |got - want| /
+    |want|, its leaf) over the leaves, summed in f64 a block at a time."""
+    from repro_torch.checkpoint.store import flatten
+    ref = flatten(want)
+    cos, rel = (2.0, None), (-1.0, None)
+    for key, g in flatten(got).items():
+        dot = gg = ww = dd = 0.0
+        for a, b in zip(g.flatten().split(1 << 25),
+                        ref[key].flatten().split(1 << 25)):
+            a, b = a.double(), b.double()
+            dot += float(a @ b)
+            gg += float(a @ a)
+            ww += float(b @ b)
+            dd += float((a - b) @ (a - b))
+        c = dot / max((gg * ww) ** 0.5, 1e-300)
+        r = (dd / max(ww, 1e-300)) ** 0.5
+        cos = min(cos, (c, key))
+        rel = max(rel, (r, key))
+    return cos[0], cos[1], rel[0], rel[1]
+
+
+def train_f32_run(dev, cfg32, params32, totals):
+    """Phase 12(a): f32 at L = 4, full width: the kernel path's gradient
+    against the plain path's, remat "full" and "dots" against none, the
+    fused loss against the dense one, each leaf within GRAD_BOUND."""
+    batch = train_batch(cfg32, TRAIN_B, TRAIN_S, dev, seed=1)
+    p_loss, plain = loss_grads(cfg32, params32, batch, plain=True)
+    k_loss, kern = counted("f32 L=4 kernel path", train_launches(cfg32),
+                           totals, lambda: loss_grads(cfg32, params32, batch))
+    log(f"[train] f32 L={cfg32.num_layers} B={TRAIN_B} S={TRAIN_S}: loss "
+        f"kernel {k_loss:.6f} plain {p_loss:.6f}")
+    grads_within("f32 kernel path vs plain path", kern, plain)
+    del plain
+    for remat in ("full", "dots"):
+        loss, got = counted(
+            f"f32 L=4 remat {remat}", train_launches(cfg32, remat=remat),
+            totals, lambda: loss_grads(cfg32, params32, batch, remat=remat))
+        log(f"[train] remat {remat}: loss {loss:.6f}")
+        grads_within(f"f32 remat {remat} vs none", got, kern)
+        del got
+    loss, got = counted("f32 L=4 fused loss", train_launches(cfg32), totals,
+                        lambda: loss_grads(cfg32, params32, batch,
+                                           loss_impl="fused"))
+    log(f"[train] fused loss {loss:.6f} vs dense {k_loss:.6f}")
+    grads_within("f32 fused loss vs dense", got, kern)
+
+
+def train_checkpoint_run(dev, cfg32, params32, totals):
+    """Phase 12(f): one AdamW step at L = 4 f32, then params and optimizer
+    state saved and loaded back bitwise; a step from the loaded state
+    equals the step continued without saving, bitwise."""
+    import shutil
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.checkpoint.store import flatten
+    from repro_torch.models.transformer import get_model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.runtime import train
+
+    batch = train_batch(cfg32, TRAIN_B, TRAIN_S, dev, seed=2)
+    opt = AdamW(lr=cosine_schedule(TRAIN_LR[0], TRAIN_LR[1], TRAIN_STEPS))
+    step = train.make_train_step(get_model(cfg32), opt, device=dev)
+    state = opt.init(params32)
+    params32, state, _ = counted(
+        "f32 L=4 step before the checkpoint", train_launches(cfg32), totals,
+        lambda: step(params32, state, batch))
+    path = ROOT / "build" / "train_checkpoint"
+    tree = {"params": params32, "opt": state}
+    try:
+        t0 = time.perf_counter()
+        save_checkpoint(str(path), tree, step=1)
+        t1 = time.perf_counter()
+        loaded, n = load_checkpoint(str(path), device=dev)
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    nbytes = sum(t.numel() * t.element_size() for t in flatten(tree).values())
+    same = n == 1 and all(
+        a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(flatten(loaded).values(), flatten(tree).values()))
+    log(f"[train] checkpoint of {nbytes / 1e9:.2f} GB (params and AdamW "
+        f"state, L={cfg32.num_layers} f32): save {t1 - t0:.1f} s, load "
+        f"{t2 - t1:.1f} s, loaded == saved bitwise: {same}")
+    if not same:
+        raise AssertionError("checkpoint: a leaf did not load back bitwise")
+    runs = []
+    for p, s in ((params32, state), (loaded["params"], loaded["opt"])):
+        runs.append(counted("f32 L=4 step after the checkpoint",
+                            train_launches(cfg32), totals,
+                            lambda: step(p, s, batch)))
+    (p1, s1, m1), (p2, s2, m2) = runs
+    same = float(m1["loss"]) == float(m2["loss"]) and all(
+        torch.equal(a, b) for a, b in zip(
+            flatten({"p": p1, "s": s1}).values(),
+            flatten({"p": p2, "s": s2}).values()))
+    log(f"[train] step from the loaded state == the step continued: {same} "
+        f"(loss {float(m1['loss']):.6f})")
+    if not same:
+        raise AssertionError("checkpoint: the resumed step differs")
+
+
+def train_bf16_compare(dev, cfg, params, batch, totals):
+    """Phase 12(b): one full-depth bf16 gradient on the kernel path against
+    the plain path's, beside the yardstick (the plain path with f64
+    attention): the loss difference and each leaf's cosine and relative
+    norm error; the worst leaf's cosine held to GRAD_COS_FLOOR, or within
+    YARDSTICK_MARGIN of the yardstick's."""
+    p_loss, plain = loss_grads(cfg, params, batch, plain=True)
+    k_loss, kern = counted("bf16 full depth kernel path",
+                           train_launches(cfg), totals,
+                           lambda: loss_grads(cfg, params, batch))
+    k_cos = grad_agreement(kern, plain)
+    del kern
+    y_loss, yard = exact_attention(
+        lambda: loss_grads(cfg, params, batch, plain=True))
+    y_cos = grad_agreement(yard, plain)
+    del yard, plain
+    for what, loss, (c, c_at, r, r_at) in (("kernel path", k_loss, k_cos),
+                                          ("yardstick", y_loss, y_cos)):
+        log(f"[train] bf16 L={cfg.num_layers} {what} vs plain: loss "
+            f"{loss:.6f} vs {p_loss:.6f} (diff {loss - p_loss:+.3e}); worst "
+            f"leaf cosine {c:.6f} ({c_at}), worst relative norm error "
+            f"{r:.3e} ({r_at})")
+    floor = min(GRAD_COS_FLOOR, y_cos[0] - YARDSTICK_MARGIN)
+    if not k_cos[0] >= floor:
+        raise AssertionError(f"bf16 gradients: worst cosine {k_cos[0]} < "
+                             f"{floor}")
+    return k_cos, y_cos
+
+
+def window_busy_us(prof, label: str) -> float:
+    """Device busy (us) inside the host span of the ``label`` range: the
+    union of the card's kernel and copy intervals clipped to it.  Exact
+    when the range ends with a synchronise (its kernels then run inside
+    it)."""
+    host = [e for e in prof.events() if e.name == label and not _on_card(e)]
+    a, b = host[0].time_range.start, host[0].time_range.end
+    return _union_us((max(e.time_range.start, a), min(e.time_range.end, b))
+                     for e in prof.events() if _work_on_card(e)
+                     and e.time_range.end > a and e.time_range.start < b)
+
+
+def fwd_bwd_ms(kernel, plain, args, ups):
+    """Device ms (CUDA events, ``bench``) of ``kernel(*args)`` and of its
+    backward as kernels.grad runs it: ``plain(*args)`` recomputed on the
+    floating-point arguments and differentiated against ``ups``."""
+    def backward(*args):
+        with torch.enable_grad():
+            leaves = [a.detach().requires_grad_() if a.is_floating_point()
+                      else a for a in args]
+            outs = plain(*leaves)
+            torch.autograd.grad(
+                outs if isinstance(outs, tuple) else (outs,),
+                [a for a in leaves if a.requires_grad], ups)
+    return (bench(kernel, [args], iters=20),
+            bench(backward, [args], iters=5, warmup=2))
+
+
+def train_attention_ms(dev, cfg):
+    """B2 at the training shape (q [TRAIN_B, TRAIN_S, Hq, D] bf16,
+    causal): (forward ms, backward ms) by ``fwd_bwd_ms``."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    g = torch.Generator(dev).manual_seed(4)
+    shape = (TRAIN_B, TRAIN_S, cfg.num_heads, cfg.head_dim)
+    kv = (TRAIN_B, TRAIN_S, cfg.num_kv_heads, cfg.head_dim)
+    q, k, v, up = (torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+                   for s in (shape, kv, kv, shape))
+    off = torch.zeros(TRAIN_B, dtype=torch.int32, device=dev)
+    kl = torch.full((TRAIN_B,), TRAIN_S, dtype=torch.int32, device=dev)
+    return fwd_bwd_ms(fops.flash_attention_cuda, flash_attention_ref,
+                      (q, k, v, off, kl), (up,))
+
+
+def train_wkv6_ms(dev, cfg, B: int, S: int):
+    """B10 at the ssm family's training shape (r/k/v/w [B, S, H, hs] in
+    the config's type, the kernel ops.wkv6 picks): (forward ms, backward
+    ms) by ``fwd_bwd_ms`` (the backward through that kernel's plain
+    form)."""
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+    from repro_torch.kernels.rwkv6_scan.ref import wkv6_chunk_ref, wkv6_ref
+    from repro_torch.models.layers import torch_dtype
+    H, hs = cfg.num_heads, cfg.ssm.head_size
+    dt = torch_dtype(cfg.dtype)
+    g = torch.Generator(dev).manual_seed(5)
+    r, k, v, y_up = [(0.5 * torch.randn((B, S, H, hs), generator=g,
+                                        device=dev)).to(dt)
+                      for _ in range(4)]
+    w = (0.8 + 0.199 * torch.rand((B, S, H, hs), generator=g,
+                                  device=dev)).to(dt)
+    u = 0.3 * torch.randn((H, hs), generator=g, device=dev)
+    state = torch.zeros((B, H, hs, hs), device=dev)
+    chunk = wops.kernel_chunk(B, S, H, hs)
+    ms = fwd_bwd_ms(
+        lambda *a: wops.wkv6_cuda(*a, chunk=chunk),
+        wkv6_chunk_ref if chunk else wkv6_ref, (r, k, v, w, u, state),
+        (y_up, torch.zeros_like(state)))
+    return ms, "chunked" if chunk else "per-step"
+
+
+def train_steps_run(dev, smi, cfg, params, batch, totals):
+    """Phase 12(c)–(e): TRAIN_STEPS steps on one fixed batch, bf16 at full
+    depth; the loss must fall and every value stay finite.  Steps 1 to
+    TRAIN_STEPS − 1 are make_train_step calls, each with the forward's
+    launches.  The last, profiled, runs the step's three parts as
+    make_train_step does (loss_and_grads, then AdamW.update) with the
+    card synchronised at the end of each ``train.*`` range, so that each
+    range's span holds its kernels: its device ms is the union of the
+    kernel intervals inside it (``window_busy_us``), and the backward is
+    seen to launch no hand-written kernel.  Reported: host wall (the
+    unprofiled steps'), device busy, idle share, the three ranges' device
+    ms, B2's forward beside its backward (``train_attention_ms``), tokens
+    per second and peak device memory."""
+    import math
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.checkpoint.store import flatten, unflatten
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import get_model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.runtime import train
+
+    opt = AdamW(lr=cosine_schedule(TRAIN_LR[0], TRAIN_LR[1], TRAIN_STEPS))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = opt.init(params)
+    step = train.make_train_step(get_model(cfg), opt, device=dev)
+    history, walls = [], []
+    for i in range(TRAIN_STEPS - 1):
+        t0 = time.perf_counter()
+        params, state, m = counted(
+            f"train step {i + 1}", train_launches(cfg), totals,
+            lambda: step(params, state, batch))
+        walls.append(1e3 * (time.perf_counter() - t0))
+        history.append({k: float(v) for k, v in m.items()})
+    loss_fn = train.make_loss_fn(get_model(cfg))
+    live = {k: p.detach().requires_grad_()
+            for k, p in flatten(params).items()}
+    _build.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("train.fwd"), torch.enable_grad():
+            loss, metrics = loss_fn(unflatten(live), batch)
+            torch.cuda.synchronize()
+        fwd_counts = dict(_build.LAUNCHES)
+        with record_function("train.bwd"):
+            grads = torch.autograd.grad(loss, list(live.values()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+            torch.cuda.synchronize()
+        bwd_counts = dict(_build.LAUNCHES)
+        with record_function("train.opt"):
+            params, state, om = opt.update(
+                unflatten(dict(zip(live, grads))), state, params)
+            torch.cuda.synchronize()
+    del grads
+    log(f"  launches train step {TRAIN_STEPS} (profiled): forward "
+        f"{ {k: n for k, n in fwd_counts.items() if n} }, after the "
+        f"backward {'the same' if bwd_counts == fwd_counts else bwd_counts}")
+    if fwd_counts != train_launches(cfg) or bwd_counts != fwd_counts:
+        raise AssertionError("training step: launches off the formula, or "
+                             "a hand-written kernel in the backward")
+    for k in totals:
+        totals[k] += fwd_counts[k]
+    history.append({k: float(v.detach()) for k, v in
+                    {"loss": loss, **metrics, **om}.items()})
+    for i, h in enumerate(history):
+        log(f"[train] step {i + 1}: loss {h['loss']:.4f} grad_norm "
+            f"{h['grad_norm']:.4f} lr {h['lr']:.3e}")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    finite = all(math.isfinite(v) for h in history for v in h.values())
+    falls = history[-1]["loss"] < history[0]["loss"]
+    log(f"[train] {TRAIN_STEPS} steps: loss {history[0]['loss']:.4f} -> "
+        f"{history[-1]['loss']:.4f} (falls: {falls}), all finite: {finite}; "
+        f"peak device memory {peak:.2f} GB (reckoned ~{TRAIN_MEMORY_GB})")
+    if not (finite and falls):
+        raise AssertionError("training: the loss did not fall or a value "
+                             "is not finite")
+    del state
+    wall = sorted(walls[1:])[len(walls[1:]) // 2]
+    busy_us, summed_us = device_busy_us(prof)
+    if busy_us <= 0:
+        log(f"[train step] host wall {wall:.3f} ms (median of steps 2–"
+            f"{TRAIN_STEPS - 1}); device busy: not measured")
+        return
+    fwd_ms, bwd_ms = train_attention_ms(dev, cfg)
+    busy = busy_us / 1e3
+    parts = {lab: window_busy_us(prof, lab) / 1e3
+             for lab in ("train.fwd", "train.bwd", "train.opt")}
+    b2 = [e for e in device_events(prof) if "flash_prefill" in e.key]
+    log(f"[train step] {cfg.name} bf16 B={TRAIN_B} S={TRAIN_S}: host wall "
+        f"{wall:.3f} ms (median of steps 2–{TRAIN_STEPS - 1}, no profiler; "
+        f"all: {', '.join(f'{w:.1f}' for w in walls)}), device busy "
+        f"{busy:.3f} ms (profiled step, union; sum {summed_us / 1e3:.3f}), "
+        f"idle share {1 - busy / wall:.3f}; "
+        f"{TRAIN_B * TRAIN_S / wall * 1e3:.0f} tokens/s ({smi})")
+    log(f"[train step] device ms (synchronised ranges): "
+        + ", ".join(f"{lab} {ms:.3f}" for lab, ms in parts.items())
+        + f"; B2 in the step: {sum(e.self_device_time_total for e in b2) / 1e3:.3f} "
+        f"ms in {sum(e.count for e in b2)} launches; one B2 at "
+        f"q[{TRAIN_B},{TRAIN_S},{cfg.num_heads},{cfg.head_dim}]: forward "
+        f"{fwd_ms:.4f} ms, its backward (flash_attention_ref recomputed and "
+        f"differentiated) {bwd_ms:.4f} ms (CUDA events)")
+    for e in sorted(device_events(prof),
+                    key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"    device {e.self_device_time_total / 1e3:8.3f} ms "
+            f"{e.count:5d}x  {e.key[:90]}")
+
+
+def train_family_run(dev, arch: str, B: int, S: int, totals):
+    """Phase 12(g): one family at L = 2, full width, f32: the kernel path's
+    gradient against the plain path's, every leaf within GRAD_BOUND."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import get_model
+    cfg = dataclasses.replace(get_config(arch), num_layers=2,
+                              dtype="float32")
+    torch.cuda.empty_cache()
+    params = get_model(cfg).init(seed=0, device=dev)
+    batch = train_batch(cfg, B, S, dev, seed=3)
+    p_loss, plain = loss_grads(cfg, params, batch, plain=True)
+    k_loss, kern = counted(f"{arch} f32 L=2 kernel path",
+                           train_launches(cfg), totals,
+                           lambda: loss_grads(cfg, params, batch))
+    log(f"[train] {arch} f32 L=2 B={B} S={S}: loss kernel {k_loss:.6f} "
+        f"plain {p_loss:.6f}")
+    grads_within(f"{arch} f32 kernel path vs plain path", kern, plain)
+    if cfg.family == "ssm":
+        (fwd, bwd), which = train_wkv6_ms(dev, cfg, B, S)
+        log(f"[train] {arch}: B10 ({which} kernel) at r[{B},{S},"
+            f"{cfg.num_heads},{cfg.ssm.head_size}] {cfg.dtype}: forward "
+            f"{fwd:.4f} ms, its backward (the {which} plain form recomputed "
+            f"and differentiated) {bwd:.4f} ms (CUDA events)")
+
+
+def train_phase(dev, smi, params):
+    """Phase 12: the training path, (a)–(f) on llama32-3b (``params``,
+    trained in place by (c); no later phase reads them), (g) the other
+    families."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import get_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(ARCH)
+    totals = {name: 0 for name in _build.LAUNCHES}
+    times = []
+    t_phase = t0 = time.perf_counter()
+
+    def lap(what):
+        nonlocal t0
+        times.append(f"({what}) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+
+    cfg32 = dataclasses.replace(cfg, num_layers=TRAIN_F32_LAYERS,
+                                dtype="float32")
+    params32 = get_model(cfg32).init(seed=3, device=dev)
+    train_f32_run(dev, cfg32, params32, totals)
+    lap("a")
+    train_checkpoint_run(dev, cfg32, params32, totals)
+    del params32
+    lap("f")
+    batch = train_batch(cfg, TRAIN_B, TRAIN_S, dev)
+    train_bf16_compare(dev, cfg, params, batch, totals)
+    lap("b")
+    train_steps_run(dev, smi, cfg, params, batch, totals)
+    lap("c-e")
+    for arch, B, S in TRAIN_FAMILIES:
+        train_family_run(dev, arch, B, S, totals)
+    lap("g")
+    log(f"[train phase] {', '.join(times)}, "
+        f"{time.perf_counter() - t_phase:.1f} s; launches "
+        f"{ {k: n for k, n in totals.items() if n} }")
+    return totals
+
+
 _RMS = "src/repro/kernels/rmsnorm/rmsnorm_kernel.py:25"
 REPLACES = {
     "rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu", _RMS),
@@ -4056,6 +4555,8 @@ def main(argv=None) -> int:
                             streams).items():
         launches[name] += n
     for name, n in failure_phase(dev, smi, params).items():
+        launches[name] += n
+    for name, n in train_phase(dev, smi, params).items():
         launches[name] += n
     del params, prompt, kernel_rows
     for name, n in rwkv_phase(dev, smi).items():

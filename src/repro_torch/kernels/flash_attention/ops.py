@@ -1,12 +1,15 @@
 """Dispatch for prefill attention: kernel B2 on a CUDA tensor, the plain
-version on a CPU tensor."""
+version on a CPU tensor.  Where autograd records, B2's backward is the
+plain version's gradient (``kernels.grad``): it materialises the
+[B, Hq, S, T] f32 scores of one call."""
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, grad
 from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
                                                      visible_prefix)
 
@@ -18,6 +21,12 @@ def flash_attention(q, k, v, q_offset, kv_len, window=None,
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, q_offset, kv_len, window,
                                    mode=mode, prefix_len=prefix_len)
+    if grad.wanted(q, k, v):
+        kw = dict(window=window, mode=mode, prefix_len=prefix_len)
+        return grad.through_plain(
+            functools.partial(flash_attention_cuda, **kw),
+            functools.partial(flash_attention_ref, **kw),
+            q, k, v, q_offset, kv_len)
     return flash_attention_cuda(q, k, v, q_offset, kv_len, window, mode,
                                 prefix_len)
 

@@ -1,17 +1,21 @@
 """Dispatch for RMSNorm: kernel B1 (and ``add_rms_norm``, B1 with the
 residual add before it fused in) on a CUDA tensor, the plain version on a
-CPU tensor."""
+CPU tensor.  Where autograd records, the kernel's backward is the plain
+version's gradient (``kernels.grad``)."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, grad
 from repro_torch.kernels.rmsnorm.ref import add_rms_norm_ref, rms_norm_ref
 
 
 def rms_norm(x, weight, eps: float = 1e-5):
     if x.device.type == "cpu":
         return rms_norm_ref(x, weight, eps)
+    if grad.wanted(x, weight):
+        return grad.through_plain(rms_norm_cuda, rms_norm_ref, x, weight,
+                                  eps)
     return rms_norm_cuda(x, weight, eps)
 
 
@@ -19,6 +23,9 @@ def add_rms_norm(x, y, weight, eps: float = 1e-5):
     """(s, n): s = x + y, n = rms_norm(s)."""
     if x.device.type == "cpu":
         return add_rms_norm_ref(x, y, weight, eps)
+    if grad.wanted(x, y, weight):
+        return grad.through_plain(add_rms_norm_cuda, add_rms_norm_ref, x,
+                                  y, weight, eps)
     return add_rms_norm_cuda(x, y, weight, eps)
 
 

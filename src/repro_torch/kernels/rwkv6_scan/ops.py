@@ -1,13 +1,18 @@
 """Dispatch for the WKV6 recurrence: kernel B10 on a CUDA tensor, the plain
 version on a CPU tensor.  B10 is two hand-written kernels: the chunked,
 column-tiled one for prefill and the per-step one for decode; ``wkv6_cuda``
-picks by S and the number of CTAs."""
+picks by S and the number of CTAs.  Where autograd records, the backward
+is the gradient of the plain form of the kernel that ran
+(``kernels.grad``): ``wkv6_chunk_ref`` for the chunked kernel,
+``wkv6_ref`` for the per-step one."""
 from __future__ import annotations
+
+import functools
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
+from repro_torch.kernels import _build, grad
+from repro_torch.kernels.rwkv6_scan.ref import wkv6_chunk_ref, wkv6_ref
 
 HEAD_SIZES = (16, 32, 64)
 CHUNK = 16              # C, the chunked kernel's tokens a chunk
@@ -27,10 +32,24 @@ def wkv6(r, k, v, w, u, state, state_out=None):
     ``state`` itself: the decode step updates its cache in place)."""
     if r.device.type == "cpu":
         y, s = wkv6_ref(r, k, v, w, u, state)
-        if state_out is None:
-            return y, s
-        return y, state_out.copy_(s)
-    return wkv6_cuda(r, k, v, w, u, state, state_out)
+    elif grad.wanted(r, k, v, w, u, state):
+        chunk = kernel_chunk(*r.shape)
+        y, s = grad.through_plain(
+            functools.partial(wkv6_cuda, chunk=chunk),
+            wkv6_chunk_ref if chunk else wkv6_ref, r, k, v, w, u, state)
+    else:
+        return wkv6_cuda(r, k, v, w, u, state, state_out)
+    if state_out is None:
+        return y, s
+    return y, state_out.copy_(s)
+
+
+def kernel_chunk(B, S, H, hs) -> int:
+    """The kernel ``wkv6_cuda`` runs by default on [B, S, H, hs]: CHUNK
+    (the chunked one) from S = CHUNK_MIN_S on while it has at most
+    CHUNK_MAX_CTAS CTAs, else 0 (the per-step one)."""
+    return CHUNK if (S >= CHUNK_MIN_S and
+                     B * H * hs // 16 <= CHUNK_MAX_CTAS) else 0
 
 
 def wkv6_cuda(r, k, v, w, u, state, state_out=None, chunk=None):
@@ -62,8 +81,7 @@ def wkv6_cuda(r, k, v, w, u, state, state_out=None, chunk=None):
     _build.require(name, "state_out", state_out, dev, torch.float32,
                    (B, H, hs, hs))
     if chunk is None:
-        chunk = CHUNK if (S >= CHUNK_MIN_S and
-                          B * H * hs // 16 <= CHUNK_MAX_CTAS) else 0
+        chunk = kernel_chunk(B, S, H, hs)
     if chunk not in (0, CHUNK):
         raise ValueError(f"{name}: chunk {chunk} is neither 0 nor {CHUNK}")
     if chunk:

@@ -82,14 +82,24 @@ def selective_scan(xm, dt, Bm, Cm, A, D, state):
     y_t = s_t·C_t + D·x_t, in f32.  The decays and inputs of every step
     are formed at once; the loop runs one fused multiply-add of the state
     per token, into the states of every step (their views made in one
-    call).  Returns (y [B, S, di] in xm's type, new_state f32)."""
+    call).  Where grad is enabled the steps run out of place (``out=``
+    takes no autograd) and are stacked: the same values.  Returns (y
+    [B, S, di] in xm's type, new_state f32)."""
     xf, dtf, Bf, Cf = (t.float() for t in (xm, dt, Bm, Cm))
     decay = torch.exp(dtf[..., None] * A)                   # [B, S, di, N]
     u = (dtf * xf)[..., None] * Bf[:, :, None, :]           # [B, S, di, N]
-    states = torch.empty_like(decay)
     s = state.float()
-    for u_t, d_t, s_t in zip(u.unbind(1), decay.unbind(1), states.unbind(1)):
-        s = torch.addcmul(u_t, d_t, s, out=s_t)
+    if torch.is_grad_enabled():
+        steps = []
+        for u_t, d_t in zip(u.unbind(1), decay.unbind(1)):
+            s = torch.addcmul(u_t, d_t, s)
+            steps.append(s)
+        states = torch.stack(steps, dim=1)
+    else:
+        states = torch.empty_like(decay)
+        for u_t, d_t, s_t in zip(u.unbind(1), decay.unbind(1),
+                                 states.unbind(1)):
+            s = torch.addcmul(u_t, d_t, s, out=s_t)
     y = (states * Cf[:, :, None, :]).sum(-1) + D * xf
     return y.to(xm.dtype), s.clone()
 

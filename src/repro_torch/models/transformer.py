@@ -16,9 +16,12 @@ every residual add runs inside the norm after it (``blocks`` module doc);
 the values are the JAX package's chain, add then norm.
 
 Entry points:
-  forward(params, tokens, prefix_emb=None, features=None)
+  forward(params, tokens, prefix_emb=None, features=None, remat=None,
+          return_hidden=False)
                                          full-sequence logits + aux loss
-                                         (the encoder takes ``features``)
+                                         (the encoder takes ``features``;
+                                         the trainer's pass, with remat
+                                         and the final hidden states)
   prefill(params, tokens, max_len, prefix_emb=None)
                                          last-position logits + cache (a
                                          ring KV cache, the ssm state, or
@@ -35,6 +38,7 @@ import functools
 import math
 
 import torch
+from torch.utils import checkpoint as checkpoint_lib
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import blocks as blocks_lib
@@ -52,6 +56,33 @@ _BLOCKS = {
     "ssm": (ssm_lib.init_ssm_blocks, ssm_lib.ssm_block_apply),
     "hybrid": (hybrid_lib.init_hybrid_blocks, hybrid_lib.hybrid_block_apply),
 }
+
+
+# the matrix products ``remat="dots"`` keeps (JAX's checkpoint_dots)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return checkpoint_lib.CheckpointPolicy.MUST_SAVE
+    return checkpoint_lib.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_kwargs(remat: str) -> dict:
+    """``torch.utils.checkpoint.checkpoint`` arguments of a layer under
+    ``remat``: None for "none"; "full" recomputes the whole layer in the
+    backward; "dots" saves the outputs of the matrix products and
+    recomputes the rest (the JAX trunk's ``jax.checkpoint`` policies)."""
+    if remat == "none":
+        return None
+    kw = {"use_reentrant": False}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            checkpoint_lib.create_selective_checkpoint_contexts, _save_dots)
+    elif remat != "full":
+        raise ValueError(f"remat {remat!r} not in ('none', 'full', 'dots')")
+    return kw
 
 
 def resolve_device(device=None) -> torch.device:
@@ -145,10 +176,7 @@ class Model:
         the last layer: the final norm runs the last layer's closing
         residual add."""
         cfg = self.cfg
-        h, x = carried
-        if last:
-            x, h = x[:, -1], None if h is None else h[:, -1]
-        _, x = add_norm(x, h, params["final_norm"], cfg.norm_eps, self.plain)
+        x = self._final_norm(params, carried, last)
         if cfg.tie_embeddings and cfg.family != "encoder":
             logits = x @ params["embed"].T
         else:
@@ -159,6 +187,22 @@ class Model:
             logits = torch.where(col < cfg.vocab_size, logits,
                                  torch.finfo(logits.dtype).min)
         return logits
+
+    def _final_norm(self, params, carried, last: bool):
+        """The final norm of the last position ([B, h]; [B, S, h] of every
+        position when ``last`` is False), closing the last layer's
+        residual add."""
+        h, x = carried
+        if last:
+            x, h = x[:, -1], None if h is None else h[:, -1]
+        return add_norm(x, h, params["final_norm"], self.cfg.norm_eps,
+                        self.plain)[1]
+
+    def head_matrix(self, params):
+        """The [h, V_pad] output projection (tied or untied)."""
+        if self.cfg.tie_embeddings:
+            return params["embed"].T
+        return params["lm_head"]
 
     def cache_width(self, max_len: int) -> int:
         w = self.cfg.sliding_window or max_len
@@ -173,27 +217,56 @@ class Model:
                                  plain=self.plain, carry=True, **kw)
 
     # ---------------------------------------------------------- interface
-    def forward(self, params, tokens=None, prefix_emb=None, features=None):
+    def _trunk_layer(self, p_l, positions, kw, h, x):
+        """One layer (its weights ``p_l``) of a full-sequence pass on the
+        carried pair (h, x) -> (h, x, the layer's MoE aux loss or None)."""
+        auxes = []
+        if self.cfg.family == "moe":
+            kw = {"aux_out": auxes}
+        (h, x), _ = self._block(p_l, (h, x), positions, **kw)
+        return h, x, (auxes[0] if auxes else None)
+
+    def forward(self, params, tokens=None, prefix_emb=None, features=None,
+                remat=None, return_hidden: bool = False):
         """tokens [B, S] (the vlm's after ``prefix_emb`` [B, P, h]; the
         encoder takes ``features`` [B, S, h] instead) -> (logits
         [B, P + S, v], aux): the full-sequence pass in the family's mask
         (causal, bidirectional for the encoder, the prefix mask over the P
         prefix positions for the vlm; with the window where the config
         has one) and no cache.  ``aux`` is the MoE router's auxiliary loss
-        summed over the layers (f32; 0 for the other families)."""
+        summed over the layers (f32; 0 for the other families).
+
+        ``remat`` ("none", "full" or "dots"; default ``cfg.remat``)
+        checkpoints each layer for the backward (``_remat_kwargs``): the
+        kernels of a recomputed layer launch again there.
+        ``return_hidden`` returns the final norm's output [B, P + S, h] of
+        every position in place of the logits (the fused loss projects it
+        a vocab chunk at a time)."""
         x = self._embed(params, tokens, prefix_emb, features)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device).expand(B, S)
-        auxes = []
-        kw = {"aux_out": auxes} if self.cfg.family == "moe" else \
-            self._prefix_kw(prefix_emb)
-        x = (None, x)
-        for l in range(self.cfg.num_layers):
-            x, _ = self._block(self._layer(params, l), x, positions, **kw)
-        aux = torch.zeros((), dtype=torch.float32, device=x[1].device)
-        for a in auxes:
-            aux = aux + a
-        return self._head(params, x, last=False), aux
+        remat = _remat_kwargs(self.cfg.remat if remat is None else remat)
+        kw = self._prefix_kw(prefix_emb)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        h = None
+        # the layers' weights as one unbind of each stacked leaf: its
+        # backward stacks the L slices' gradients once, where indexing
+        # w[l] would add each into a new zero-filled [L, ...] gradient
+        names = list(params["blocks"])
+        per_layer = zip(*(params["blocks"][n].unbind(0) for n in names))
+        for weights in per_layer:
+            layer = functools.partial(self._trunk_layer,
+                                      dict(zip(names, weights)), positions,
+                                      kw)
+            if remat is None:
+                h, x, a = layer(h, x)
+            else:
+                h, x, a = checkpoint_lib.checkpoint(layer, h, x, **remat)
+            if a is not None:
+                aux = aux + a
+        if return_hidden:
+            return self._final_norm(params, (h, x), last=False), aux
+        return self._head(params, (h, x), last=False), aux
 
     def prefill(self, params, tokens, max_len: int, prefix_emb=None):
         """tokens [B, S] (after ``prefix_emb`` [B, P, h] for the vlm) ->

@@ -1129,3 +1129,188 @@ def test_encoder_vlm_kernel_path_matches_plain(cuda, arch, head_dim):
     assert launches["decode_attention"] == decode * L
     assert launches["paged_decode_attention"] == 0
 
+
+
+# ---------------------------------------------------------------------------
+# gradients through the kernels: the plain versions' (kernels/grad.py)
+# ---------------------------------------------------------------------------
+
+GRAD_DTYPES = [pytest.param(torch.float32, 1e-5, id="f32"),
+               pytest.param(torch.bfloat16, 2e-2, id="bf16")]
+
+
+def _leaves(dev, dtype, seed, *shapes):
+    rnd = _rand(dev, dtype, seed=seed)
+    return [rnd(*s).requires_grad_() for s in shapes]
+
+
+def _grads_of(fn, inputs, seed):
+    """(outputs, d sum(out · g) / d inputs) with a random g per output."""
+    outs = fn(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    g = torch.Generator(device=outs[0].device).manual_seed(seed)
+    ups = [torch.randn(o.shape, generator=g, device=o.device).to(o.dtype)
+           for o in outs]
+    return outs, torch.autograd.grad(outs, inputs, ups)
+
+
+def _check_grads(kernel_fn, plain_fn, inputs, tol, launches, out_tol=None):
+    """The dispatcher's outputs within ``out_tol`` (default ``tol``) of the
+    plain version's and its gradients within ``tol`` (relative to each
+    gradient's largest value) of plain autograd's, with ``launches``
+    kernel launches in the forward and none in the backward."""
+    from repro_torch.kernels import _build
+    _build.reset_launches()
+    outs = kernel_fn(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    assert all(o.requires_grad for o in outs)
+    assert {k: n for k, n in _build.LAUNCHES.items() if n} == launches
+    _build.reset_launches()
+    got_outs, got = _grads_of(kernel_fn, inputs, seed=5)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in _build.LAUNCHES.items() if n} == launches
+    want_outs, want = _grads_of(plain_fn, inputs, seed=5)
+    for a, b in zip(got_outs, want_outs):
+        _close(a, b, out_tol or tol)
+    for a, b in zip(got, want):
+        scale = float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol,
+                                   atol=tol * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", GRAD_DTYPES)
+@pytest.mark.parametrize("rows", [4, 333])
+def test_norm_kernel_grads_are_plain_autograd(cuda, dtype, tol, rows):
+    """B1 and add_rms_norm under autograd at [rows, 3072]: the kernels run
+    the forward, the gradients of x, y and the weight are the plain
+    versions'."""
+    x, y, w = _leaves(cuda, dtype, rows, (rows, 3072), (rows, 3072), (3072,))
+    _check_grads(rops.rms_norm, rref.rms_norm_ref, [x, w], tol,
+                 {"rmsnorm": 1})
+    _check_grads(rops.add_rms_norm, rref.add_rms_norm_ref, [x, y, w], tol,
+                 {"add_rms_norm": 1})
+
+
+GRAD_FLASH_MODES = [pytest.param("causal", 0, 40, id="causal-w40"),
+                    pytest.param("bidirectional", 0, 40, id="bidir-w40"),
+                    pytest.param("prefix", 77, 20, id="prefix77-w20")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", GRAD_DTYPES)
+@pytest.mark.parametrize("d,hkv,g", [(64, 2, 2), (80, 2, 1), (128, 2, 3),
+                                     (256, 1, 8)])
+@pytest.mark.parametrize("mode,prefix_len,window", GRAD_FLASH_MODES)
+def test_flash_kernel_grads_are_plain_autograd(cuda, dtype, tol, mode,
+                                               prefix_len, window, d, hkv, g):
+    """B2 under autograd in each mask with a window, a ragged KV length:
+    the gradients of q, k and v are flash_attention_ref's."""
+    q, k, v = _leaves(cuda, dtype, d + prefix_len, (2, 150, hkv * g, d),
+                      (2, 150, hkv, d), (2, 150, hkv, d))
+    off, kl = _i32(cuda, [0, 0]), _i32(cuda, [150, 101])
+    kw = dict(window=window, mode=mode, prefix_len=prefix_len)
+
+    def kernel(q, k, v):
+        return fops.flash_attention(q, k, v, off, kl, **kw)
+
+    def plain(q, k, v):
+        return fref.flash_attention_ref(q, k, v, off, kl, **kw)
+    _check_grads(kernel, plain, [q, k, v], tol, {"flash_attention": 1})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", GRAD_DTYPES)
+@pytest.mark.parametrize("s,chunk", [(77, 16), (8, 0)],
+                         ids=["chunked", "per-step"])
+def test_wkv6_kernel_grads_are_plain_autograd(cuda, dtype, tol, s, chunk):
+    """B10 under autograd, its chunked kernel (S = 77) and its per-step one
+    (S = 8): y and the final state, and the gradients of r, k, v, w, u and
+    the initial state, are those of the plain form of the kernel that ran
+    (wkv6_chunk_ref, wkv6_ref)."""
+    r, k, v, w, u, st = _wkv6_inputs(cuda, dtype, 2, s, 3, 64, seed=s)
+    inputs = [t.requires_grad_() for t in (r, k, v, w, u, st)]
+    assert wops.kernel_chunk(*r.shape) == chunk
+    plain = wref.wkv6_chunk_ref if chunk else wref.wkv6_ref
+    # the outputs to B10's card tolerance (test_wkv6_kernel: f32 state
+    # updates contracted to FMAs); the gradients are plain autograd's
+    _check_grads(wops.wkv6, plain, inputs, tol, {"wkv6": 1},
+                 out_tol=tol if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.gpu
+def test_dispatchers_launch_as_before_without_autograd(cuda):
+    """Under inference_mode (every serving entry) and with no input that
+    requires grad, each dispatcher launches its kernel once, outputs
+    bitwise the *_cuda wrapper's, nothing recorded for autograd."""
+    from repro_torch.kernels import _build
+    rnd = _rand(cuda, torch.bfloat16, seed=3)
+    x, y, w = rnd(4, 3072), rnd(4, 3072), rnd(3072)
+    q, k, v = rnd(1, 70, 8, 128), rnd(1, 70, 2, 128), rnd(1, 70, 2, 128)
+    off, kl = _i32(cuda, [0]), _i32(cuda, [70])
+    wk = _wkv6_inputs(cuda, torch.bfloat16, 1, 33, 2, 64)
+    calls = [("rmsnorm", lambda: rops.rms_norm(x, w),
+              lambda: rops.rms_norm_cuda(x, w)),
+             ("add_rms_norm", lambda: rops.add_rms_norm(x, y, w),
+              lambda: rops.add_rms_norm_cuda(x, y, w)),
+             ("flash_attention", lambda: fops.flash_attention(q, k, v, off, kl),
+              lambda: fops.flash_attention_cuda(q, k, v, off, kl)),
+             ("wkv6", lambda: wops.wkv6(*wk), lambda: wops.wkv6_cuda(*wk))]
+    for mode in (torch.inference_mode, torch.enable_grad):
+        for name, fn, direct in calls:
+            with mode():
+                _build.reset_launches()
+                out = fn()
+                torch.cuda.synchronize()
+                assert {n: c for n, c in _build.LAUNCHES.items() if c} == \
+                    {name: 1}
+                outs = out if isinstance(out, tuple) else (out,)
+                assert not any(o.requires_grad for o in outs)
+                for a, b in zip(outs, (lambda o: o if isinstance(o, tuple)
+                                       else (o,))(direct())):
+                    assert torch.equal(_bits(a), _bits(b)), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,remat", [("llama32-3b", "none"),
+                                        ("llama32-3b", "full"),
+                                        ("rwkv6-7b", "none")])
+def test_train_loss_grads_kernel_path_match_plain(cuda, arch, remat):
+    """f32, 2 layers at reduced width: make_loss_fn's gradient on the
+    kernel path (B1, add_rms_norm, B2; B10 for rwkv6) within 1e-4 of the
+    plain path's for every leaf, relative to the leaf's largest value; the
+    forward's launches 1 B1, 2L add_rms_norm and L B2 or B10, no other
+    kernel; under remat the backward's recompute launches each layer's
+    again (all but the final norm's add_rms_norm)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import get_model
+    from repro_torch.runtime import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).reduced(), remat=remat)
+    L = cfg.num_layers
+    params = get_model(cfg).init(seed=0, device=cuda)
+    tokens = torch.randint(2, cfg.vocab_size, (2, 64),
+                           generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": tokens.to(cuda)}
+    _build.reset_launches()
+    loss, _, grads = train.loss_and_grads(
+        train.make_loss_fn(get_model(cfg)), params, batch)
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in _build.LAUNCHES.items() if c}
+    p_loss, _, p_grads = train.loss_and_grads(
+        train.make_loss_fn(get_model(cfg, plain=True)), params, batch)
+    again = remat != "none"
+    layer_kernel = "wkv6" if cfg.family == "ssm" else "flash_attention"
+    assert launches == {"rmsnorm": 1 + again,
+                        "add_rms_norm": 2 * L + again * (2 * L - 1),
+                        layer_kernel: L * (1 + again)}
+    assert abs(float(loss) - float(p_loss)) < 1e-4
+    from repro_torch.checkpoint.store import flatten
+    want = flatten(p_grads)
+    for key, g in flatten(grads).items():
+        scale = float(want[key].abs().max())
+        torch.testing.assert_close(g, want[key], rtol=1e-4,
+                                   atol=1e-4 * scale, msg=key)
