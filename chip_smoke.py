@@ -23,7 +23,10 @@ Phases:
   3. the serving path at the full width of llama32-3b (random weights from
      a seed, made on the card): InferenceEngine.generate, the contiguous
      Scheduler and the paged Scheduler with chunked prefill, one decode
-     step's time breakdown and one 333-token prefill pass's (B2's share);
+     step's time breakdown and one 333-token prefill pass's (B2's share),
+     and (d) the serve launcher as a user runs it (``launch.serve.main``:
+     4 prompts of 32 tokens, 16 new), its first sequence equal to the
+     engine's on the same seed's weights and prompts;
   4. the kernel path against the plain path on the whole model, beside a
      yardstick: the plain path with f64 attention against the plain path;
   5. the explicit tensor-parallel engine at t = 4 virtual ranks, full
@@ -116,7 +119,16 @@ Phases:
      that cross its window during decode and past it at prefill; (f)
      before the models, B2 and B3 at both models' head shapes against
      their plain versions, bf16 and f32, hymba's windowed prompts and
-     wrapped rings included;
+     wrapped rings included; (g) deepseek-moe-16b on the expert-TP path
+     (``moe_ffn_local`` on virtual (data, model) meshes (1, 2), (1, 4),
+     (2, 2), on (a)–(d)'s weights): the comm log of a forward pass and of
+     the engine's passes (one model all-reduce of a data shard's [tokens,
+     h] a layer; at dp = 2 the aux loss's all-reduce over data where the
+     pass keeps it), the dense launch formula, bf16 teacher-forced at
+     (1, 4) against the GSPMD path (routing flips counted; the floor or
+     the yardstick), a decode step's breakdown with the ``moe.ffn``
+     range, and in (e) f32 greedy tokens at (1, 2) and (1, 4) equal to
+     the GSPMD path's;
  11. the encoder and vlm families at full width, after phase 10:
      (a) beside phase 2, B2 in the bidirectional mask at hubert-xlarge's
      q[2,1000,16,80] (and at a ragged KV length) and in the prefix mask at
@@ -153,7 +165,15 @@ Phases:
      rwkv6-7b (B10), deepseek-moe-16b, hymba-1.5b (B2 windowed),
      hubert-xlarge and paligemma-3b at L = 2 f32, kernel vs plain
      gradients as (a);
- 13. one JSON line with the kernel table, then the ok line.
+ 13. the roofline of the steps whose device busy phases 3, 10 and 12
+     measured (llama32-3b's decode step at 4 slots and 333-token
+     prefill, deepseek-moe-16b's decode step, llama32-3b's train step):
+     ``core.op_cost``'s FLOPs, compulsory HBM traffic and eager-traffic
+     estimate of each, walked on meta tensors, through
+     ``core.roofline.analyze`` (on the compulsory traffic) with H100_NODE
+     and with the card's own constants, beside the busy over the lower
+     bound and over the eager estimate's memory time;
+ 14. one JSON line with the kernel table, then the ok line.
 
 It imports nothing of JAX, exits non-zero with no ok line when there is no
 card or when it is not inside a checkout of the repository, and lets every
@@ -196,6 +216,14 @@ TOLERANCE = {
     "wkv6 bfloat16": (2e-2, 1e-2),
     "wkv6 float32": (1e-3, 1e-3),
 }
+
+
+# the steps of the roofline phase (13), and what the breakdowns of phases
+# 3, 10 and 12 measured of them: {step: (host wall ms, device busy ms)}
+ROOFLINE_STEPS = ("llama32-3b decode, 4 slots", "llama32-3b prefill, 333",
+                  "deepseek-moe-16b decode, 4 slots",
+                  "llama32-3b train, B=2 S=512")
+MEASURED = {}
 
 
 def log(*a):
@@ -1432,9 +1460,51 @@ def serving_phase(dev, smi):
     same = sum(reports["contiguous"][r] == reports["paged"][r]
                for r in reports["paged"])
     log(f"[serve] paged streams equal to contiguous: {same}/8 (bf16)")
-    decode_breakdown(dev, get_model(cfg), params, smi, "t=1")
-    prefill_breakdown(dev, get_model(cfg), params, smi)
+    MEASURED[ROOFLINE_STEPS[0]] = decode_breakdown(
+        dev, get_model(cfg), params, smi, "t=1")
+    MEASURED[ROOFLINE_STEPS[1]] = prefill_breakdown(
+        dev, get_model(cfg), params, smi)[:2]
+    serve_launcher_run(dev, cfg, params, totals)
     return params, totals, reports["contiguous"]
+
+
+SERVE_ARGV = ["--arch", ARCH, "--batch", "4", "--prompt-len", "32",
+              "--new-tokens", "16"]
+
+
+def serve_launcher_run(dev, cfg, params, totals):
+    """Phase 3(d): ``python -m repro_torch.launch.serve`` as a user runs
+    it (``main(SERVE_ARGV)``, on the card by default): its launches equal
+    the formula, and its printed first sequence equals
+    ``InferenceEngine.generate`` on the same seed's weights (``params``,
+    seed 0) and the prompts it drew."""
+    import io
+    from repro_torch.launch import serve
+    from repro_torch.runtime.engine import InferenceEngine
+
+    buf = io.StringIO()
+    n = int(SERVE_ARGV[SERVE_ARGV.index("--new-tokens") + 1])
+    t0 = time.perf_counter()
+
+    def run():
+        with contextlib.redirect_stdout(buf):
+            return serve.main(SERVE_ARGV)
+    prompts, out = drive_counted("launch.serve", run, totals, cfg.num_layers,
+                                 passes=n, flash=1, decode=n - 1, paged=0)
+    wall = time.perf_counter() - t0
+    printed = buf.getvalue()
+    for line in printed.splitlines():
+        log(f"[launch.serve] {line}")
+    want = InferenceEngine(cfg, params, max_len=prompts.shape[1] + n + 8,
+                           device=dev).generate(prompts, max_new_tokens=n)
+    same = (f"first sequence: {want[0].tolist()}" in printed
+            and torch.equal(out, want))
+    log(f"[launch.serve] {' '.join(SERVE_ARGV)}: {wall:.2f} s with its "
+        f"init; first sequence equal to InferenceEngine.generate on the "
+        f"seed's weights and its prompts: {same}")
+    if not same:
+        raise AssertionError("launch.serve's tokens differ from the "
+                             "engine's")
 
 
 def decode_breakdown(dev, model, params, smi, what: str, steps: int = 8,
@@ -1445,7 +1515,9 @@ def decode_breakdown(dev, model, params, smi, what: str, steps: int = 8,
     busy / wall), the hand-written kernels' launches per step and the
     device kernels per step the profiler saw; with ``ranged`` (a
     ``record_function`` range of RANGES the caller wraps a function in)
-    also that range's host and device ms per step (``range_times``)."""
+    also that range's host and device ms per step (``range_times``).
+    Returns (host wall ms, device busy ms or None) per step; the
+    profiled steps sit at positions 130 + steps .. 130 + 2·steps - 1."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import _build
 
@@ -1482,7 +1554,7 @@ def decode_breakdown(dev, model, params, smi, what: str, steps: int = 8,
     if busy_us <= 0:
         log(f"[decode step {what}] 4 slots: host wall {wall_ms:.3f} ms/step; "
             "device busy: not measured (profiler recorded no device time)")
-        return
+        return wall_ms, None
     busy_ms = busy_us / 1e3 / steps
     log(f"[decode step {what}] 4 slots at pos ~130: host wall "
         f"{wall_ms:.3f} ms/step (no profiler), device busy {busy_ms:.3f} "
@@ -1509,6 +1581,7 @@ def decode_breakdown(dev, model, params, smi, what: str, steps: int = 8,
     for e in host:
         log(f"    host   {e.self_cpu_time_total / 1e3 / steps:8.3f} "
             f"ms/step {e.count // steps:5d}/step  {e.key[:90]}")
+    return wall_ms, busy_ms
 
 
 # record_function labels of the breakdowns: on the card the profiler shows
@@ -3655,19 +3728,27 @@ def family_run(dev, smi, arch: str, totals):
         log(f"{tag} routing decisions (position, layer) whose top-"
             f"{cfg.moe.top_k} expert set differs from the plain path's: "
             f"kernel path {flips}/{decisions}")
+    yard = []
+
+    def yardstick():
+        """(top-1 match, max drift) of the plain path with f64 attention
+        against the plain path, run once, where a floor is first missed."""
+        if not yard:
+            exact = exact_attention(lambda: traced(2, lambda: teacher_forced(
+                get_model(cfg, plain=True), params, prompt, False)))
+            yard.extend(agreement(exact, ref))
+            log(f"[compare] bf16 {arch} plain path with f64 attention vs "
+                f"plain (the yardstick): top-1 match {yard[0]:.4f}, max "
+                f"logit drift {yard[1]:.4f}")
+            if moe:
+                y_flips, _ = logs[2].flips(logs[0])
+                log(f"{tag} routing decisions whose expert set differs from "
+                    f"the plain path's: yardstick {y_flips}/{decisions}")
+        return yard
+
     what = f"bf16 {arch} kernel path (B1, add_rms_norm, B2 + B3) vs plain"
     if not within(what, got, ref, LOGIT_MATCH_FLOOR, LOGIT_DRIFT_CEILING):
-        # the yardstick, run only where the floor or the ceiling is missed
-        exact = exact_attention(lambda: traced(2, lambda: teacher_forced(
-            get_model(cfg, plain=True), params, prompt, False)))
-        y_match, y_drift = agreement(exact, ref)
-        log(f"[compare] bf16 {arch} plain path with f64 attention vs plain "
-            f"(the yardstick): top-1 match {y_match:.4f}, max logit drift "
-            f"{y_drift:.4f}")
-        if moe:
-            y_flips, _ = logs[2].flips(logs[0])
-            log(f"{tag} routing decisions whose expert set differs from the "
-                f"plain path's: yardstick {y_flips}/{decisions}")
+        y_match, y_drift = yardstick()
         hold(f"{what}, held to the yardstick's {y_match:.4f} / "
              f"{y_drift:.4f} within {YARDSTICK_MARGIN}", got, ref,
              y_match - YARDSTICK_MARGIN, y_drift + YARDSTICK_MARGIN)
@@ -3679,8 +3760,9 @@ def family_run(dev, smi, arch: str, totals):
     if moe:
         restore = labelled(moe_lib, "moe_ffn", RANGES[2])
         try:
-            decode_breakdown(dev, model, params, smi, arch, FAMILY_STEPS,
-                             ranged=RANGES[2])
+            MEASURED[ROOFLINE_STEPS[2]] = decode_breakdown(
+                dev, model, params, smi, arch, FAMILY_STEPS,
+                ranged=RANGES[2])
         finally:
             restore()
         log(f"{tag} decode step bytes bound: {size['step'] / 1e9:.2f} GB "
@@ -3698,9 +3780,13 @@ def family_run(dev, smi, arch: str, totals):
             restore()
     log(f"{tag} bf16 peak device memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    marks.append(time.perf_counter())
+    if moe:
+        expert_tp_run(dev, smi, cfg, params, prompt, got, logs[1], yardstick,
+                      totals)
+    marks.append(time.perf_counter())
     del params, model, ref, got, logs
     torch.cuda.empty_cache()
-    marks.append(time.perf_counter())
 
     # (e) f32: greedy tokens of the kernel path == the plain path's, moe
     # at 4 layers (~11 GB; all 28 would not fit), hybrid at full depth on
@@ -3725,11 +3811,137 @@ def family_run(dev, smi, arch: str, totals):
         if not same:
             raise AssertionError(f"{arch} f32 greedy tokens differ between "
                                  "the kernel and the plain path")
+        if moe:
+            expert_tp_f32(dev, cfg32, p32, prompts, new, a, max_len, totals)
     del p32
     torch.cuda.empty_cache()
     marks.append(time.perf_counter())
     log(f"{tag} " + ", ".join(f"({k}) {b - a:.1f} s" for k, a, b in zip(
-        "abcde", marks, marks[1:])))
+        "abcdge", marks, marks[1:])))
+
+
+FAMILY_TP_MESHES = ((1, 2), (1, 4), (2, 2))   # (data, model) of (g)
+FAMILY_TP_FORCED = (1, 4)                     # (g)(iv) and (v)
+FAMILY_TP_NEW = 8                             # engine tokens a prompt (g)(i)
+
+
+def expert_tp_run(dev, smi, cfg, params, prompt, got, routes, yardstick,
+                  totals):
+    """Phase 10(g): deepseek-moe-16b on the expert-TP path
+    (``moe_dispatch`` "local", ``moe_ffn_local`` on a virtual (data,
+    model) mesh set in ``meshctx``), on (f)'s bf16 weights.  On each mesh
+    of FAMILY_TP_MESHES: (i) the comm log of a forward pass over 4 x 64
+    tokens (one model all-reduce of a data shard's [tokens, h] a layer,
+    and at dp = 2 the aux loss's all-reduce over ``data``) and of the
+    engine's prefill + decode steps (the model all-reduce alone: those
+    passes drop the aux loss), nothing else; (ii) every run's launches
+    equal the dense formula (the FFN runs no kernel).  At
+    FAMILY_TP_FORCED: (iv) teacher-forced against (c)'s GSPMD kernel path
+    ``got``, routing flips against its ``routes``, held to the floor and
+    ceiling or to the yardstick within the margin as (c) is; (v) a decode
+    step's breakdown with the ``moe.ffn`` range on ``moe_ffn_local``."""
+    from repro_torch.core.comm import VirtualMesh
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.transformer import get_model
+    from repro_torch.runtime import meshctx
+    from repro_torch.runtime.engine import InferenceEngine
+
+    arch, L, h = cfg.name, cfg.num_layers, cfg.d_model
+    tag = f"[{arch} expert-TP]"
+    model = get_model(dataclasses.replace(cfg, moe_dispatch="local"))
+    toks = torch.randint(2, cfg.vocab_size, (4, 64),
+                         generator=torch.Generator().manual_seed(12)).to(dev)
+    n = FAMILY_TP_NEW
+
+    def drive(what, fn, **expect):
+        return drive_counted(f"{arch} expert-TP {what}", fn, totals, L,
+                             **expect)
+    try:
+        for dp, t in FAMILY_TP_MESHES:
+            mesh = VirtualMesh((dp, t), ("data", "model"))
+            meshctx.set_mesh(mesh)
+            t0 = time.perf_counter()
+            drive(f"({dp}, {t}) forward", lambda: model.forward(params, toks),
+                  passes=1, flash=1, decode=0, paged=0)
+            got_fwd = [(o.collective, o.count, o.shape, o.workers,
+                        o.dtype_bytes) for o in mesh.summary()]
+            mesh.log.clear()
+            drive(f"({dp}, {t}) engine", lambda: InferenceEngine(
+                model.cfg, params, max_len=128, device=dev).generate(
+                toks, max_new_tokens=n), passes=n, flash=1, decode=n - 1,
+                paged=0)
+            got_eng = [(o.collective, o.count, o.shape, o.workers,
+                        o.dtype_bytes) for o in mesh.summary()]
+            want_fwd = [("allreduce", L, (4 * 64 // dp, h), t, 2)] + (
+                [("allreduce", L, (1, 1), dp, 4)] if dp > 1 else [])
+            want_eng = [("allreduce", L, (4 * 64 // dp, h), t, 2),
+                        ("allreduce", (n - 1) * L, (4 // dp, h), t, 2)]
+            log(f"{tag} ({dp}, {t}): comm log of a 4x64 forward {got_fwd}; "
+                f"of the engine's prefill + {n - 1} decode steps {got_eng}; "
+                f"{time.perf_counter() - t0:.2f} s")
+            if got_fwd != want_fwd or got_eng != want_eng:
+                raise AssertionError(f"{tag} ({dp}, {t}): comm log "
+                                     f"{got_fwd} / {got_eng}, expected "
+                                     f"{want_fwd} / {want_eng}")
+        meshctx.set_mesh(VirtualMesh(FAMILY_TP_FORCED, ("data", "model")))
+        t0 = time.perf_counter()
+        with RouteLog() as rl:
+            tp_got = drive(f"{FAMILY_TP_FORCED} teacher-forced",
+                           lambda: teacher_forced(model, params, prompt,
+                                                  False),
+                           passes=1 + FORCED - SPLIT, flash=1,
+                           decode=FORCED - SPLIT, paged=0)
+        flips, decisions = rl.flips(routes)
+        log(f"{tag} {FAMILY_TP_FORCED} teacher-forced in "
+            f"{time.perf_counter() - t0:.2f} s; routing decisions whose "
+            f"top-{cfg.moe.top_k} expert set differs from the GSPMD "
+            f"path's: {flips}/{decisions}")
+        what = (f"bf16 {arch} expert-TP {FAMILY_TP_FORCED} vs the GSPMD "
+                "kernel path")
+        if not within(what, tp_got, got, LOGIT_MATCH_FLOOR,
+                      LOGIT_DRIFT_CEILING):
+            y_match, y_drift = yardstick()
+            hold(f"{what}, held to the yardstick's {y_match:.4f} / "
+                 f"{y_drift:.4f} within {YARDSTICK_MARGIN}", tp_got, got,
+                 y_match - YARDSTICK_MARGIN, y_drift + YARDSTICK_MARGIN)
+        restore = labelled(moe_lib, "moe_ffn_local", RANGES[2])
+        try:
+            decode_breakdown(dev, model, params, smi,
+                             f"{arch} expert-TP {FAMILY_TP_FORCED}",
+                             FAMILY_STEPS, ranged=RANGES[2])
+        finally:
+            restore()
+    finally:
+        meshctx.set_mesh(None)
+
+
+def expert_tp_f32(dev, cfg32, p32, prompts, new, want, max_len, totals):
+    """Phase 10(g)(iii): f32 at L = 4, on meshes (1, t): greedy tokens of
+    the expert-TP path equal the GSPMD path's ``want`` (dp = 1 routes and
+    caps the same tokens), with the dense launch formula."""
+    from repro_torch.core.comm import VirtualMesh
+    from repro_torch.runtime import meshctx
+    from repro_torch.runtime.engine import InferenceEngine
+
+    local = dataclasses.replace(cfg32, moe_dispatch="local")
+    try:
+        for t in (2, 4):
+            meshctx.set_mesh(VirtualMesh((1, t), ("data", "model")))
+            out = drive_counted(
+                f"{cfg32.name} f32 expert-TP (1, {t})",
+                lambda: InferenceEngine(local, p32, max_len=max_len,
+                                        device=dev).generate(
+                    prompts, max_new_tokens=new),
+                totals, cfg32.num_layers, passes=new, flash=1,
+                decode=new - 1, paged=0)
+            same = bool(torch.equal(out, want))
+            log(f"[compare f32] {cfg32.name} L={cfg32.num_layers} expert-TP "
+                f"(1, {t}) greedy tokens == GSPMD path: {same}")
+            if not same:
+                raise AssertionError(f"{cfg32.name} f32 expert-TP (1, {t}) "
+                                     "tokens differ from the GSPMD path")
+    finally:
+        meshctx.set_mesh(None)
 
 
 def families_phase(dev, smi, rows):
@@ -4366,11 +4578,13 @@ def train_steps_run(dev, smi, cfg, params, batch, totals):
     if busy_us <= 0:
         log(f"[train step] host wall {wall:.3f} ms (median of steps 2–"
             f"{TRAIN_STEPS - 1}); device busy: not measured")
+        MEASURED[ROOFLINE_STEPS[3]] = wall, None
         return
     fwd_ms, bwd_ms = train_attention_ms(dev, cfg)
     busy = busy_us / 1e3
     parts = {lab: window_busy_us(prof, lab) / 1e3
              for lab in ("train.fwd", "train.bwd", "train.opt")}
+    MEASURED[ROOFLINE_STEPS[3]] = wall, busy
     b2 = [e for e in device_events(prof) if "flash_prefill" in e.key]
     log(f"[train step] {cfg.name} bf16 B={TRAIN_B} S={TRAIN_S}: host wall "
         f"{wall:.3f} ms (median of steps 2–{TRAIN_STEPS - 1}, no profiler; "
@@ -4456,6 +4670,126 @@ def train_phase(dev, smi, params):
         f"{time.perf_counter() - t_phase:.1f} s; launches "
         f"{ {k: n for k, n in totals.items() if n} }")
     return totals
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the roofline of the measured steps
+# ---------------------------------------------------------------------------
+
+
+def card_profile():
+    """The card as a ``HardwareProfile``: its HBM rate and bf16 peak (the
+    constants above); its links as H100_NODE's (one card has none)."""
+    from repro_torch.config.base import H100_NODE
+    return dataclasses.replace(H100_NODE, name="h100_sxm_card",
+                               peak_flops=PEAK_FLOPS["bfloat16"],
+                               hbm_bw=HBM_BYTES_PER_S)
+
+
+def step_walks():
+    """{step: (cfg, ShapeConfig, the walk)}: each step of ROOFLINE_STEPS
+    as the breakdown measured it, run on meta tensors through the plain
+    path under ``op_cost`` (the decode steps at the profiled steps'
+    middle position: phase 3 profiles 8 steps from 138, phase 10 2 from
+    132)."""
+    from repro_torch.config.base import ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core import op_cost
+    from repro_torch.launch import specs
+    from repro_torch.models.transformer import get_model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime import train
+
+    meta = dict(dtype=torch.int32, device="meta")
+
+    def decode(arch, depth):
+        cfg = get_config(arch)
+        model = get_model(cfg, plain=True)
+
+        def walk():
+            params, _ = specs.param_sds(cfg)
+            cache = model.init_cache(4, 1024, device="meta")
+            with torch.no_grad():
+                return op_cost.count(model.decode_step, params, cache,
+                                     torch.empty(4, **meta), depth,
+                                     kv_rows=depth + 1)
+        return cfg, ShapeConfig(f"decode@{depth}", depth, 4, "decode"), walk
+
+    def prefill(arch, S):
+        cfg = get_config(arch)
+        model = get_model(cfg, plain=True)
+
+        def walk():
+            params, _ = specs.param_sds(cfg)
+            with torch.no_grad():
+                return op_cost.count(model.prefill, params,
+                                     torch.empty(1, S, **meta), 1024)
+        return cfg, ShapeConfig(f"prefill{S}", S, 1, "prefill"), walk
+
+    def train_step(arch, B, S):
+        cfg = get_config(arch)
+        model = get_model(cfg, plain=True)
+
+        def walk():
+            params, _ = specs.param_sds(cfg)
+            opt = AdamW()
+            step = train.make_train_step(model, opt, device="meta")
+            return op_cost.count(step, params, opt.init(params),
+                                 {"tokens": torch.empty(B, S, **meta)})
+        return cfg, ShapeConfig(f"train{B}x{S}", S, B, "train"), walk
+
+    return dict(zip(ROOFLINE_STEPS, (
+        decode(ARCH, 130 + 8 + 4), prefill(ARCH, 333),
+        decode("deepseek-moe-16b", 130 + FAMILY_STEPS + FAMILY_STEPS // 2),
+        train_step(ARCH, TRAIN_B, TRAIN_S))))
+
+
+def roofline_phase(smi):
+    """Phase 13: for each step whose device busy an earlier phase measured
+    (ROOFLINE_STEPS), the op walk's FLOPs and both byte counts on meta
+    (``core.op_cost``: each kernel site one fused op) and
+    ``roofline.analyze`` with H100_NODE and with the card's own
+    constants: the three terms, the dominant one and the lower bound on
+    the compulsory traffic, the measured busy over that bound, and the
+    eager-traffic estimate's memory time beside it."""
+    from repro_torch.config.base import H100_NODE
+    from repro_torch.core import roofline
+
+    t_phase = time.perf_counter()
+    card = card_profile()
+    for name, (cfg, shape, walk) in step_walks().items():
+        t0 = time.perf_counter()
+        cost = walk()
+        wall, busy = MEASURED.get(name, (None, None))
+        log(f"[roofline] {name}: {cost.flops / 1e12:.4f} TFLOP, "
+            f"compulsory HBM traffic {cost.min_bytes / 1e9:.3f} GB, eager "
+            f"estimate {cost.bytes / 1e9:.3f} GB (op walk on meta, "
+            f"{time.perf_counter() - t0:.2f} s); measured host wall "
+            + (f"{wall:.3f} ms, device busy "
+               + (f"{busy:.3f} ms" if busy else "not measured")
+               if wall else "not measured") + f" ({smi})")
+        if not 0 < cost.min_bytes <= cost.bytes:
+            raise AssertionError(
+                f"roofline {name}: the compulsory traffic "
+                f"{cost.min_bytes:.6g} B is not within (0, the eager "
+                f"estimate {cost.bytes:.6g} B]")
+        for hw in (H100_NODE, card):
+            r = roofline.analyze(cfg, shape, "1 card", 1, cost.flops,
+                                 cost.min_bytes, None, hw=hw)
+            bound = r.step_time_lower_bound * 1e3
+            eager = cost.bytes / hw.hbm_bw * 1e3
+            log(f"[roofline]   {hw.name}: compute {r.compute_s * 1e3:.3f} "
+                f"ms, memory {r.memory_s * 1e3:.3f} ms, collective "
+                f"{r.collective_s * 1e3:.3f} ms, dominant {r.dominant}, "
+                f"lower bound {bound:.3f} ms, useful {r.useful_ratio:.3f}; "
+                f"the eager estimate's memory {eager:.3f} ms; "
+                + (f"busy / bound {busy / bound:.2f}, busy / eager "
+                   f"{busy / eager:.2f}" if busy else
+                   "busy / bound: not measured"))
+        for op, (calls, flops, nbytes) in cost.top(6):
+            log(f"    {op:22s} {calls:6d} calls {flops / 1e9:10.1f} GFLOP "
+                f"{nbytes / 1e9:9.3f} GB")
+    log(f"[roofline phase] {time.perf_counter() - t_phase:.1f} s")
 
 
 _RMS = "src/repro/kernels/rmsnorm/rmsnorm_kernel.py:25"
@@ -4565,6 +4899,7 @@ def main(argv=None) -> int:
         launches[name] += n
     for name, n in encoder_vlm_phase(dev, smi).items():
         launches[name] += n
+    roofline_phase(smi)
 
     table = []
     for name, (source, replaces) in REPLACES.items():

@@ -35,6 +35,12 @@ steps one collective-permute of one rank's block.  The calls after the
 first at a site run under ``muted()``, which moves the data and logs
 nothing.
 
+``VirtualMesh`` is the counterpart of a JAX ``Mesh`` of named axes, such
+as (data, model) or (pod, data, model): a ``shape`` dict in axis order,
+and one ``VirtualGroup`` per axis (or per tuple of axes, ``group``), all
+sharing one log under the same conventions.  The expert-TP MoE path
+(``models.moe.moe_ffn_local``) runs on it.
+
 A ``torch.distributed``/NCCL group with the same interface, one rank per
 card, waits for a four-card cell (ROADMAP).
 """
@@ -95,6 +101,22 @@ def counts_by_collective(ops: Sequence[CommOp]) -> Dict[str, int]:
     return dict(out)
 
 
+def summarize(log: Sequence[CommRecord], phase: str = None) -> List[CommOp]:
+    """A log (of one ``phase``, or all of it) folded into ``CommOp`` rows,
+    one per (kind, phase, message shape, bytes per element), in first-seen
+    order."""
+    rows: Dict[tuple, int] = {}
+    for rec in log:
+        if phase not in (None, rec.phase):
+            continue
+        size = rec.itemsize
+        key = (rec.kind, rec.phase, _message_shape(rec), rec.t,
+               int(size) if float(size).is_integer() else size)
+        rows[key] = rows.get(key, 0) + 1
+    return [CommOp(kind, phase, n, shape, t, size)
+            for (kind, phase, shape, t, size), n in rows.items()]
+
+
 class VirtualGroup:
     """t virtual ranks on one device, with a log of every collective
     (``log``: a list shared with another axis of the same mesh)."""
@@ -128,11 +150,14 @@ class VirtualGroup:
             self._muted = prev
 
     # -- the log -------------------------------------------------------------
-    def _record(self, kind: str, xs, values_per_item: int = 1) -> None:
+    def _record(self, kind: str, xs, values_per_item: int = 1,
+                axis: int = -1) -> None:
         if self._muted:
             return
         x = xs[0]
-        shape = (*x.shape[:-1], x.shape[-1] * values_per_item)
+        dims = list(x.shape)
+        dims.append(dims.pop(axis))         # the split axis last
+        shape = (*dims[:-1], dims[-1] * values_per_item)
         itemsize = x.element_size() / values_per_item
         self.log.append(CommRecord(kind, self._phase, tuple(shape),
                                    itemsize, self.t))
@@ -148,19 +173,7 @@ class VirtualGroup:
                     f"{x.dtype} vs {tuple(first.shape)} {first.dtype})")
 
     def summary(self, phase: str = None) -> List[CommOp]:
-        """The log (of one ``phase``, or all of it) folded into ``CommOp``
-        rows, one per (kind, phase, message shape, bytes per element), in
-        first-seen order."""
-        rows: Dict[tuple, int] = {}
-        for rec in self.log:
-            if phase not in (None, rec.phase):
-                continue
-            size = rec.itemsize
-            key = (rec.kind, rec.phase, _message_shape(rec), rec.t,
-                   int(size) if float(size).is_integer() else size)
-            rows[key] = rows.get(key, 0) + 1
-        return [CommOp(kind, phase, n, shape, t, size)
-                for (kind, phase, shape, t, size), n in rows.items()]
+        return summarize(self.log, phase)
 
     # -- collectives ---------------------------------------------------------
     def all_reduce(self, xs, op: str = "sum"):
@@ -204,14 +217,15 @@ class VirtualGroup:
                 total = total + x
         return [b.contiguous() for b in total.chunk(self.t, dim=-1)]
 
-    def all_gather(self, xs, values_per_item: int = 1):
-        """all_gather(tiled) over the last axis.  ``values_per_item`` = 2
-        logs a packed int4 payload at half a byte per value."""
+    def all_gather(self, xs, values_per_item: int = 1, axis: int = -1):
+        """all_gather(tiled) over ``axis`` (the last by default), logged
+        with that axis last.  ``values_per_item`` = 2 logs a packed int4
+        payload at half a byte per value."""
         if self.t == 1:
             return xs[0]
         self._check(xs, "all_gather")
-        self._record("allgather", xs, values_per_item)
-        return torch.cat(list(xs), dim=-1)
+        self._record("allgather", xs, values_per_item, axis)
+        return torch.cat(list(xs), dim=axis)
 
     def all_to_all(self, xs, values_per_item: int = 1):
         """all_to_all(tiled), split and concatenated on the last axis: rank
@@ -241,3 +255,30 @@ class VirtualGroup:
         for r, dst in enumerate(out):
             dst.copy_(xs[r - 1])
         return list(out)
+
+
+class VirtualMesh:
+    """A mesh of named axes on one device: ``shape`` maps each axis name
+    to its size, in axis order (JAX's ``Mesh.shape``); ``group(axes)`` is
+    the ``VirtualGroup`` over one axis or the product of several, and
+    every group logs into ``log``."""
+
+    def __init__(self, shape, axes):
+        shape, axes = tuple(int(n) for n in shape), tuple(axes)
+        if len(shape) != len(axes) or len(set(axes)) != len(axes):
+            raise ValueError(f"mesh shape {shape} does not match axes {axes}")
+        self.shape = dict(zip(axes, shape))
+        self.log: List[CommRecord] = []
+        self._groups: Dict[tuple, VirtualGroup] = {}
+
+    def group(self, axes) -> VirtualGroup:
+        """The group over ``axes`` (a name or a tuple of names): one rank
+        per point of those axes, as a collective over them spans."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if axes not in self._groups:
+            self._groups[axes] = VirtualGroup(
+                math.prod(self.shape[a] for a in axes), log=self.log)
+        return self._groups[axes]
+
+    def summary(self) -> List[CommOp]:
+        return summarize(self.log)

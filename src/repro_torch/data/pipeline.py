@@ -6,7 +6,7 @@ same tokens bit for bit).  A counter-based generator (splitmix64 over
 each data-parallel host can make exactly its rows of the global batch.
 Documents are packed: fixed-length sequences with a BOS every ``doc_len``
 tokens.  JAX's ``global_array`` (a batch placed on a device mesh) has no
-counterpart yet: the port has no mesh (ROADMAP A13).
+counterpart yet: it waits for sharded execution (ROADMAP A13 part 2).
 """
 from __future__ import annotations
 

@@ -9,7 +9,7 @@ On the CPU, a reduced config (the plain versions of the kernels):
       --reduced --device cpu --steps 5
 
 Counterpart of ``repro.launch.train`` with the same flags, less ``--mesh``
-(a device mesh: ROADMAP A13), plus ``--device`` (default the card; it
+(a device mesh: ROADMAP A13 part 2), plus ``--device`` (default the card; it
 raises when there is none).  The weights are drawn from ``--seed`` by the
 port's ``Model.init`` (other draws than JAX's); the tokens, and the vlm's
 image-prefix embeddings and the encoder's frames and targets, are the

@@ -79,6 +79,23 @@ def _qkv(cfg: ModelConfig, p, xn, positions, Hq: int, Hkv: int):
     return q, k, (xn @ p["wv"]).reshape(B, S, Hkv, D)
 
 
+def paged_attention_plain(q, ck, cv, block_table, pos):
+    """The plain paged branch (B4 at S == 1, or paged_gather then B2, on
+    the card): the sequences' pages gathered, then GQA under the paged
+    mask."""
+    kg = layers.paged_gather(ck, block_table)
+    vg = layers.paged_gather(cv, block_table)
+    return gqa_attention(q, kg, vg,
+                         layers.paged_attn_mask(kg.shape[1], pos, q.shape[1]))
+
+
+def ring_attention_plain(q, ck, cv, pos, window):
+    """The plain ring-cache decode branch (B3 on the card): GQA over the
+    ring under its valid-slot mask."""
+    return gqa_attention(q, ck, cv,
+                         layers.decode_attn_mask(ck.shape[1], pos, window))
+
+
 def attention_apply(cfg: ModelConfig, p, xn, positions, cache=None,
                     pos=None, build_cache_w=None, block_table=None,
                     plain: bool = False, num_heads: int = None,
@@ -115,10 +132,7 @@ def attention_apply(cfg: ModelConfig, p, xn, positions, cache=None,
         ck, cv = layers.paged_cache_update(cache["k"], cache["v"], k, v,
                                            pos, block_table)
         if plain:
-            kg = layers.paged_gather(ck, block_table)
-            vg = layers.paged_gather(cv, block_table)
-            out = gqa_attention(q, kg, vg,
-                                layers.paged_attn_mask(kg.shape[1], pos, S))
+            out = paged_attention_plain(q, ck, cv, block_table, pos)
         elif S == 1:
             out = paged_decode_attention(
                 q[:, 0].contiguous(), ck, cv, _i32(block_table, B, dev),
@@ -134,8 +148,7 @@ def attention_apply(cfg: ModelConfig, p, xn, positions, cache=None,
         w = cache["k"].shape[1]
         ck, cv = layers.ring_cache_update(cache["k"], cache["v"], k, v, pos)
         if plain:
-            out = gqa_attention(q, ck, cv,
-                                layers.decode_attn_mask(w, pos, window))
+            out = ring_attention_plain(q, ck, cv, pos, window)
         else:
             out = decode_attention(
                 q[:, 0].contiguous(), ck, cv,

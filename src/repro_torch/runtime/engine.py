@@ -1,6 +1,8 @@
 """Inference engine of the port: batched prefill + greedy decode.
 
-Counterpart of ``repro.runtime.engine.InferenceEngine``.  Decode runs
+Counterpart of ``repro.runtime.engine``: ``make_serve_step`` (one greedy
+token for every sequence of a batch, the unit a decode-shape cost walk
+measures) and ``InferenceEngine``.  Decode runs
 ``decode_chunk`` steps per ``Model.decode_steps`` call and single steps for
 the tail; the [L, B, W, Hkv, D] cache is updated in place for the whole
 generation (the JAX engine donated it).  The output is identical for every
@@ -14,6 +16,17 @@ import torch
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models.transformer import get_model, resolve_device
+
+
+def make_serve_step(model):
+    """(params, cache, token [B], pos) -> (next_token [B] int32, cache):
+    one decode step and its greedy token, the cache updated in place."""
+
+    def serve_step(params, cache, token, pos):
+        logits, cache = model.decode_step(params, cache, token, pos)
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+    return serve_step
 
 
 def check_params_device(params: dict, device: torch.device) -> None:
@@ -44,6 +57,7 @@ class InferenceEngine:
         self.params = params
         self.max_len = max_len
         self.decode_chunk = max(int(decode_chunk), 1)
+        self._step = make_serve_step(self.model)
 
     @torch.inference_mode()
     def generate(self, tokens, max_new_tokens: int = 32,
@@ -70,9 +84,7 @@ class InferenceEngine:
             pos += self.decode_chunk
             remaining -= self.decode_chunk
         for _ in range(remaining):
-            logits, cache = self.model.decode_step(self.params, cache, tok,
-                                                   pos)
-            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            tok, cache = self._step(self.params, cache, tok, pos)
             pieces.append(tok[:, None])
             pos += 1
         return torch.cat(pieces, dim=1)

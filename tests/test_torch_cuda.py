@@ -1314,3 +1314,56 @@ def test_train_loss_grads_kernel_path_match_plain(cuda, arch, remat):
         scale = float(want[key].abs().max())
         torch.testing.assert_close(g, want[key], rtol=1e-4,
                                    atol=1e-4 * scale, msg=key)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)], ids=["1x2", "2x2"])
+def test_expert_tp_kernel_path_matches_plain(cuda, shape):
+    """Reduced deepseek-moe-16b on the expert-TP path (``moe_dispatch``
+    "local" on a virtual (data, model) mesh), f32: engine greedy tokens
+    of the kernel path equal the plain path's and the GSPMD path's (the
+    reduced config drops no pair, so the data shards' routing changes
+    nothing), the launches are the dense formula (the FFN runs no
+    kernel), and the comm log is one model all-reduce of one data
+    shard's [tokens, h] a layer and pass, as on the CPU."""
+    import dataclasses
+    from repro_torch.core.comm import VirtualMesh
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import get_model
+    from repro_torch.runtime import meshctx
+    from repro_torch.runtime.engine import InferenceEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gspmd = _family_cfg("deepseek-moe-16b", "float32")
+    cfg = dataclasses.replace(gspmd, moe_dispatch="local")
+    L = cfg.num_layers
+    params = get_model(cfg).init(seed=0, device=cuda)
+    toks = torch.randint(2, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    want = InferenceEngine(gspmd, params, max_len=64,
+                           device=cuda).generate(toks, max_new_tokens=12)
+    mesh = VirtualMesh(shape, ("data", "model"))
+    meshctx.set_mesh(mesh)
+    try:
+        out = {}
+        for plain in (False, True):
+            mesh.log.clear()
+            _build.reset_launches()
+            out[plain] = InferenceEngine(cfg, params, max_len=64, device=cuda,
+                                         plain=plain).generate(
+                toks, max_new_tokens=12)
+            torch.cuda.synchronize()
+            if not plain:
+                launches = {n: c for n, c in _build.LAUNCHES.items() if c}
+                log = mesh.summary()
+    finally:
+        meshctx.set_mesh(None)
+    assert torch.equal(out[False], out[True])
+    assert torch.equal(out[False], want)
+    assert launches == {"rmsnorm": 12, "add_rms_norm": 12 * 2 * L,
+                        "flash_attention": L, "decode_attention": 11 * L}
+    dp, t = shape
+    assert [(o.collective, o.count, o.shape, o.workers, o.dtype_bytes)
+            for o in log] == [
+        ("allreduce", L, (2 * 40 // dp, cfg.d_model), t, 4),
+        ("allreduce", 11 * L, (2 // dp, cfg.d_model), t, 4)]
