@@ -173,7 +173,26 @@ Phases:
      ``core.roofline.analyze`` (on the compulsory traffic) with H100_NODE
      and with the card's own constants, beside the busy over the lower
      bound and over the eager estimate's memory time;
- 14. one JSON line with the kernel table, then the ok line.
+ 14. the sharded (GSPMD-style) step on a ``DeviceMesh`` (A13 part 2):
+     (a) ``launch.dryrun.run_one`` at full width on meta tensors over a
+     fake process group of 256 ranks, granite-8b prefill_32k and
+     internlm2-1.8b decode_32k on (data, model) = (16, 16) (8 KV heads on
+     16: K/V gathered, and the sequence-parallel decode), each record's
+     collectives equal to ``step_comm.closed_form`` and its roofline row
+     printed; (b) on the card, an NCCL group of one rank (a ``HashStore``,
+     no network) and a (1, 1) ``DeviceMesh``: llama32-3b at full width in
+     bf16 from seed 0, the 333-token prefill and 16 decode steps through
+     the sharded ``make_serve_step`` (DTensor parameters and cache, the
+     kernels under ``local_map``), logits and tokens bitwise equal to the
+     unsharded kernel path and its tokens to ``InferenceEngine``'s, the
+     launches of both runs equal to their formula, and the collectives
+     ``core.step_comm`` reads off the sharded run only over groups of one
+     device (each named); (c) B3's split pass alone, which the
+     sequence-parallel decode runs on each rank's rows of the cache, at
+     (a)'s internlm2-1.8b shard (8 sequences, 2048 rows, 8 KV heads, 16
+     query heads, D 128) in bf16 and f32: the live splits' f32 partials
+     against ``split_partials`` (f32 tolerance), ranks' lengths 0 to 2048;
+ 15. one JSON line with the kernel table, then the ok line.
 
 It imports nothing of JAX, exits non-zero with no ok line when there is no
 card or when it is not inside a checkout of the repository, and lets every
@@ -1370,13 +1389,16 @@ def expect_launches(what, counts, L, passes, flash, decode, paged, t=1,
         raise AssertionError(f"{what}: launches {counts} != expected {want}")
 
 
-def drive_counted(what, fn, totals, L, **expect):
+def drive_counted(what, fn, totals, L, grad_mode=torch.inference_mode,
+                  **expect):
     """Run one path with the launch counts set to 0 just before and read
     just after; hold them to their formula (``expect_launches``) and add
-    them to ``totals``."""
+    them to ``totals``.  ``grad_mode``: the context it runs in (DTensor
+    views need ``torch.no_grad``: an inference tensor takes no view
+    metadata)."""
     from repro_torch.kernels import _build
     _build.reset_launches()
-    with torch.inference_mode():
+    with grad_mode():
         out = fn()
     torch.cuda.synchronize()
     counts = dict(_build.LAUNCHES)
@@ -4839,6 +4861,180 @@ FUSES = {
 }
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the sharded step on a DeviceMesh
+# ---------------------------------------------------------------------------
+
+SHARDED_DRYRUNS = (("granite-8b", "prefill_32k"),
+                   ("internlm2-1.8b", "decode_32k"))
+SHARDED_PROMPT, SHARDED_NEW = 333, 16
+
+
+class HeadLogits:
+    """Keeps every logits tensor a model's head returns (the local block
+    of a DTensor), so two runs compare logits as well as tokens."""
+
+    def __init__(self, model):
+        self.out = []
+        self.model, self.head = model, model._head
+
+        def kept(params, x, **kw):
+            logits = self.head(params, x, **kw)
+            self.out.append(logits.to_local() if hasattr(logits, "to_local")
+                            else logits)
+            return logits
+        model._head = kept
+
+    def restore(self):
+        self.model._head = self.head
+        return self.out
+
+
+def sharded_phase(dev, smi):
+    """Phase 14 (module doc): the dry runs on meta, then the sharded serve
+    step on a one-rank NCCL group against the unsharded kernel path."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import step_comm
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import specs as sp
+    from repro_torch.models.transformer import get_model, greedy_tokens
+    from repro_torch.runtime import meshctx
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.runtime.engine import InferenceEngine, make_serve_step
+
+    t_phase = time.perf_counter()
+    # (a) full width on meta, 256 fake ranks
+    for arch, shape in SHARDED_DRYRUNS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_one(arch, shape, False)
+        if rec["status"] != "ok" or not rec["collectives_match"]:
+            raise AssertionError(f"dry run {arch} {shape}: {rec['status']}, "
+                                 f"collectives {rec.get('collectives')} != "
+                                 f"{rec.get('closed_form')}")
+        seen = {k: [v["count"], v["msg_bytes"]]
+                for k, v in rec["collectives"].items()}
+        log(f"[sharded dry run] {arch} {shape} pod16x16 in "
+            f"{time.perf_counter() - t0:.1f} s: collectives "
+            f"{json.dumps(seen)} == closed form; per chip "
+            f"{rec['roofline']['flops_per_chip']:.6g} FLOPs, temp "
+            f"{rec['memory_analysis']['temp_size_in_bytes']} B")
+        log(f"[sharded dry run] roofline (H100_NODE, not measured) "
+            f"{rec['roofline_row']}")
+    dist.destroy_process_group()
+
+    # (b) one rank of NCCL on the card, a (1, 1) mesh
+    cfg = get_config(ARCH)
+    L = cfg.num_layers
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    totals = {name: 0 for name in _build.LAUNCHES}
+    try:
+        dmesh = init_device_mesh("cuda", (1, 1),
+                                 mesh_dim_names=("data", "model"))
+        params = get_model(cfg).init(seed=0, device=dev)
+        prompt = torch.randint(2, cfg.vocab_size, (1, SHARDED_PROMPT),
+                               generator=torch.Generator().manual_seed(14)
+                               ).to(dev)
+        model = get_model(cfg)
+
+        def generate(p):
+            lg, cache, pos = model.prefill(p, prompt, 1024)
+            tok = greedy_tokens(lg)
+            toks, step = [tok], make_serve_step(model)
+            for i in range(SHARDED_NEW):
+                tok, cache = step(p, cache, tok, pos + i)
+                toks.append(tok)
+            return [t.to_local() if hasattr(t, "to_local") else t
+                    for t in toks]
+
+        expect = dict(passes=SHARDED_NEW + 1, flash=1, decode=SHARDED_NEW,
+                      paged=0)
+        kept = HeadLogits(model)
+        t0 = time.perf_counter()
+        want = drive_counted("unsharded", lambda: generate(params), totals,
+                             L, **expect)
+        wall_plain = time.perf_counter() - t0
+        want_logits = kept.restore()
+        engine = drive_counted(
+            "engine", lambda: InferenceEngine(
+                cfg, params, max_len=1024, decode_chunk=1, device=dev
+            ).generate(prompt, max_new_tokens=SHARDED_NEW + 1), totals, L,
+            **expect)
+        if not torch.equal(engine, torch.stack(want, 1)):
+            raise AssertionError("unsharded tokens != InferenceEngine's")
+        _, pspecs = sp.param_sds(cfg, sh.mesh_shape(dmesh))
+        placed = sh.distribute(params, pspecs, dmesh)
+        meshctx.set_device_mesh(dmesh)
+        try:
+            kept = HeadLogits(model)
+            t0 = time.perf_counter()
+            got, log_ = drive_counted(
+                "sharded", lambda: step_comm.record(generate, placed),
+                totals, L, grad_mode=torch.no_grad, **expect)
+            wall = time.perf_counter() - t0
+            got_logits = kept.restore()
+        finally:
+            meshctx.set_device_mesh(None)
+        same_tokens = all(torch.equal(a, b) for a, b in zip(got, want))
+        same_logits = len(got_logits) == len(want_logits) and all(
+            torch.equal(a, b) for a, b in zip(got_logits, want_logits))
+        named = [(c.kind, c.group_size, c.out_bytes) for c in log_]
+        log(f"[sharded] {ARCH} bf16 on a (1, 1) DeviceMesh over NCCL: "
+            f"prefill {SHARDED_PROMPT} + {SHARDED_NEW} decode steps in "
+            f"{wall:.3f} s host wall (unsharded {wall_plain:.3f} s); "
+            f"tokens bitwise == unsharded: {same_tokens}, "
+            f"logits ({len(got_logits)} rows) bitwise: {same_logits}; "
+            f"collectives read off the step: {named or 'none'} ({smi})")
+        if not (same_tokens and same_logits):
+            raise AssertionError("sharded step != unsharded kernel path")
+        wide = [c for c in log_ if c.group_size > 1]
+        if wide:
+            raise AssertionError(f"collectives over more than one device on "
+                                 f"a (1, 1) mesh: {wide}")
+        del params, placed
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    split_pass_check(dev)
+    log(f"[sharded] phase 14 in {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
+def split_pass_check(dev):
+    """Phase 14(c) (module doc): B3's split pass alone against
+    ``split_partials`` on the live splits of one rank's cache rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ref as dref
+    from repro_torch.kernels.decode_attention.ops import (
+        SPLIT_KEYS, decode_attention_partials_cuda)
+
+    cfg = get_config("internlm2-1.8b")
+    b, rows = 128 // 16, 32768 // 16
+    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(14)
+    lens = torch.tensor([0, 1, 127, 128, 129, 1000, 2047, 2048],
+                        dtype=torch.int32, device=dev)
+    live = (torch.arange(rows // SPLIT_KEYS, device=dev)[None]
+            < (-(-lens.long() // SPLIT_KEYS))[:, None])[:, None]
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).replace("torch.", "")
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dt)
+                   for shape in ((b, Hq, D), (b, rows, Hkv, D),
+                                 (b, rows, Hkv, D)))
+        got = decode_attention_partials_cuda(q, k, v, lens)
+        want = dref.split_partials(q, k, v, lens, SPLIT_KEYS)
+        for name, a, w in zip(("m", "l", "acc"), got, want):
+            sel = live.expand(a.shape[:3])
+            compare(f"B3 split pass alone {name} kv[{b},{rows},{Hkv},{D}] "
+                    f"{dname}", a[sel], w[sel], "float32")
+        del q, k, v, got, want
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -4900,6 +5096,8 @@ def main(argv=None) -> int:
     for name, n in encoder_vlm_phase(dev, smi).items():
         launches[name] += n
     roofline_phase(smi)
+    for name, n in sharded_phase(dev, smi).items():
+        launches[name] += n
 
     table = []
     for name, (source, replaces) in REPLACES.items():

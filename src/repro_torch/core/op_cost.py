@@ -36,7 +36,8 @@ Each site where the card runs a hand-written kernel is charged as that
 one fused op: B1 (``rmsnorm``), ``add_rms_norm``, B2
 (``flash_attention``: a full-sequence or context-parallel pass, and a
 paged prefill chunk after its ``paged_gather``), B3
-(``decode_attention``, the ring-cache decode branch), B4
+(``decode_attention``, the ring-cache decode branch, and its split pass
+alone on a sequence-parallel cache), B4
 (``paged_decode_attention``, the paged branch at one token), B5–B9 and
 ``dequantize_add_rms_norm`` (the quantized all-reduce's passes, named as
 ``kernels._build`` counts them) and B10 (``wkv6``).  The walk finds the
@@ -55,22 +56,37 @@ plain version's, every (query, key) pair of the ring or the sequence, as
 JAX's plain path computes them; the kernels skip the tiles their mask
 hides.
 
-``count(fn, *args)`` returns a ``Cost``: flops, both byte counts, and a
-per-op breakdown of the eager estimate.
+A sharded step (DTensors on a ``DeviceMesh``, ``runtime.sharding``) is
+walked per chip: a DTensor op is left to DTensor's dispatch (the walk
+returns ``NotImplemented``), so the walk sees the local ops one rank
+issues — rank 0's on the "fake" process group of a dry run — and counts
+them as it counts a single device's.  The collectives
+(``_c10d_functional`` ops) move no HBM bytes here: ``core.step_comm``
+reads them.
+
+``count(fn, *args)`` returns a ``Cost``: flops, both byte counts, a
+per-op breakdown of the eager estimate, and ``peak_bytes``, the most
+bytes of storages the step made that were alive at once (the eager
+counterpart of XLA's ``temp_size_in_bytes``: every tensor an op makes
+lives until the last Python reference to it, or to a view of it, goes;
+the cycle collector is off during the walk, so the count is repeatable).
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import dataclasses
+import functools
+import gc
 import math
+import weakref
 from types import SimpleNamespace
 from typing import Dict
 
 import torch
 from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
+from torch.utils._pytree import tree_flatten, tree_map
 
 aten = torch.ops.aten
 
@@ -96,6 +112,12 @@ _FREE = {"view", "_unsafe_view", "reshape", "expand", "permute",
          "empty_like", "empty_strided", "new_empty", "new_empty_strided",
          "scalar_tensor", "_local_scalar_dense", "sym_size", "sym_stride",
          "sym_numel", "is_same_size", "resize_", "set_"}
+
+
+@functools.lru_cache(maxsize=None)
+def _dtensor():
+    from torch.distributed.tensor import DTensor
+    return DTensor
 
 
 def _nbytes(t) -> int:
@@ -140,6 +162,8 @@ class _Traffic:
 
     def __init__(self):
         self.made = set()
+        self.live = self.peak = 0
+        self._holders = {}        # made storage -> tensors holding it
         # key -> [storage bytes, intervals, bytes outside any interval]
         self._touched = {"read": {}, "write": {}}
 
@@ -162,9 +186,28 @@ class _Traffic:
 
     def make(self, outs, args) -> None:
         """Record the storages an op made: its outputs that share none of
-        its inputs' (a view or an in-place result shares its input's)."""
+        its inputs' (a view or an in-place result shares its input's);
+        every output of a made storage holds it alive (``peak``)."""
         seen = {_key(t) for t in args}
-        self.made.update(k for k in map(_key, outs) if k not in seen)
+        for t in outs:
+            k = _key(t)
+            if k not in seen and k not in self._holders:
+                # born here (a key alive in ``_holders`` is a live storage;
+                # a dead one's address may come back for a new storage)
+                self.made.add(k)
+                self._holders[k] = 0
+                self.live += t.untyped_storage().nbytes()
+                self.peak = max(self.peak, self.live)
+            if k in self._holders:
+                self._holders[k] += 1
+                weakref.finalize(t, self._drop, k,
+                                 t.untyped_storage().nbytes())
+
+    def _drop(self, k, nbytes) -> None:
+        self._holders[k] -= 1
+        if self._holders[k] == 0:
+            del self._holders[k]
+            self.live -= nbytes
 
     def total(self, result) -> int:
         """The compulsory bytes, ``result`` being what the step
@@ -191,6 +234,7 @@ class Cost:
     flops: float = 0.0
     bytes: float = 0.0
     min_bytes: float = 0.0
+    peak_bytes: float = 0.0
     ops: Dict[str, list] = dataclasses.field(
         default_factory=lambda: collections.defaultdict(lambda: [0, 0.0,
                                                                  0.0]))
@@ -239,6 +283,8 @@ class _Walk(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, _dtensor()) for t in types):
+            return NotImplemented         # walk the local ops it issues
         out = func(*args, **kwargs)
         name = func.overloadpacket.__name__
         flops = _dot_flops(func, args, out) if func in _DOTS else 0.0
@@ -247,7 +293,8 @@ class _Walk(TorchDispatchMode):
             self.traffic.make(_tensors(out), operands)
             self.cost.flops += flops      # the site's row takes them
             return out
-        free = name in _FREE or name.endswith("_view") or func.is_view
+        free = (name in _FREE or name.endswith("_view") or func.is_view
+                or func.namespace == "_c10d_functional")
         if free:
             nbytes = 0
         elif name in _FILLS:
@@ -336,14 +383,17 @@ class _Walk(TorchDispatchMode):
         return 2 * rows * math.prod(k.shape[2:]) * k.element_size()
 
     def _ring_attention(self, args, out):
-        """B3: q and the output, and each sequence's valid ring rows."""
+        """B3: q and the output (B3's split pass alone on a
+        sequence-parallel cache shard: its f32 partials), and each
+        sequence's valid ring rows."""
         q, k, v = args[:3]
         rows = k.shape[1] if self.kv_rows is None \
             else min(self.kv_rows, k.shape[1])
         for t in (q, k[:, :rows], v[:, :rows]):
             self.traffic.touch("read", t)
-        return [("decode_attention", _nbytes(q) + _nbytes(out)
-                 + k.shape[0] * self._kv_read(k, rows))]
+        return [("decode_attention", _nbytes(q) + sum(
+            _nbytes(t) for t in _tensors(out))
+            + k.shape[0] * self._kv_read(k, rows))]
 
     def _paged_attention(self, args, out):
         """B4 at one token: q, the output, the block table and each
@@ -393,6 +443,8 @@ class _Walk(TorchDispatchMode):
                 layers.add_rms_norm_ref, self._io("add_rms_norm"))),
             (blocks, "ring_attention_plain", self._site(
                 blocks.ring_attention_plain, self._ring_attention)),
+            (blocks, "ring_partials_plain", self._site(
+                blocks.ring_partials_plain, self._ring_attention)),
             (blocks, "paged_attention_plain", self._site(
                 blocks.paged_attention_plain, self._paged_attention)),
             (blocks, "gqa_attention", self._site(
@@ -407,10 +459,18 @@ def count(fn, *args, kv_rows: int = None, **kwargs) -> Cost:
     ``Cost``."""
     walk = _Walk(kv_rows)
     with contextlib.ExitStack() as stack:
+        # the peak must not depend on when the cycle collector runs
+        if gc.isenabled():
+            gc.disable()
+            stack.callback(gc.enable)
         for lib, attr, site in walk._patches():
             stack.callback(setattr, lib, attr, getattr(lib, attr))
             setattr(lib, attr, site)
         with walk:
             result = fn(*args, **kwargs)
+    # a sharded step returns DTensors: its rank writes their local blocks
+    result = tree_map(lambda t: t._local_tensor
+                      if isinstance(t, _dtensor()) else t, result)
     walk.cost.min_bytes = float(walk.traffic.total(result))
+    walk.cost.peak_bytes = float(walk.traffic.peak)
     return walk.cost

@@ -12,7 +12,8 @@ its ``min_bytes``, the compulsory traffic, makes the memory term a lower
 bound, its ``bytes`` an eager-traffic estimate);
 the collectives from a comm log's ``summary()`` (``core.comm``) or a
 ``hlo_comm.summarize``-shaped dict {kind: {count, msg_bytes,
-wire_bytes}}.  Wire bytes follow ``hlo_comm``'s factors (below).
+wire_bytes}}.  Wire bytes follow ``hlo_comm``'s factors
+(``core.step_comm.WIRE_FACTORS``).
 MODEL_FLOPS is 6·N·D (train) or 2·N·D (prefill, and 2·N·B a decode
 step), N the active parameter count.  The default hardware is
 ``H100_NODE``.
@@ -24,6 +25,7 @@ from typing import Dict
 
 from repro_torch.config.base import (H100_NODE, HardwareProfile,
                                      ModelConfig, ShapeConfig)
+from repro_torch.core.step_comm import wire_factor
 
 
 @dataclasses.dataclass
@@ -68,21 +70,6 @@ def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
     if shape.mode == "prefill":
         return 2.0 * n * shape.seq_len * shape.global_batch
     return 2.0 * n * shape.global_batch          # one decode step
-
-
-def wire_factor(kind: str, d: int) -> float:
-    """``hlo_comm``'s wire factors on the message (the result side):
-    all-reduce 2(d-1)/d, all-gather and all-to-all (d-1)/d,
-    reduce-scatter d-1 (of its output), collective-permute (and a send)
-    1."""
-    d = max(int(d), 1)
-    if kind == "allreduce":
-        return 2.0 * (d - 1) / d
-    if kind in ("allgather", "alltoall"):
-        return (d - 1) / d
-    if kind == "reducescatter":
-        return float(d - 1)
-    return 1.0
 
 
 def summarize_ops(ops) -> Dict[str, dict]:

@@ -5,8 +5,9 @@ same tokens bit for bit).  A counter-based generator (splitmix64 over
 (seed, step, index)) makes token streams with no host-side RNG state, so
 each data-parallel host can make exactly its rows of the global batch.
 Documents are packed: fixed-length sequences with a BOS every ``doc_len``
-tokens.  JAX's ``global_array`` (a batch placed on a device mesh) has no
-counterpart yet: it waits for sharded execution (ROADMAP A13 part 2).
+tokens.  ``global_array`` places a step's batch on a ``DeviceMesh`` as a
+DTensor, each rank filling its own block (JAX's ``global_array`` on a
+``NamedSharding``, which JAX's package never calls).
 """
 from __future__ import annotations
 
@@ -49,6 +50,29 @@ class SyntheticTokens:
             np.int32) + 2
         toks[:, ::self.doc_len] = self.bos_id       # packed document resets
         return toks
+
+    def global_array(self, step: int, device_mesh, spec):
+        """``step``'s batch as a DTensor on ``device_mesh`` placed by
+        ``spec`` (``runtime.sharding.P``, e.g. ``data_spec``): this rank's
+        block is filled from ``batch_at`` over its own rows and columns
+        (``DTensor.from_local``); no rank makes the whole batch."""
+        import torch
+        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor._utils import \
+            compute_local_shape_and_global_offset
+
+        from repro_torch.runtime.sharding import placements
+
+        pl = placements(device_mesh, spec)
+        shape = (self.global_batch, self.seq_len)
+        local, offset = compute_local_shape_and_global_offset(
+            shape, device_mesh, pl)
+        lo, c0 = offset
+        block = self.batch_at(step, lo, lo + local[0])[:, c0:c0 + local[1]]
+        block = torch.from_numpy(np.ascontiguousarray(block)).to(
+            device_mesh.device_type)
+        return DTensor.from_local(block, device_mesh, pl, run_check=False,
+                                  shape=shape, stride=(self.seq_len, 1))
 
     def __iter__(self) -> Iterator[np.ndarray]:
         step = 0

@@ -395,7 +395,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       static_cast<const T*>(v), lengths, addr, pm, pl, pacc, Hkv, G, n_splits,
       scale);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess || out == nullptr) return e;  // the split pass alone
   combine_kernel<T, D><<<dim3(Hkv * G, B), D, 0, s>>>(
       pm, pl, pacc, lengths, static_cast<T*>(out), span, split_rows,
       n_splits);
@@ -428,7 +428,9 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
 // multiples of 16 bytes); lengths [B] int32 on the device; f32 partials
 // part_m/part_l [B, Hq, n_splits] and part_acc [B, Hq, n_splits, D],
 // n_splits = ceil(W / 128).  Two kernels: the split pass, then the combine
-// pass.
+// pass; with a null out the split pass alone, its partials the result (a
+// sequence-parallel cache combines them across the ranks that hold its
+// rows).
 REPRO_EXPORT int repro_decode_attention(
     const void* q, const void* k, const void* v, void* out,
     const void* lengths, void* part_m, void* part_l, void* part_acc, int B,

@@ -8,7 +8,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import (
-    decode_attention_ref, paged_decode_attention_ref)
+    decode_attention_ref, paged_decode_attention_ref, split_partials)
 
 HEAD_DIMS = (32, 64, 128, 256)
 MAX_GROUPS = 8          # query heads per KV head the kernel holds
@@ -28,6 +28,17 @@ def decode_attention(q, k, v, lengths):
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, lengths)
     return decode_attention_cuda(q, k, v, lengths)
+
+
+def decode_attention_partials(q, k, v, lengths):
+    """B3's split pass alone: the f32 partials (m, l [B,Hq,n_splits], acc
+    [B,Hq,n_splits,D]) of each SPLIT_KEYS-row split of k, v over their
+    first lengths[b] rows, as ``split_partials``; a split past the length
+    holds nothing defined.  The caller combines them (a sequence-parallel
+    cache, across the ranks that hold its rows)."""
+    if q.device.type == "cpu":
+        return split_partials(q, k, v, lengths, SPLIT_KEYS)
+    return decode_attention_partials_cuda(q, k, v, lengths)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
@@ -63,7 +74,22 @@ def decode_attention_cuda(q, k, v, lengths):
     strides (unit last-dim stride, K and V alike; the base on a 16-byte
     boundary and the other strides multiples of 16 bytes, since the kernel
     loads 16 bytes a lane); lengths [B] int32."""
-    name = "decode_attention_cuda"
+    out = torch.empty_like(q)
+    _launch_b3("decode_attention_cuda", q, k, v, lengths, out)
+    return out
+
+
+def decode_attention_partials_cuda(q, k, v, lengths):
+    """Launch B3's split pass alone (one count; the inputs as
+    ``decode_attention_cuda``'s) -> its f32 partials (m, l, acc)."""
+    return _launch_b3("decode_attention_partials_cuda", q, k, v, lengths,
+                      None)
+
+
+def _launch_b3(name, q, k, v, lengths, out):
+    """B3's launch: the split pass into f32 partials it allocates, then,
+    where ``out`` is given, the combine pass into it.  Returns the
+    partials."""
     W, Hkv = k.shape[1], k.shape[2]
     B, Hq, D = _check_q(name, q, Hkv)
     dev, dt = q.device, q.dtype
@@ -75,19 +101,19 @@ def decode_attention_cuda(q, k, v, lengths):
     _check_16_bytes(name, "v", v)
     _build.require(name, "lengths", lengths, dev, torch.int32, (B,))
     code = _build.dtype_code(dt)
-    out = torch.empty_like(q)
     n_splits = -(-W // SPLIT_KEYS)
     part_m, part_l, part_acc = _partials(B, Hq, n_splits, D, dev)
     sb, sw, sh, _ = k.stride()
     with torch.cuda.device(dev):
         rc = _build.lib().repro_decode_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lengths.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-            part_acc.data_ptr(), B, W, n_splits, Hkv, Hq // Hkv, D, sb, sw,
-            sh, 1.0 / math.sqrt(D), code, _build.stream_ptr(dev))
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if out is None else out.data_ptr(), lengths.data_ptr(),
+            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), B, W,
+            n_splits, Hkv, Hq // Hkv, D, sb, sw, sh, 1.0 / math.sqrt(D),
+            code, _build.stream_ptr(dev))
     _build.check(rc, name)
     _build.count("decode_attention")
-    return out
+    return part_m, part_l, part_acc
 
 
 def _check_16_bytes(name, what, t):

@@ -2,9 +2,13 @@
 
 Counterpart of ``repro.launch.specs``: what a step consumes, as ``meta``
 tensors (shapes and types, no allocation, at full width), beside their
-partition specs on a mesh (``runtime.sharding``).  The audio and vision
-frontends are stubs, as in the JAX package: the encoder takes frame
-embeddings and the vlm image-prefix embeddings of the right shape.
+partition specs on a mesh (``runtime.sharding``).  Given a
+``torch.distributed`` ``DeviceMesh`` (with named axes) in place of a
+mesh, the stand-ins come back as meta DTensors placed by those specs
+(``sharding.distribute``): what a sharded step consumes in a dry run.
+The audio and vision frontends are stubs, as in the JAX package: the
+encoder takes frame embeddings and the vlm image-prefix embeddings of
+the right shape.
 """
 from __future__ import annotations
 
@@ -26,6 +30,17 @@ def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(tuple(shape), dtype=dtype, device=META)
 
 
+def _on(mesh):
+    """(the mesh as the spec rules read it, the DeviceMesh or None)."""
+    if mesh is not None and hasattr(mesh, "mesh_dim_names"):
+        return sh.mesh_shape(mesh), mesh
+    return mesh, None
+
+
+def _placed(tensors, specs, dmesh):
+    return tensors if dmesh is None else sh.distribute(tensors, specs, dmesh)
+
+
 def skip_reason(cfg: ModelConfig, shape: ShapeConfig) -> Optional[str]:
     """Principled (arch x shape) skips, as the JAX package documents them
     (DESIGN.md §4)."""
@@ -44,6 +59,12 @@ def batch_specs(cfg: ModelConfig, shape: ShapeConfig,
                 mesh=None) -> Tuple[Dict, Dict]:
     """(meta tensors, specs) of a train or prefill batch; the specs are
     None without a mesh."""
+    mesh, dmesh = _on(mesh)
+    tensors, specs = _batch(cfg, shape, mesh)
+    return _placed(tensors, specs, dmesh), specs
+
+
+def _batch(cfg, shape, mesh):
     B, S = shape.global_batch, shape.seq_len
     d2 = sh.data_spec(mesh, B, 1) if mesh else None
     d3 = sh.data_spec(mesh, B, 2) if mesh else None
@@ -64,22 +85,29 @@ def decode_specs(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
     """((token [B], pos, cache), specs) of one decode step against a
     seq_len-deep cache (``Model.init_cache`` on meta); the specs, (token,
     pos, cache tree), are None without a mesh."""
+    mesh, dmesh = _on(mesh)
     B, S = shape.global_batch, shape.seq_len
     cache = get_model(cfg).init_cache(B, S, device=META)
     tok, pos = _meta((B,), torch.int32), _meta((), torch.int32)
     if mesh is None:
         return (tok, pos, cache), None
-    return (tok, pos, cache), (sh.data_spec(mesh, B, 0), P(),
-                               sh.cache_specs(cfg, mesh, B)(cache))
+    specs = (sh.data_spec(mesh, B, 0), P(),
+             sh.cache_specs(cfg, mesh, B)(cache))
+    if dmesh is not None:
+        tok, cache = (sh.distribute(t, sp, dmesh)
+                      for t, sp in ((tok, specs[0]), (cache, specs[2])))
+    return (tok, pos, cache), specs
 
 
 def param_sds(cfg: ModelConfig, mesh=None):
     """(meta parameters in the port's layout, their specs), from the
     bridge's shapes and types; nothing is allocated."""
+    mesh, dmesh = _on(mesh)
     shapes = bridge.expected_shapes(cfg)
     params = {k: _meta(v, bridge.expected_dtype(cfg, k))
               for k, v in shapes.items() if k != "blocks"}
     params["blocks"] = {k: _meta(v, bridge.expected_dtype(cfg, k))
                         for k, v in shapes["blocks"].items()}
     axis_size = mesh.shape.get("model") if mesh is not None else None
-    return params, sh.param_specs(cfg, params, axis_size=axis_size)
+    specs = sh.param_specs(cfg, params, axis_size=axis_size)
+    return _placed(params, specs, dmesh), specs

@@ -8,9 +8,12 @@ On the CPU, a reduced config (the plain versions of the kernels):
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
       --reduced --device cpu --steps 5
 
-Counterpart of ``repro.launch.train`` with the same flags, less ``--mesh``
-(a device mesh: ROADMAP A13 part 2), plus ``--device`` (default the card; it
-raises when there is none).  The weights are drawn from ``--seed`` by the
+Counterpart of ``repro.launch.train`` with the same flags, plus
+``--device`` (default the card; it raises when there is none).  ``--mesh``
+is parsed and not read, as in JAX's launcher (ROADMAP C17): the launcher
+trains on one device.  A sharded train step runs under a ``DeviceMesh``
+set in ``runtime.meshctx`` (``launch/dryrun.py`` drives one), its batch
+from ``data.pipeline.SyntheticTokens.global_array``.  The weights are drawn from ``--seed`` by the
 port's ``Model.init`` (other draws than JAX's); the tokens, and the vlm's
 image-prefix embeddings and the encoder's frames and targets, are the
 arrays JAX's launcher makes from the same seed.
@@ -47,6 +50,8 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--mesh", default=None,
+                    help="data,model dims e.g. 16,16 (default: single device)")
     ap.add_argument("--loss-impl", default="dense", choices=["dense", "fused"])
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--seed", type=int, default=0)

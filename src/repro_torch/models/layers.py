@@ -21,6 +21,8 @@ from repro_torch.config.base import ModelConfig
 from repro_torch.kernels.flash_attention.ref import visible_prefix
 from repro_torch.kernels.rmsnorm.ops import add_rms_norm, rms_norm  # (B1)
 from repro_torch.kernels.rmsnorm.ref import add_rms_norm_ref, rms_norm_ref
+from repro_torch.runtime import meshctx
+from repro_torch.runtime import sharding as sh
 
 NEG_INF = torch.finfo(torch.float32).min
 
@@ -51,7 +53,37 @@ def add_norm(x, y, weight, eps: float, plain: bool = False):
     once the add that closes the branch y is done (s = x when y is None),
     and n = rms_norm(s).  On the card one kernel runs both
     (``add_rms_norm``; B1 alone when y is None); ``plain=True`` runs the
-    plain versions, which are the unfused chain."""
+    plain versions, which are the unfused chain.
+
+    Under a ``DeviceMesh`` (``runtime.meshctx``) this is the step's
+    redistribution point: a branch y that leaves its site as a partial
+    sum over "model" is all-reduced (one all-reduce), so the residual
+    stream stays replicated over "model" and sharded over the batch axes;
+    the add and the norm run on the local shards (``local_map``), through
+    the same kernels."""
+    if meshctx.get_device_mesh() is not None:
+        return _add_norm_sharded(x, y, weight, eps, plain)
+    return _add_norm(x, y, weight, eps, plain)
+
+
+def _add_norm_sharded(x, y, weight, eps, plain):
+    if y is not None and sh.is_partial_model(y):
+        def local(x, y, w):
+            return _add_norm(x, sh.reduce_model(y), w, eps, plain)
+        args = (x, y, weight)
+    elif y is not None:
+        def local(x, y, w):
+            return _add_norm(x, y, w, eps, plain)
+        args = (x, y, weight)
+    else:
+        def local(x, w):
+            return _add_norm(x, None, w, eps, plain)
+        args = (x, weight)
+    pl = x.placements
+    return sh.local_site(local, (pl, pl), *args, weights=(len(args) - 1,))
+
+
+def _add_norm(x, y, weight, eps, plain):
     if y is None:
         x = x.contiguous()
         return x, (rms_norm_ref if plain else rms_norm)(x, weight, eps)
@@ -278,6 +310,51 @@ def gqa_attention(q, k, v, mask):
     return out.reshape(B, S, Hq, D)
 
 
+def chunked_gqa_attention(q, k, v, *, mode: str = "causal", window=None,
+                          prefix_len: int = 0, q_offset: int = 0,
+                          kv_chunk: int = 1024):
+    """Flash-style attention as the JAX package's ``chunked_gqa_attention``
+    computes it (``cfg.attention_impl == "chunked"``): an online softmax
+    over KV chunks of ``kv_chunk`` rows (a Python loop where JAX scans), the
+    mask of each chunk built from positions (``make_mask``'s modes), no
+    [S, T] scores or mask.  f32 running max, sum and accumulator; each
+    chunk's probabilities cast to the input type before P·V; the sum
+    clamped at 1e-30.  q [B, S, Hq, D]; k, v [B, T, Hkv, D], T a multiple
+    of the chunk (after ``min(kv_chunk, T)``)."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    kv_chunk = min(kv_chunk, T)
+    if T % kv_chunk:
+        raise ValueError(f"kv length {T} is not a multiple of {kv_chunk}")
+    qg = q.reshape(B, S, Hkv, G, D)
+    dev = q.device
+    q_pos = q_offset + torch.arange(S, device=dev)
+    scale = 1.0 / math.sqrt(D)
+    m_run = torch.full((B, Hkv, G, S), NEG_INF, dtype=torch.float32,
+                       device=dev)
+    l_run = torch.zeros((B, Hkv, G, S), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Hkv, G, S, D), dtype=torch.float32, device=dev)
+    for lo in range(0, T, kv_chunk):
+        k_c, v_c = k[:, lo:lo + kv_chunk], v[:, lo:lo + kv_chunk]
+        kv_pos = lo + torch.arange(kv_chunk, device=dev)
+        qp, kp = q_pos[:, None], kv_pos[None, :]
+        mask = (kp <= qp) | (kp < visible_prefix(mode, prefix_len, T))
+        if window is not None:
+            mask &= kp > qp - window
+        logits = torch.einsum("bskgd,btkd->bkgst", qg, k_c).float() * scale
+        logits = torch.where(mask, logits, NEG_INF)
+        m_new = torch.maximum(m_run, logits.amax(-1))
+        alpha = torch.exp(m_run - m_new)
+        p = torch.where(mask, torch.exp(logits - m_new[..., None]), 0.0)
+        l_run = l_run * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgst,btkd->bkgsd", p.to(q.dtype), v_c).float()
+        m_run = m_new
+    out = acc / torch.clamp(l_run, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(q.dtype)
+
+
 def init_attention(gen, cfg: ModelConfig, num_layers: int, dtype,
                    n_heads: int = None):
     """wq/wk/wv/wo of ``n_heads`` query heads (default the config's; the
@@ -307,12 +384,15 @@ def init_mlp(gen, d_model: int, d_ff: int, activation: str,
     return p
 
 
-def mlp_apply(p, x, activation: str):
-    up = x @ p["w1"]
+def mlp_apply(p, x, activation: str, copy=None):
+    """The MLP of x [..., h].  ``copy`` wraps x before each up-projection
+    (``sharding.copy_to_model`` on a sharded step's local shards)."""
+    f = copy or (lambda t: t)
+    up = f(x) @ p["w1"]
     if activation == "swiglu":
-        act = F.silu(up) * (x @ p["w3"])
+        act = F.silu(up) * (f(x) @ p["w3"])
     elif activation == "geglu":
-        act = F.gelu(up, approximate="tanh") * (x @ p["w3"])
+        act = F.gelu(up, approximate="tanh") * (f(x) @ p["w3"])
     else:
         act = F.gelu(up, approximate="tanh")
     return act @ p["w2"]

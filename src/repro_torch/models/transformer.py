@@ -13,7 +13,12 @@ carries JAX weights over unchanged.  The layer loop is a Python loop (the
 JAX package scanned it), and caches are updated in place (the JAX package
 donated them).  The loop carries the residual stream as a pair (h, x), so
 every residual add runs inside the norm after it (``blocks`` module doc);
-the values are the JAX package's chain, add then norm.
+the values are the JAX package's chain, add then norm.  With a
+``DeviceMesh`` set in ``runtime.meshctx``, the dense, encoder and vlm
+families run each entry point below but ``paged_step`` as one sharded
+step on DTensors (``runtime.sharding``): the vocab-parallel embedding
+and head, the blocks' sites (``blocks``), the logits left vocab-sharded
+and ``greedy_tokens``' argmax over them.
 
 Entry points:
   forward(params, tokens, prefix_emb=None, features=None, remat=None,
@@ -47,6 +52,8 @@ from repro_torch.models import layers as layers_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import add_norm, dense_init, torch_dtype
+from repro_torch.runtime import meshctx
+from repro_torch.runtime import sharding as sh
 
 _BLOCKS = {
     "dense": (blocks_lib.init_dense_blocks, blocks_lib.dense_block_apply),
@@ -96,6 +103,28 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def greedy_tokens(logits):
+    """The greedy token [B] int32 of logits [B, v].  Under a DeviceMesh
+    the logits are vocab-sharded DTensors, and the argmax is JAX's
+    compiled one: each rank's max and its (global) index, both
+    all-gathered over "model", the first of the largest kept."""
+    if meshctx.get_device_mesh() is None:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    r = sh.model_rank()
+
+    def local(lg):
+        idx = torch.argmax(lg, dim=-1, keepdim=True)
+        val = torch.gather(lg, -1, idx)
+        vals = sh.gather_model_values(val, -1)                   # [b, m]
+        idxs = sh.gather_model_values(
+            (idx + r * lg.shape[-1]).to(torch.int32), -1)
+        best = torch.argmax(vals, dim=-1, keepdim=True)
+        return torch.gather(idxs, -1, best)[..., 0]
+
+    return sh.local_site(local, sh.replicate_model(logits.placements),
+                         logits)
+
+
 def greedy_decode_loop(step_fn, tokens, cache, pos, num_tokens: int):
     """``num_tokens`` greedy steps feeding each argmax back in at the next
     position (the JAX package's fori_loop as a Python loop).
@@ -105,7 +134,7 @@ def greedy_decode_loop(step_fn, tokens, cache, pos, num_tokens: int):
     tok = tokens
     for i in range(num_tokens):
         logits, cache = step_fn(cache, tok, pos + i)
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        tok = greedy_tokens(logits)
         out.append(tok)
     return torch.stack(out, dim=1), cache
 
@@ -157,12 +186,70 @@ class Model:
         cfg = self.cfg
         if cfg.family == "encoder":
             return features.to(torch_dtype(cfg.dtype))
+        if meshctx.get_device_mesh() is not None:
+            return self._embed_sharded(params["embed"], tokens, prefix_emb)
         x = params["embed"][tokens.long()]
         if cfg.scale_embedding:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
         if prefix_emb is not None:
             x = torch.cat([prefix_emb.to(x.dtype), x], dim=1)
         return x
+
+    def _embed_sharded(self, embed, tokens, prefix_emb):
+        """The vocab-parallel lookup of a sharded step: each rank looks up
+        the tokens in its vocab rows, zeroes the rest, and one all-reduce
+        over "model" sums them (then the scale and the prefix, as
+        ``_embed``)."""
+        cfg = self.cfg
+        r = sh.model_rank()
+        scale = math.sqrt(cfg.d_model) if cfg.scale_embedding else None
+        tied = self._tied_reduce(tokens)
+
+        def local(emb, tokens, *prefix):
+            if tied:
+                emb = sh.reduce_batch_grad(emb)
+            n = emb.shape[0]
+            ids = tokens.long() - r * n
+            ok = (ids >= 0) & (ids < n)
+            x = emb[torch.where(ok, ids, 0)]
+            x = sh.reduce_model(torch.where(ok[..., None], x,
+                                            x.new_zeros(())))
+            if scale is not None:
+                x = x * torch.tensor(scale, dtype=x.dtype)
+            if prefix:
+                x = torch.cat([prefix[0].to(x.dtype), x], dim=1)
+            return x
+
+        args = (embed, tokens) + (() if prefix_emb is None else
+                                  (prefix_emb,))
+        return sh.local_site(local, tokens.placements, *args,
+                             weights=() if tied else (0,))
+
+    def _tied_reduce(self, x) -> bool:
+        """Whether each use of the tied embedding sums its own gradient
+        over the batch axes (a sharded step's batch split over them)."""
+        return (self.cfg.tie_embeddings and self.cfg.family != "encoder"
+                and sh.batch_sharded(x))
+
+    def _place_inputs(self, *inputs):
+        """Plain inputs of a sharded step as DTensors, their batch dim over
+        the batch axes where it divides them (``sharding.data_spec``)."""
+        dmesh = meshctx.get_device_mesh()
+        if dmesh is None:
+            return inputs
+        out = []
+        for t in inputs:
+            if t is not None and not sh.is_dtensor(t):
+                t = sh.place(t, sh.P(sh.batch_entry(dmesh, t.shape[0]),
+                                     *([None] * (t.dim() - 1))))
+            out.append(t)
+        return out
+
+    def _positions(self, x):
+        """Positions [B, S] of a full-sequence pass over x [B, S, h]."""
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        return self._place_inputs(positions)[0]
 
     def _prefix_kw(self, prefix_emb) -> dict:
         """The block's ``prefix_len`` where the family's mask takes one."""
@@ -177,6 +264,8 @@ class Model:
         residual add."""
         cfg = self.cfg
         x = self._final_norm(params, carried, last)
+        if meshctx.get_device_mesh() is not None:
+            return self._head_sharded(params, x)
         if cfg.tie_embeddings and cfg.family != "encoder":
             logits = x @ params["embed"].T
         else:
@@ -188,11 +277,40 @@ class Model:
                                  torch.finfo(logits.dtype).min)
         return logits
 
+    def _head_sharded(self, params, xn):
+        """The vocab-parallel head of a sharded step: each rank's logits of
+        its vocab columns (the tied head is its ``embed`` rows), the pad
+        columns masked; the logits stay sharded over "model", no gather."""
+        cfg = self.cfg
+        tied = cfg.tie_embeddings and cfg.family != "encoder"
+        head = params["embed"] if tied else params["lm_head"]
+        r = sh.model_rank()
+        reduce = self._tied_reduce(xn)
+
+        def local(xn, w):
+            if reduce:
+                w = sh.reduce_batch_grad(w)
+            logits = sh.copy_to_model(xn) @ (w.T if tied else w)
+            if cfg.padded_vocab != cfg.vocab_size:
+                n = logits.shape[-1]
+                col = r * n + torch.arange(n, device=logits.device)
+                logits = torch.where(col < cfg.vocab_size, logits,
+                                     torch.finfo(logits.dtype).min)
+            return logits
+
+        from torch.distributed.tensor import Shard
+        return sh.local_site(local, sh.with_model(xn.placements,
+                                                  Shard(xn.dim() - 1)),
+                             xn, head, weights=() if reduce else (1,))
+
     def _final_norm(self, params, carried, last: bool):
         """The final norm of the last position ([B, h]; [B, S, h] of every
         position when ``last`` is False), closing the last layer's
-        residual add."""
+        residual add (on a sharded step its all-reduce runs over every
+        position first, as XLA's)."""
         h, x = carried
+        if h is not None and meshctx.get_device_mesh() is not None:
+            h = sh.reduce_branch(h)
         if last:
             x, h = x[:, -1], None if h is None else h[:, -1]
         return add_norm(x, h, params["final_norm"], self.cfg.norm_eps,
@@ -241,10 +359,15 @@ class Model:
         kernels of a recomputed layer launch again there.
         ``return_hidden`` returns the final norm's output [B, P + S, h] of
         every position in place of the logits (the fused loss projects it
-        a vocab chunk at a time)."""
+        a vocab chunk at a time).
+
+        Under a DeviceMesh (``runtime.meshctx``) every family of the dense
+        block runs as one sharded step on DTensors (``blocks`` module doc,
+        ``runtime.sharding``); the logits come out vocab-sharded."""
+        tokens, prefix_emb, features = self._place_inputs(
+            tokens, prefix_emb, features)
         x = self._embed(params, tokens, prefix_emb, features)
-        B, S = x.shape[:2]
-        positions = torch.arange(S, device=x.device).expand(B, S)
+        positions = self._positions(x)
         remat = _remat_kwargs(self.cfg.remat if remat is None else remat)
         kw = self._prefix_kw(prefix_emb)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -275,23 +398,31 @@ class Model:
         state {state [L, B, H, hs, hs] f32, tm_prev, cm_prev [L, B, h]}
         (ssm), or the ring KV cache and the selective scan's state {k, v,
         ssm_state [L, B, di, N] f32} (hybrid)."""
+        tokens, prefix_emb = self._place_inputs(tokens, prefix_emb)
         cfg = self.cfg
         L = cfg.num_layers
         x = self._embed(params, tokens, prefix_emb)
-        B, S = x.shape[:2]
-        positions = torch.arange(S, device=x.device).expand(B, S)
+        S = x.shape[1]
+        positions = self._positions(x)
         w = self.cache_width(max_len)
         kw = self._prefix_kw(prefix_emb)
         cache = None
+        per_layer = []
         x = (None, x)
         for l in range(L):
             x, c = self._block(self._layer(params, l), x, positions,
                                build_cache_w=w, **kw)
+            if meshctx.get_device_mesh() is not None:
+                per_layer.append(c)
+                continue
             if cache is None:
                 cache = {key: val.new_empty((L, *val.shape))
                          for key, val in c.items()}
             for key, val in c.items():
                 cache[key][l] = val
+        if per_layer:
+            cache = {key: sh.stack([c[key] for c in per_layer])
+                     for key in per_layer[0]}
         return self._head(params, x), cache, S
 
     def init_cache(self, batch: int, max_len: int, device=None):
@@ -353,10 +484,17 @@ class Model:
         """One step: tokens [B]; ``pos`` a scalar (every sequence at one
         depth) or [B] per-sequence positions (the ssm family ignores it).
         Returns (logits [B, v], cache), the cache updated in place."""
+        tokens, = self._place_inputs(tokens)
         x = self._embed(params, tokens[:, None])
         B = x.shape[0]
+        if sh.is_dtensor(pos):
+            pos = pos.to_local()
         pos = torch.as_tensor(pos, device=x.device)
-        positions = layers_lib.decode_positions(pos, B, device=x.device)
+        if pos.dim() and meshctx.get_device_mesh() is not None:
+            raise NotImplementedError(
+                "a sharded decode step takes one position for the batch")
+        positions = self._place_inputs(
+            layers_lib.decode_positions(pos, B, device=x.device))[0]
         x = (None, x)
         for l in range(self.cfg.num_layers):
             layer_cache = {key: val[l] for key, val in cache.items()}

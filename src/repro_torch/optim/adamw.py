@@ -13,6 +13,14 @@ update) and returns the same trees: on one card a llama32-3b step then
 holds one copy of the parameters (7.2 GB in bf16) and of the moments
 (28.9 GB), not two.  It works through large leaves a block of rows at a
 time, so its f32 temporaries stay small.
+
+On a sharded step (DTensor parameters and gradients on a DeviceMesh,
+``runtime.sharding``) the moments take the parameters' placements;
+``update`` first sums each gradient over the batch axes
+(``sharding.reduce_grads``, one all-reduce a leaf), then takes the global
+norm as JAX's compiled step does, each leaf split over "model"
+contributing its local sum of squares through one scalar all-reduce, and
+updates every rank's local blocks in place.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ from typing import Callable
 import torch
 
 from repro_torch.checkpoint.store import flatten
+from repro_torch.runtime import sharding as sh
 
 PIECE = 1 << 25          # elements a block of rows of a large leaf holds
 
@@ -49,6 +58,15 @@ def _pieces(*tensors):
     return list(zip(*(x.split(rows) for x in tensors)))
 
 
+def _local_sq(g):
+    """The sum of squares of DTensor g: its local blocks' sum, all-reduced
+    over "model" (one scalar) where g is split over it."""
+    sq = 0
+    for (piece,) in _pieces(g.to_local()):
+        sq = sq + torch.sum(torch.square(piece.float()))
+    return sh.reduce_model(sq) if sh.model_sharded(g) else sq
+
+
 @dataclasses.dataclass(frozen=True)
 class AdamW:
     lr: Callable = cosine_schedule(3e-4, 100, 10_000)
@@ -63,6 +81,8 @@ class AdamW:
         def zeros(tree):
             if isinstance(tree, dict):
                 return {k: zeros(v) for k, v in tree.items()}
+            if sh.is_dtensor(tree):
+                return torch.zeros_like(tree, dtype=torch.float32)
             return torch.zeros(tree.shape, dtype=torch.float32,
                                device=tree.device)
         leaf = next(iter(flatten(params).values()))
@@ -75,14 +95,25 @@ class AdamW:
         """One step: writes the new parameters into ``params`` and the new
         moments into ``state``'s; returns (params, state with the new step,
         {"grad_norm": the norm before the clip, "lr"})."""
-        g_flat, p_flat = flatten(grads), flatten(params)
+        p_flat = flatten(params)
         m_flat, v_flat = flatten(state["m"]), flatten(state["v"])
+        sharded = sh.is_dtensor(next(iter(p_flat.values())))
+        if sharded:
+            grads = sh.reduce_grads(grads, params)
+        g_flat = flatten(grads)
         step = state["step"] + 1
         gnorm = 0
         for g in g_flat.values():
+            if sharded:
+                gnorm = gnorm + _local_sq(g)
+                continue
             for (piece,) in _pieces(g):
                 gnorm = gnorm + torch.sum(torch.square(piece.float()))
         gnorm = torch.sqrt(gnorm)
+        if sharded:
+            g_flat, p_flat, m_flat, v_flat = (
+                {k: t.to_local() for k, t in f.items()}
+                for f in (g_flat, p_flat, m_flat, v_flat))
         scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
         sf = step.to(torch.float32)
         b1 = torch.tensor(self.b1, dtype=torch.float32, device=sf.device)

@@ -15,16 +15,22 @@ from __future__ import annotations
 import torch
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.models.transformer import get_model, resolve_device
+from repro_torch.models.transformer import (get_model, greedy_tokens,
+                                           resolve_device)
 
 
 def make_serve_step(model):
     """(params, cache, token [B], pos) -> (next_token [B] int32, cache):
-    one decode step and its greedy token, the cache updated in place."""
+    one decode step and its greedy token, the cache updated in place.
+
+    Under a DeviceMesh (``runtime.meshctx``) the step is sharded, as JAX's
+    jitted ``serve_step`` under a mesh: params, cache and token are
+    DTensors placed by ``runtime.sharding``'s specs, the logits stay
+    vocab-sharded, and the argmax is ``transformer.greedy_tokens``'."""
 
     def serve_step(params, cache, token, pos):
         logits, cache = model.decode_step(params, cache, token, pos)
-        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+        return greedy_tokens(logits), cache
 
     return serve_step
 
@@ -73,7 +79,7 @@ class InferenceEngine:
             prefix_emb = torch.as_tensor(prefix_emb, device=self.device)
         logits, cache, pos = self.model.prefill(self.params, tokens,
                                                 self.max_len, prefix_emb)
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        tok = greedy_tokens(logits)
         pieces = [tok[:, None]]
         remaining = max_new_tokens - 1
         while remaining >= self.decode_chunk > 1:

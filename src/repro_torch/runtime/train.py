@@ -29,6 +29,7 @@ from torch.autograd.profiler import record_function
 from repro_torch.checkpoint.store import flatten, unflatten
 from repro_torch.models.transformer import Model, resolve_device
 from repro_torch.optim.adamw import AdamW
+from repro_torch.runtime import sharding as sh
 
 
 def _ce(logits, targets, vocab: int):
@@ -37,6 +38,32 @@ def _ce(logits, targets, vocab: int):
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     return torch.mean(logz - gold)
+
+
+def _ce_sharded(logits, targets):
+    """``_ce`` of vocab-sharded logits (a sharded step): on each rank's
+    vocab columns, one all-reduce over "model" each for the max (MAX), the
+    sum of exponentials and the target's logit (SUM), then the sum over
+    the batch axes (one scalar all-reduce) over the token count.  DTensor's
+    own log-softmax would all-gather the logits."""
+    r = sh.model_rank()
+    n_tokens = targets.numel()
+
+    def local(lg, t):
+        lf = lg.float()
+        n = lf.shape[-1]
+        mx = sh.max_model(lf.amax(dim=-1))
+        z = sh.reduce_model(torch.exp(lf - mx[..., None]).sum(dim=-1))
+        ids = t.long() - r * n
+        ok = (ids >= 0) & (ids < n)
+        gold = torch.gather(lf, -1, torch.where(ok, ids, 0)[..., None])
+        gold = sh.reduce_model(torch.where(ok, gold[..., 0], 0.0))
+        return sh.reduce_batch(torch.sum(mx + torch.log(z) - gold)) \
+            / n_tokens
+
+    from torch.distributed.tensor import Replicate
+    return sh.local_site(local, [Replicate()] * logits.device_mesh.ndim,
+                         logits, targets)
 
 
 def ce_from_hidden_chunked(x, head, targets, chunk: int = 16384,
@@ -76,14 +103,21 @@ def make_loss_fn(model: Model, loss_impl: str = "dense") -> Callable:
     if loss_impl not in ("dense", "fused"):
         raise ValueError(f"loss_impl {loss_impl!r} not in ('dense', 'fused')")
 
+    def ce(logits, targets):
+        if sh.is_dtensor(logits):
+            return _ce_sharded(logits, targets)
+        return _ce(logits, targets, cfg.vocab_size)
+
     def loss_fn(params, batch):
         if cfg.family == "encoder":
             logits, aux = model.forward(params, features=batch["features"])
-            loss = _ce(logits, batch["targets"], cfg.vocab_size)
+            loss = ce(logits, batch["targets"])
             return loss + aux, {"ce": loss, "aux": aux}
         prefix = batch.get("prefix_emb")
         tokens = batch["tokens"]
         if loss_impl == "fused":
+            if sh.device_mesh() is not None:
+                raise NotImplementedError("the fused loss is not sharded")
             hidden, aux = model.forward(params, tokens, prefix_emb=prefix,
                                         return_hidden=True)
             if prefix is not None:
@@ -96,15 +130,29 @@ def make_loss_fn(model: Model, loss_impl: str = "dense") -> Callable:
             logits, aux = model.forward(params, tokens, prefix_emb=prefix)
             if prefix is not None:
                 logits = logits[:, prefix.shape[1]:]
-            loss = _ce(logits[:, :-1], tokens[:, 1:], cfg.vocab_size)
+            loss = ce(logits[:, :-1], tokens[:, 1:])
         return loss + aux, {"ce": loss, "aux": aux}
 
     return loss_fn
 
 
 def _to_device(batch, device):
-    """The batch's arrays (numpy or torch) as tensors on ``device``."""
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    """The batch's arrays (numpy or torch) as tensors on ``device``; under
+    a DeviceMesh, DTensors split over the batch axes (the arrays are the
+    global batch; ``data.pipeline.SyntheticTokens.global_array`` makes
+    only a rank's rows)."""
+    dmesh = sh.device_mesh()
+    out = {}
+    for k, v in batch.items():
+        if dmesh is not None and sh.is_dtensor(v):
+            out[k] = v
+            continue
+        v = torch.as_tensor(v).to(device)
+        if dmesh is not None:
+            v = sh.place(v, sh.data_spec(sh.mesh_shape(dmesh), v.shape[0],
+                                         v.dim() - 1))
+        out[k] = v
+    return out
 
 
 def loss_and_grads(loss_fn, params, batch):

@@ -239,6 +239,30 @@ def test_decode_split_boundaries(cuda, dtype, tol, d, hkv, g):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("d,hkv,g", [(128, 8, 2), (256, 1, 8)])
+def test_decode_split_pass_alone(cuda, dtype, tol, d, hkv, g):
+    """B3's split pass without its combine (a sequence-parallel cache
+    shard's partials): the live splits' m, l and acc equal
+    ``split_partials``', a shard with no valid row (length 0) included,
+    and ``combine_partials`` of them is the attention."""
+    rnd = _rand(cuda, dtype, seed=d + hkv)
+    q, k, v = rnd(5, hkv * g, d), rnd(5, 300, hkv, d), rnd(5, 300, hkv, d)
+    lens = _i32(cuda, [0, 1, 128, 129, 300])
+    got = dops.decode_attention_partials_cuda(q, k, v, lens)
+    want = dref.split_partials(q, k, v, lens, dops.SPLIT_KEYS)
+    live = torch.arange(3, device=cuda)[None] < \
+        (-(-lens.long() // dops.SPLIT_KEYS))[:, None]          # [B, ns]
+    for a, b in zip(got, want):
+        sel = live[:, None].expand(a.shape[:3])
+        _close(a[sel], b[sel], tol)
+    keep = lens > 0
+    _close(dref.combine_partials(*got, lens, 300, dops.SPLIT_KEYS,
+                                 dtype)[keep],
+           dref.decode_attention_ref(q, k, v, lens)[keep], tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
 def test_decode_kernel_d256_wrapped_ring(cuda, dtype, tol):
     """B3 at paligemma's head shape (8 query heads over 1 KV head, D 256)
     on ring caches built as the model builds them (``build_ring_cache``)
