@@ -26,7 +26,9 @@ Phases:
      step's time breakdown and one 333-token prefill pass's (B2's share),
      and (d) the serve launcher as a user runs it (``launch.serve.main``:
      4 prompts of 32 tokens, 16 new), its first sequence equal to the
-     engine's on the same seed's weights and prompts;
+     engine's on the same seed's weights and prompts; phases 4-9 and 12
+     run llama32-3b at full width on the first LLAMA_DEPTH (8) of its 28
+     layers, phase 3's weights cut, to keep the run inside its limit;
   4. the kernel path against the plain path on the whole model, beside a
      yardstick: the plain path with f64 attention against the plain path;
   5. the explicit tensor-parallel engine at t = 4 virtual ranks, full
@@ -56,7 +58,7 @@ Phases:
      transfers equal the send rows of commodel.pp_comm_ops /
      hybrid_comm_ops and each stage's comm log
      hybrid_stage_collectives; (c) PPBackend through the Scheduler over
-     the trace ((1, 4) contiguous at inflight 1 and 4, (2, 2) paged at
+     the trace's first 5 requests ((1, 4) contiguous at inflight 1 and 4, (2, 2) paged at
      inflight 2, (2, 2) contiguous int8), every logit finite, the
      schedule clock of a one-wave trace equal to pp_schedule_stats, f32
      streams at L = 4 equal across depths and to the single device;
@@ -76,7 +78,7 @@ Phases:
      hybrid_stage_collectives(c=2) and the transfers the send rows;
      (d) the launch formulas (L·t·c B2 a CP pass, c + 1 B1) and no
      plain attention on the card; (e) the three CP backends through the
-     Scheduler over the trace ((2, 2) paged), streams against the c = 1
+     Scheduler over the trace's first 5 requests ((2, 2) paged), streams against the c = 1
      backend's, tokens/s; (f) one 2048-token prefill at t = 1, c = 1, 2,
      4: host wall, device busy, B2 and the ring copies beside
      slo.predict_slo's TTFT;
@@ -153,7 +155,7 @@ Phases:
      B2 forward; each backward the plain version's gradient) against the
      plain path's, remat "full" and "dots" against none, the fused loss
      against the dense one, every leaf within GRAD_BOUND of its largest
-     value; (b) bf16 at full depth: the loss and each leaf's cosine and
+     value; (b) bf16 at LLAMA_DEPTH: the loss and each leaf's cosine and
      relative norm error against the plain path, beside the yardstick;
      (c) 8 AdamW steps on one batch, the loss falling, every value
      finite; (d) every pass's launches equal their formula, none in the
@@ -177,9 +179,14 @@ Phases:
      (a) ``launch.dryrun.run_one`` at full width on meta tensors over a
      fake process group of 256 ranks, granite-8b prefill_32k and
      internlm2-1.8b decode_32k on (data, model) = (16, 16) (8 KV heads on
-     16: K/V gathered, and the sequence-parallel decode), each record's
-     collectives equal to ``step_comm.closed_form`` and its roofline row
-     printed; (b) on the card, an NCCL group of one rank (a ``HashStore``,
+     16: K/V gathered, and the sequence-parallel decode), deepseek-moe-16b
+     decode_32k (the experts on the expert axis, their counts gathered
+     over "data"), rwkv6-7b prefill_32k (the time mix and the channel
+     mix's reduce-scatter and all-gather) and hymba-1.5b decode_32k (10
+     attention heads over 5 KV heads on 16: the sequence-parallel decode
+     on its 1024-row ring, the mamba branch's gathered xz), each record's
+     collectives equal to ``step_comm.closed_form``, its seconds and its
+     roofline row printed; (b) on the card, an NCCL group of one rank (a ``HashStore``,
      no network) and a (1, 1) ``DeviceMesh``: llama32-3b at full width in
      bf16 from seed 0, the 333-token prefill and 16 decode steps through
      the sharded ``make_serve_step`` (DTensor parameters and cache, the
@@ -192,6 +199,13 @@ Phases:
      (a)'s internlm2-1.8b shard (8 sequences, 2048 rows, 8 KV heads, 16
      query heads, D 128) in bf16 and f32: the live splits' f32 partials
      against ``split_partials`` (f32 tolerance), ranks' lengths 0 to 2048;
+     (d) as (b), the moe, ssm and hybrid families at full width in bf16
+     from seed 0 (rwkv6-7b, deepseek-moe-16b, hymba-1.5b, one after
+     another), 2 prompts of 64 tokens prefilled and 8 decode steps through
+     the sharded ``make_serve_step``: logits and tokens bitwise equal to
+     the unsharded kernel path, the launches of both runs the unsharded
+     formula (ssm L B10 a pass, moe the dense counts, hybrid 2L more B1),
+     and no collective over more than one device;
  15. one JSON line with the kernel table, then the ok line.
 
 It imports nothing of JAX, exits non-zero with no ok line when there is no
@@ -237,16 +251,29 @@ TOLERANCE = {
 }
 
 
+# phases 4-9 and 12 run llama32-3b at full width on the first LLAMA_DEPTH
+# of its 28 layers (phase 3's weights, cut): a cut of depth, not of any
+# check, that keeps the whole run near half of its 1200 s limit
+LLAMA_DEPTH = 8
 # the steps of the roofline phase (13), and what the breakdowns of phases
 # 3, 10 and 12 measured of them: {step: (host wall ms, device busy ms)}
 ROOFLINE_STEPS = ("llama32-3b decode, 4 slots", "llama32-3b prefill, 333",
                   "deepseek-moe-16b decode, 4 slots",
-                  "llama32-3b train, B=2 S=512")
+                  f"llama32-3b L={LLAMA_DEPTH} train, B=2 S=512")
 MEASURED = {}
+T_START = time.perf_counter()
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def progress(line: str) -> None:
+    """``line`` logged, and echoed to stderr with the run's seconds so far
+    (the end of stderr then names the last phase reached)."""
+    log(line)
+    print(f"{line} (at {time.perf_counter() - T_START:.1f} s)",
+          file=sys.stderr, flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -1299,12 +1326,25 @@ LOGIT_MATCH_FLOOR = 0.90      # teacher-forced top-1 match, kernel vs plain
 LOGIT_DRIFT_CEILING = 0.5     # max |logit difference|, kernel vs plain
 # bf16: the plain path rounds the scores and the probabilities to bf16
 # (as the JAX package does) where the kernels keep them in f32, and the
-# difference compounds over 28 layers; logits have unit scale here.
+# difference compounds over the layers; logits have unit scale here.
 # Where a model misses the floor or the ceiling for a reason the yardstick
 # of its family shows (a more exact plain path moves it as far), the
 # kernel path is held to land no further from the plain path than that
 # yardstick does, within this margin in top-1 match and in max drift.
 YARDSTICK_MARGIN = 0.05
+
+
+def llama_config():
+    """llama32-3b at full width, cut to LLAMA_DEPTH layers."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(ARCH), num_layers=LLAMA_DEPTH)
+
+
+def cut_depth(params, depth: int = LLAMA_DEPTH):
+    """``params`` on their first ``depth`` layers (copies of the blocks;
+    the embedding, head and final norm shared)."""
+    return {**params, "blocks": {k: v[:depth].clone()
+                                 for k, v in params["blocks"].items()}}
 
 
 def smoke_trace(cfg):
@@ -1487,7 +1527,7 @@ def serving_phase(dev, smi):
     MEASURED[ROOFLINE_STEPS[1]] = prefill_breakdown(
         dev, get_model(cfg), params, smi)[:2]
     serve_launcher_run(dev, cfg, params, totals)
-    return params, totals, reports["contiguous"]
+    return params, totals
 
 
 SERVE_ARGV = ["--arch", ARCH, "--batch", "4", "--prompt-len", "32",
@@ -1808,11 +1848,10 @@ def gqa_attention_exact(q, k, v, mask):
 def model_compare_phase(dev, params):
     """Returns (prompt, the kernel path's contiguous teacher-forced
     logits), which the TP phase holds its engine to."""
-    from repro_torch.configs import get_config
     from repro_torch.models.transformer import get_model
     from repro_torch.runtime.engine import InferenceEngine
 
-    cfg = get_config(ARCH)
+    cfg = llama_config()
     prompt = torch.randint(2, cfg.vocab_size, (1, FORCED),
                            generator=torch.Generator().manual_seed(2)).to(dev)
     ref = teacher_forced(get_model(cfg, plain=True), params, prompt, False)
@@ -1864,7 +1903,10 @@ QUANT_MODES = ("int8", "fp8", "int4")
 # Quantized TP against unquantized TP at full width (phase 5c).
 # QUANT_TOLERANCE is the JAX package's contract, calibrated on reduced
 # configs.  At the full width of llama32-3b (bf16, t = 4, 28 layers,
-# random weights from seed 0, phase 4's 129 teacher-forced positions) a
+# random weights from seed 0, phase 4's 129 teacher-forced positions; at
+# LLAMA_DEPTH = 8 of them the top-1 match / max drift are int8 0.8760 /
+# 0.2617, fp8 0.8915 / 0.3027, int4 0.3101 / 2.6133, each still outside
+# QUANT_TOLERANCE) a
 # mode can miss it while quantized_psum with kernels is bit for bit the
 # plain version (5d, which runs first and raises on any difference): the
 # miss is then the contract's, not the kernels'.  Such a mode is held to
@@ -1873,7 +1915,7 @@ QUANT_MODES = ("int8", "fp8", "int4")
 # stays as the JAX package has it (ROADMAP C6).  A mode not listed is
 # held to QUANT_TOLERANCE.
 FULL_WIDTH_QUANT_LIMITS = {
-    # mode: measured (top-1 match, max drift) -> (floor, ceiling)
+    # mode: measured at 28 layers (top-1 match, max drift) -> (floor, ceiling)
     "int8": dict(measured=(0.8372, 0.3516), floor=0.80, ceiling=0.50),
     "fp8": dict(measured=(0.7984, 0.4453), floor=0.75, ceiling=0.65),
     "int4": dict(measured=(0.1550, 3.0010), floor=0.10, ceiling=4.5),
@@ -1890,7 +1932,6 @@ def tp_greedy(model, params, prompts, max_len: int, n: int):
 
 
 def tp_phase(dev, smi, params, prompt, kernel_rows):
-    from repro_torch.configs import get_config
     from repro_torch.core import comm
     from repro_torch.core.commodel import comm_ops_for
     from repro_torch.core.parallel_exec import (TPModel, quantized_psum,
@@ -1903,7 +1944,7 @@ def tp_phase(dev, smi, params, prompt, kernel_rows):
     from repro_torch.runtime.engine import InferenceEngine
     from repro_torch.runtime.scheduler import Scheduler
 
-    cfg = get_config(ARCH)
+    cfg = llama_config()
     L = cfg.num_layers
     totals = {name: 0 for name in _build.LAUNCHES}
 
@@ -2209,6 +2250,9 @@ def rwkv_phase(dev, smi):
 PP_LAYOUTS = ((1, 4), (2, 2))       # (t, p)
 PP_PROMPTS = 4                      # prompts of the smoke trace in (a)
 PP_NEW = 16                         # greedy tokens per prompt in (a)
+# phases 7(c) and 8(e) serve the trace's first 5 requests (4 slots: one
+# is refilled), not all 8, to keep the smoke inside its time limit
+SERVE_REQUESTS = 5
 # (c): (t, p, inflight, paged, quant) over the smoke trace, 4 slots
 PP_SERVE = ((1, 4, 1, False, None), (1, 4, 4, False, None),
             (2, 2, 2, True, None), (2, 2, 1, False, "int8"))
@@ -2257,7 +2301,6 @@ def pp_check_stage_logs(what, eng, cfg, t, p, passes, quant=None, c=1):
 
 
 def pp_phase(dev, smi, params):
-    from repro_torch.configs import get_config
     from repro_torch.core.commodel import hybrid_comm_ops, pp_comm_ops, \
         pp_schedule_stats
     from repro_torch.core.parallel_exec import PipelineEngine
@@ -2268,7 +2311,7 @@ def pp_phase(dev, smi, params):
     from repro_torch.runtime.request import Request
     from repro_torch.runtime.scheduler import Scheduler
 
-    cfg = get_config(ARCH)
+    cfg = llama_config()
     L = cfg.num_layers
     b = torch_dtype(cfg.dtype).itemsize
     totals = {name: 0 for name in _build.LAUNCHES}
@@ -2338,7 +2381,7 @@ def pp_phase(dev, smi, params):
         what = (f"pp t={t} p={p} inflight={d} "
                 f"{'paged' if paged else 'contiguous'}"
                 f"{' ' + quant if quant else ''}")
-        trace = smoke_trace(cfg)
+        trace = smoke_trace(cfg)[:SERVE_REQUESTS]
         kw = dict(paged=True, page_size=16) if paged else {}
         backend = make_backend("pp", cfg, params, num_slots=4, max_len=1024,
                                t=t, p=p, inflight=d, quant_collectives=quant,
@@ -2575,14 +2618,13 @@ def first_divergence(a, b) -> str:
     return "none" if diff.numel() == 0 else str(int(diff[0]))
 
 
-def cp_phase(dev, smi, params, prompt, kernel_rows, streams_c1):
+def cp_phase(dev, smi, params, prompt, kernel_rows):
     """Phase 8: (b) CP parity against the c = 1 path of the same (t, p),
     the ring bitwise, bf16 teacher-forced within the kernel-path limits,
     f32 greedy tokens at L = 4; (c) the comm logs against the closed
     forms; (d) the launch formulas, no plain attention; (e) the three
     backends through the Scheduler; (f) one 2048-token prefill at
     c = 1, 2, 4."""
-    from repro_torch.configs import get_config
     from repro_torch.core import comm
     from repro_torch.core.commodel import comm_ops_for, cp_comm_ops
     from repro_torch.core.parallel_exec import TPModel, shard_params
@@ -2593,7 +2635,7 @@ def cp_phase(dev, smi, params, prompt, kernel_rows, streams_c1):
     from repro_torch.runtime.backends import make_backend
     from repro_torch.runtime.scheduler import Scheduler
 
-    cfg = get_config(ARCH)
+    cfg = llama_config()
     L = cfg.num_layers
     b = torch_dtype(cfg.dtype).itemsize
     totals = {name: 0 for name in _build.LAUNCHES}
@@ -2724,7 +2766,13 @@ def cp_phase(dev, smi, params, prompt, kernel_rows, streams_c1):
             raise AssertionError("f32 CP greedy tokens differ from c = 1")
         del p32
 
-        # (e) serving through the Scheduler
+        # (e) serving through the Scheduler, beside the single device's
+        # streams over the same requests
+        backend = make_backend("gspmd", cfg, params, num_slots=4,
+                               max_len=1024, device=dev)
+        streams_c1 = Scheduler(backend).run(
+            smoke_trace(cfg)[:SERVE_REQUESTS]).tokens_by_rid()
+        del backend
         for t, c, p, paged in CP_SERVE:
             kind = "pp" if p > 1 else "tp"
             what = (f"cp t={t} c={c} p={p} "
@@ -2735,7 +2783,7 @@ def cp_phase(dev, smi, params, prompt, kernel_rows, streams_c1):
                 runs.append((f"t={t} c=1 paged", dict(c=1), False))
             streams = {}
             for name, ckw, is_cp in runs:
-                trace = smoke_trace(cfg)
+                trace = smoke_trace(cfg)[:SERVE_REQUESTS]
                 backend = make_backend(kind, cfg, params, num_slots=4,
                                        max_len=1024, t=t, p=p, device=dev,
                                        **ckw, **kw)
@@ -2777,10 +2825,10 @@ def cp_phase(dev, smi, params, prompt, kernel_rows, streams_c1):
                 del backend
             ref_streams = streams[runs[1][0]] if paged else streams_c1
             equal = sum(streams[what][r] == ref_streams[r]
-                        for r in ref_streams)
+                        for r in streams[what])
             log(f"[cp serve {what}] streams equal to the c = 1 backend's "
-                f"({'TP t=2 paged' if paged else 'single device, phase 3'}): "
-                f"{equal}/{len(ref_streams)} (bf16)")
+                f"({'TP t=2 paged' if paged else 'single device'}): "
+                f"{equal}/{len(streams[what])} (bf16)")
         if plain_calls:
             raise AssertionError(f"{len(plain_calls)} plain attention calls "
                                  "on the card")
@@ -3207,7 +3255,7 @@ def failure_f32_run(dev, smi, cfg, totals):
 
 
 def recompute_agreement_bf16(dev, smi, cfg, params, totals):
-    """(c): (b)'s preemption trace in bf16 at full depth, measured and not
+    """(c): (b)'s preemption trace in bf16 at LLAMA_DEPTH, measured and not
     held: the share of recompute passes whose token equals the token the
     request decoded step by step."""
     from repro_torch.runtime.backends import make_backend
@@ -3219,7 +3267,7 @@ def recompute_agreement_bf16(dev, smi, cfg, params, totals):
         report = sched.run(fail_trace(cfg))
     require_drained("bf16 recompute", backend)
     agree = sum(sched.agree)
-    log(f"[fail bf16] full depth, optimistic: {report.preemptions} "
+    log(f"[fail bf16] L={cfg.num_layers}, optimistic: {report.preemptions} "
         f"preemptions; recompute token == stream token on {agree}/"
         f"{len(sched.agree)} ({agree / max(len(sched.agree), 1):.3f}; "
         f"measured, not held) ({smi})")
@@ -3293,7 +3341,7 @@ def handoff_timing(dev, smi, cfg, pre, dec, pages):
 
 def disagg_run(dev, smi, cfg, params, cfg32, totals):
     """(d): DisaggScheduler on one card, gspmd pools and TP t = 2 pools.
-    bf16 at full depth: every handoff's bytes equal kv_handoff_ops (the
+    bf16 at LLAMA_DEPTH: every handoff's bytes equal kv_handoff_ops (the
     scheduler raises otherwise), the handoff timed per page, the
     cross-pool first-token agreement measured; f32 at L = 4 end to end
     with the scheduler's cross-pool identity check, streams against the
@@ -3353,10 +3401,9 @@ def failure_phase(dev, smi, params):
     """Phase 9 (A8, A9) at the full width of llama32-3b: (a) the prefix
     cache, (b) failure semantics in f32 at L = 4, (c) bf16 recompute
     agreement, (d) disaggregated pools."""
-    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
 
-    cfg = get_config(ARCH)
+    cfg = llama_config()
     totals = {name: 0 for name in _build.LAUNCHES}
     t_phase = time.perf_counter()
     prefix_cache_run(dev, smi, cfg, params, totals)
@@ -3502,8 +3549,8 @@ class DropLog:
     def __enter__(self):
         plan = self.orig = self.lib.dispatch_plan
 
-        def logged(top_i, num_experts, cap):
-            out = plan(top_i, num_experts, cap)
+        def logged(top_i, num_experts, cap, *rest):
+            out = plan(top_i, num_experts, cap, *rest)
             self.calls.append((top_i.shape[0], (~out[3]).sum()))
             return out
         self.lib.dispatch_plan = logged
@@ -4231,9 +4278,9 @@ TRAIN_LR = (1e-3, 2)           # (c): cosine_schedule(peak, warmup, steps)
 # backward is the plain versions' gradient)
 GRAD_BOUND = 1e-3
 GRAD_COS_FLOOR = 0.99          # (b): the worst bf16 leaf's cosine
-# (e): 7.2 GB of bf16 parameters, 7.2 of gradients, 28.9 of f32 moments
-# and ~5 of activations at B = 2, S = 512
-TRAIN_MEMORY_GB = 48
+# (e): at LLAMA_DEPTH, 3.2 GB of bf16 parameters, 3.2 of gradients, 12.8
+# of f32 moments and ~1.5 of activations at B = 2, S = 512
+TRAIN_MEMORY_GB = 21
 # (g): (arch, B, S) at L = 2 in f32; hymba's 1100 tokens pass its window
 # of 1024, paligemma's S text tokens follow its 256 prefix positions
 TRAIN_FAMILIES = (("rwkv6-7b", 2, 512), ("deepseek-moe-16b", 2, 512),
@@ -4425,7 +4472,7 @@ def train_bf16_compare(dev, cfg, params, batch, totals):
     norm error; the worst leaf's cosine held to GRAD_COS_FLOOR, or within
     YARDSTICK_MARGIN of the yardstick's."""
     p_loss, plain = loss_grads(cfg, params, batch, plain=True)
-    k_loss, kern = counted("bf16 full depth kernel path",
+    k_loss, kern = counted(f"bf16 L={cfg.num_layers} kernel path",
                            train_launches(cfg), totals,
                            lambda: loss_grads(cfg, params, batch))
     k_cos = grad_agreement(kern, plain)
@@ -4656,13 +4703,12 @@ def train_phase(dev, smi, params):
     """Phase 12: the training path, (a)–(f) on llama32-3b (``params``,
     trained in place by (c); no later phase reads them), (g) the other
     families."""
-    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.models.transformer import get_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config(ARCH)
+    cfg = llama_config()
     totals = {name: 0 for name in _build.LAUNCHES}
     times = []
     t_phase = t0 = time.perf_counter()
@@ -4748,8 +4794,7 @@ def step_walks():
                                      torch.empty(1, S, **meta), 1024)
         return cfg, ShapeConfig(f"prefill{S}", S, 1, "prefill"), walk
 
-    def train_step(arch, B, S):
-        cfg = get_config(arch)
+    def train_step(cfg, B, S):
         model = get_model(cfg, plain=True)
 
         def walk():
@@ -4763,7 +4808,7 @@ def step_walks():
     return dict(zip(ROOFLINE_STEPS, (
         decode(ARCH, 130 + 8 + 4), prefill(ARCH, 333),
         decode("deepseek-moe-16b", 130 + FAMILY_STEPS + FAMILY_STEPS // 2),
-        train_step(ARCH, TRAIN_B, TRAIN_S))))
+        train_step(llama_config(), TRAIN_B, TRAIN_S))))
 
 
 def roofline_phase(smi):
@@ -4866,8 +4911,14 @@ FUSES = {
 # ---------------------------------------------------------------------------
 
 SHARDED_DRYRUNS = (("granite-8b", "prefill_32k"),
-                   ("internlm2-1.8b", "decode_32k"))
+                   ("internlm2-1.8b", "decode_32k"),
+                   ("deepseek-moe-16b", "decode_32k"),
+                   ("rwkv6-7b", "prefill_32k"),
+                   ("hymba-1.5b", "decode_32k"))
 SHARDED_PROMPT, SHARDED_NEW = 333, 16
+# (d): the moe, ssm and hybrid families on the (1, 1) mesh
+SHARDED_FAMILIES = ("rwkv6-7b", "deepseek-moe-16b", "hymba-1.5b")
+SHARDED_FAMILY_PROMPTS, SHARDED_FAMILY_NEW = (2, 64), 8
 
 
 class HeadLogits:
@@ -4998,11 +5049,95 @@ def sharded_phase(dev, smi):
                                  f"a (1, 1) mesh: {wide}")
         del params, placed
         torch.cuda.empty_cache()
+        for arch in SHARDED_FAMILIES:
+            sharded_family_run(dev, smi, arch, dmesh, totals)
     finally:
         dist.destroy_process_group()
     split_pass_check(dev)
     log(f"[sharded] phase 14 in {time.perf_counter() - t_phase:.1f} s")
     return totals
+
+
+def sharded_family_run(dev, smi, arch: str, dmesh, totals):
+    """Phase 14(d) (module doc): one family at full width on the (1, 1)
+    mesh against its unsharded kernel path."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import step_comm
+    from repro_torch.launch import specs as sp
+    from repro_torch.models.transformer import get_model, greedy_tokens
+    from repro_torch.runtime import meshctx
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.runtime.engine import make_serve_step
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config(arch)
+    L = cfg.num_layers
+    model = get_model(cfg)
+    params = model.init(seed=0, device=dev)
+    prompt = torch.randint(2, cfg.vocab_size, SHARDED_FAMILY_PROMPTS,
+                           generator=torch.Generator().manual_seed(14)
+                           ).to(dev)
+    max_len = SHARDED_FAMILY_PROMPTS[1] + SHARDED_FAMILY_NEW + 1
+
+    def generate(p):
+        lg, cache, pos = model.prefill(p, prompt, max_len)
+        tok = greedy_tokens(lg)
+        toks, step = [tok], make_serve_step(model)
+        for i in range(SHARDED_FAMILY_NEW):
+            tok, cache = step(p, cache, tok, pos + i)
+            toks.append(tok)
+        return [t.to_local() if hasattr(t, "to_local") else t
+                for t in toks]
+
+    passes = SHARDED_FAMILY_NEW + 1
+    if cfg.family == "ssm":
+        expect = dict(passes=passes, flash=0, decode=0, paged=0,
+                      scan=passes)
+    else:
+        expect = dict(passes=passes, flash=1, decode=SHARDED_FAMILY_NEW,
+                      paged=0, branch=2 if cfg.family == "hybrid" else 0)
+    kept = HeadLogits(model)
+    t1 = time.perf_counter()
+    want = drive_counted(f"{arch} unsharded", lambda: generate(params),
+                         totals, L, **expect)
+    wall_plain = time.perf_counter() - t1
+    want_logits = kept.restore()
+    _, pspecs = sp.param_sds(cfg, sh.mesh_shape(dmesh))
+    placed = sh.distribute(params, pspecs, dmesh)
+    meshctx.set_device_mesh(dmesh)
+    try:
+        kept = HeadLogits(model)
+        t1 = time.perf_counter()
+        got, log_ = drive_counted(
+            f"{arch} sharded", lambda: step_comm.record(generate, placed),
+            totals, L, grad_mode=torch.no_grad, **expect)
+        wall = time.perf_counter() - t1
+        got_logits = kept.restore()
+    finally:
+        meshctx.set_device_mesh(None)
+    same_tokens = all(torch.equal(a, b) for a, b in zip(got, want))
+    same_logits = len(got_logits) == len(want_logits) and all(
+        torch.equal(a, b) for a, b in zip(got_logits, want_logits))
+    named = sorted({(c.kind, c.group_size) for c in log_})
+    log(f"[sharded] {arch} bf16 on a (1, 1) DeviceMesh over NCCL: "
+        f"{SHARDED_FAMILY_PROMPTS[0]} prompts of "
+        f"{SHARDED_FAMILY_PROMPTS[1]} + {SHARDED_FAMILY_NEW} decode steps "
+        f"in {wall:.3f} s host wall (unsharded {wall_plain:.3f} s); tokens "
+        f"bitwise == unsharded: {same_tokens}, logits "
+        f"({len(got_logits)} rows) bitwise: {same_logits}; collectives "
+        f"read off the step (kind, group size): {named or 'none'}; peak "
+        f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
+        f"GiB; {time.perf_counter() - t0:.1f} s with init ({smi})")
+    if not (same_tokens and same_logits):
+        raise AssertionError(f"{arch}: sharded step != unsharded kernel "
+                             f"path")
+    wide = [c for c in log_ if c.group_size > 1]
+    if wide:
+        raise AssertionError(f"{arch}: collectives over more than one "
+                             f"device on a (1, 1) mesh: {wide}")
+    del params, placed
+    torch.cuda.empty_cache()
 
 
 def split_pass_check(dev):
@@ -5033,6 +5168,14 @@ def split_pass_check(dev):
             compare(f"B3 split pass alone {name} kv[{b},{rows},{Hkv},{D}] "
                     f"{dname}", a[sel], w[sel], "float32")
         del q, k, v, got, want
+
+
+def timed(phase, *args):
+    """``phase(*args)``, its seconds logged."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    progress(f"[phase] {phase.__name__} in {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main(argv=None) -> int:
@@ -5075,28 +5218,27 @@ def main(argv=None) -> int:
     encoder_vlm_kernel_rows(dev, args.iters, rows, times)
     if args.kernels_only:
         return 0
-    params, launches, streams = serving_phase(dev, smi)
-    prompt, kernel_rows = model_compare_phase(dev, params)
-    for name, n in tp_phase(dev, smi, params, prompt, kernel_rows).items():
-        launches[name] += n
-    for name, n in pp_phase(dev, smi, params).items():
-        launches[name] += n
-    for name, n in cp_phase(dev, smi, params, prompt, kernel_rows,
-                            streams).items():
-        launches[name] += n
-    for name, n in failure_phase(dev, smi, params).items():
-        launches[name] += n
-    for name, n in train_phase(dev, smi, params).items():
-        launches[name] += n
-    del params, prompt, kernel_rows
-    for name, n in rwkv_phase(dev, smi).items():
-        launches[name] += n
-    for name, n in families_phase(dev, smi, rows).items():
-        launches[name] += n
-    for name, n in encoder_vlm_phase(dev, smi).items():
-        launches[name] += n
-    roofline_phase(smi)
-    for name, n in sharded_phase(dev, smi).items():
+    progress(f"[phase] 1-2 in {time.perf_counter() - t_start:.1f} s")
+    params, launches = timed(serving_phase, dev, smi)
+    params = cut_depth(params)
+    prompt, kernel_rows = timed(model_compare_phase, dev, params)
+    counted = [
+        (tp_phase, (dev, smi, params, prompt, kernel_rows)),
+        (pp_phase, (dev, smi, params)),
+        (cp_phase, (dev, smi, params, prompt, kernel_rows)),
+        (failure_phase, (dev, smi, params)),
+        (train_phase, (dev, smi, params))]
+    for phase, phase_args in counted:
+        for name, n in timed(phase, *phase_args).items():
+            launches[name] += n
+    del params, prompt, kernel_rows, counted, phase_args
+    for phase, phase_args in ((rwkv_phase, (dev, smi)),
+                              (families_phase, (dev, smi, rows)),
+                              (encoder_vlm_phase, (dev, smi))):
+        for name, n in timed(phase, *phase_args).items():
+            launches[name] += n
+    timed(roofline_phase, smi)
+    for name, n in timed(sharded_phase, dev, smi).items():
         launches[name] += n
 
     table = []

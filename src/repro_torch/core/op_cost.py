@@ -54,7 +54,13 @@ gives it (a meta tensor carries no positions), else the whole ring or
 every page of the block table.  The dots of an attention site are the
 plain version's, every (query, key) pair of the ring or the sequence, as
 JAX's plain path computes them; the kernels skip the tiles their mask
-hides.
+hides.  B10's plain version loops over the sequence one token at a time:
+on meta tensors its site runs the first token alone and counts its work,
+and its backward's, S times (the loop's trip count, as ``hlo_cost``
+expands a while loop; ``_Walk._loop``), so a 32k-token pass costs no 32k
+Python iterations a layer; each step's eager bytes are then the first
+step's.  hymba's selective scan is no kernel site: it runs token by
+token here, as on the card.
 
 A sharded step (DTensors on a ``DeviceMesh``, ``runtime.sharding``) is
 walked per chip: a DTensor op is left to DTensor's dispatch (the walk
@@ -369,6 +375,62 @@ class _Walk(TorchDispatchMode):
             return kernel(*args)
         return site
 
+    @contextlib.contextmanager
+    def _scaled(self, n: int):
+        """Counts the FLOPs and eager bytes of the ops inside n times (one
+        step of a loop of n identical steps: its trip count, as
+        ``hlo_cost`` expands a while loop)."""
+        flops, nbytes = self.cost.flops, self.cost.bytes
+        rows = {k: list(v) for k, v in self.cost.ops.items()}
+        yield
+        self.cost.flops = flops + n * (self.cost.flops - flops)
+        self.cost.bytes = nbytes + n * (self.cost.bytes - nbytes)
+        for k, row in self.cost.ops.items():
+            was = rows.get(k, [0, 0.0, 0.0])
+            self.cost.ops[k] = [w + n * (x - w) for w, x in zip(was, row)]
+
+    def _loop(self, plain, steps: int):
+        """``plain`` for a kernel site whose plain version loops over the
+        sequence (B10's per-token WKV recurrence; its first ``steps``
+        arguments are [B, S, ...]).  On meta tensors longer than one step
+        the plain version runs on the first step alone, its work (and its
+        backward's, where autograd records) counted S times: the loop's
+        trip count, without S Python iterations a layer (the kernel runs
+        the sequence in one launch).  The full-length outputs and
+        gradients are the plain version's own meta path's
+        (``rwkv6_scan.ref``), made at their shapes."""
+        walk = self
+
+        def first(args):
+            return [a[:, :1] if i < steps else a for i, a in enumerate(args)]
+
+        class Loop(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, *args):
+                ctx.save_for_backward(*args)
+                with walk._scaled(args[0].shape[1]):
+                    plain(*first(args))
+                return plain(*args)
+
+            @staticmethod
+            def backward(ctx, *grads):
+                args = [a.detach().requires_grad_(a.is_floating_point())
+                        for a in ctx.saved_tensors]
+                one = first(args)
+                with walk._scaled(args[0].shape[1]), torch.enable_grad():
+                    outs = plain(*one)
+                    torch.autograd.grad(
+                        outs, [a for a in one if a.requires_grad],
+                        [grads[0][:, :1], grads[1]], allow_unused=True)
+                return tuple(torch.empty(a.shape, dtype=a.dtype,
+                                         device="meta") for a in args)
+
+        def loop(*args):
+            if args[0].device.type != "meta" or args[0].shape[1] == 1:
+                return plain(*args)
+            return Loop.apply(*args)
+        return loop
+
     def _io(self, name):
         """A site that reads its tensor arguments and writes its outputs,
         each once."""
@@ -449,7 +511,8 @@ class _Walk(TorchDispatchMode):
                 blocks.paged_attention_plain, self._paged_attention)),
             (blocks, "gqa_attention", self._site(
                 blocks.gqa_attention, self._full_attention)),
-            (ssm, "wkv6_ref", self._site(ssm.wkv6_ref, self._io("wkv6"))),
+            (ssm, "wkv6_ref", self._site(self._loop(ssm.wkv6_ref, 4),
+                                         self._io("wkv6"))),
             (parallel_exec, "_PLAIN_OPS", quant),
         )
 

@@ -139,7 +139,7 @@ def trivial(colls: Iterable[HLOCollective]) -> List[HLOCollective]:
 
 
 # ---------------------------------------------------------------------------
-# the closed forms a sharded step of the dense-block families is held to
+# the closed forms a sharded step is held to
 # ---------------------------------------------------------------------------
 
 
@@ -159,103 +159,175 @@ def _add(out, kind, n, msg):
         row["msg_bytes"] += n * msg
 
 
+def _attention_heads(cfg) -> int:
+    """The query heads of a layer's attention (hymba's n_attn of its
+    heads; the config's elsewhere)."""
+    if cfg.family != "hybrid":
+        return cfg.num_heads
+    from repro_torch.models.hybrid import head_split
+    return head_split(cfg)[0]
+
+
 def closed_form(cfg, mode: str, mesh_shape: dict, B: int, S: int,
                 cache_width: int = None, param_bytes=None,
                 remat: str = "none") -> Dict[str, dict]:
-    """{kind: {count, msg_bytes}} of one sharded step of a dense, encoder
-    or vlm config on a mesh of ``mesh_shape`` ({axis: size}), B the global
-    batch and S the sequence (the vlm's prefix included; 1 a decode
-    step's token).  m is the "model" axis, b = B / dp, e the type's bytes,
-    L the layers; a collective over one device is none.
+    """{kind: {count, msg_bytes}} of one sharded step of ``cfg`` on a mesh
+    of ``mesh_shape`` ({axis: size}), B the global batch and S the
+    sequence (the vlm's prefix included; 1 a decode step's token).  m is
+    the "model" axis, dp the batch axes' devices, b = B / dp, e the type's
+    bytes, L the layers, row = [b, S, h]·e; a collective over one device
+    is none, and one over the batch axes runs only where the batch is
+    split over them.
 
-      * "prefill" (and a forward): 2L + 1 all-reduces of [b, S, h]·e (the
-        embedding's and each row-parallel output's; 2L for the encoder,
-        which has no embedding; the vlm's embedding all-reduces its text
-        tokens, [b, S - P, h]·e, before the P prefix embeddings join);
-        where the KV heads do not divide m, 2L all-gathers of K and V,
-        [b, S, Hkv·D]·e, and where the query heads do not either, L more
-        of q, [b, S, Hq·D]·e.  No logits gather.
+      * "prefill" (and a forward): the embedding's all-reduce of row (none
+        for the encoder; the vlm's over its text tokens, [b, S - P, h]·e,
+        before the P prefix embeddings join), then per layer:
+        - dense, encoder, vlm: 2 all-reduces of row (the attention's and
+          the MLP's row-parallel outputs, each at the norm after it);
+        - moe: the same 2, and the experts' counts all-gathered over the
+          batch axes, [dp·E] int32 (the capacity cut is global);
+        - ssm: 1 all-reduce of row (the time mix), and the channel mix's
+          reduce-scatter of its value ([b, S, h/m]·e) and all-gather of
+          its output (row);
+        - hybrid: 2 all-reduces of row (the attention branch before its
+          norm, the MLP) and, where d_inner divides m, 1 more (the mamba
+          branch) and B and C side by side, [b, S, 2N]·e; where in_proj
+          divides m, the all-gather of xz, [b, S, 2·di]·e;
+        - the attention (not ssm): where the KV heads do not divide m, 2
+          all-gathers of K and V, [b, S, Hkv·D]·e, and where the query
+          heads (Hq: hymba's n_attn) do not either, 1 more of q,
+          [b, S, Hq·D]·e.  No logits gather.
       * "decode": the same at S = 1; the argmax's two all-gathers over
         "model" ([b, m] of the logits' type and of int32); on a
         sequence-parallel cache (``blocks.kv_layout`` "seq") each layer's
         q, k and v all-gathers and the partial softmax's MAX ([b, Hq] f32)
         and SUM ([b, Hq, D + 1] f32) all-reduces; on a replicated one the
         three all-gathers.
-      * "train": the forward's collectives; the cross-entropy's three
-        all-reduces over "model" ([b, S'] f32, S' the positions with a
-        target) and its scalar over the batch axes; the backward's
-        all-reduce of each column-parallel input's gradient (q, k, v and
-        the MLP's up projections a layer, and the head), [b, S, h]·e, and
-        a reduce-scatter of each forward all-gather's gradient; one
-        all-reduce over the batch axes of each parameter's local gradient
-        (``param_bytes``: its local bytes; the tied embedding twice, once
-        a use) and one scalar all-reduce over "model" of the squared norm
-        of each parameter split over it (``param_bytes``'s keys ending in
-        ":model").  Under ``remat`` ("full" or "dots") the backward
-        recomputes each layer, and with it the layer's forward
-        collectives: 2L - 1 more all-reduces of [b, S, h]·e (layer 0's
-        input arrives reduced) and the gathers again."""
+      * "train": the forward's collectives, and the MoE layer's sum of the
+        router's probabilities over the batch axes ([E] f32, the aux
+        loss's mean); the cross-entropy's three all-reduces over "model"
+        ([b, S'] f32, S' the positions with a target) and its scalar over
+        the batch axes; the backward's all-reduce of each
+        column-parallel input's gradient: per layer q, k, v and the MLP's
+        up projections (dense, hybrid), q, k, v, the experts' tokens (row)
+        and routing weights ([b·S, K] f32) (moe), the time mix's four
+        mixes (row) and its decay LoRA's [b, S, 64]·e and the channel
+        mix's two (ssm), hymba's xn where in_proj divides m; and the
+        head's; a reduce-scatter of each forward all-gather's gradient
+        whose users are split (the attention's, hymba's xz where d_inner
+        divides m: [b, S, 2·di/m]·e) and an all-gather of each
+        reduce-scatter's (ssm: row); hymba's B and C again (their users
+        are split); the ssm layer's replicated wb, w0 and ln_x, read in
+        column blocks, all-reduce their gradients over "model" ([64, h]·e,
+        [h]·4, [h]·e); one all-reduce over the batch axes of each
+        parameter's local gradient (``param_bytes``: its local bytes; the
+        tied embedding twice, once a use) and one scalar all-reduce over
+        "model" of the squared norm of each parameter split over it
+        (``param_bytes``' keys ending in ":model").  Under ``remat``
+        ("full" or "dots") the backward recomputes each layer, and with
+        it the layer's forward collectives but layer 0's input, which
+        arrives reduced."""
     m = mesh_shape.get("model", 1)
     dp = 1
     for a in ("pod", "data"):
         dp *= mesh_shape.get(a, 1)
     b = _rows(mesh_shape, B)
-    batch_split = b != B or dp == 1
-    L, h, D = cfg.num_layers, cfg.d_model, cfg.head_dim
-    Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
+    batch = dp > 1 and b != B
+    fam = cfg.family
+    L, h, D, N = cfg.num_layers, cfg.d_model, cfg.head_dim, 0
+    Hq, Hkv = _attention_heads(cfg), cfg.num_kv_heads
     e = 4 if cfg.dtype == "float32" else 2
+    decode = mode == "decode"
+    S_ = 1 if decode else S
+    row = b * S_ * h * e
+    if fam == "hybrid":
+        from repro_torch.models.hybrid import head_split
+        di, N = head_split(cfg)[1] * D, cfg.ssm.state_size
+        in_split, di_split = (2 * di) % m == 0, di % m == 0
     out: Dict[str, dict] = {}
-    if m == 1 and (mode != "train" or dp == 1):
+    if m == 1 and not batch:
         return out
-    embed = 0 if cfg.family == "encoder" else 1
-    S_ = 1 if mode == "decode" else S
-    kv_split = (Hkv * D) % m == 0
-    if m > 1:
-        _add(out, "allreduce", 2 * L, b * S_ * h * e)
-        prefix = cfg.num_prefix_tokens if (cfg.family == "vlm"
-                                           and mode != "decode") else 0
-        _add(out, "allreduce", embed, b * (S_ - prefix) * h * e)
-    if mode == "decode":
-        if m > 1:
-            _add(out, "allgather", 1, b * m * e)
-            _add(out, "allgather", 1, b * m * 4)
-        layout = ("heads" if Hkv % m == 0 else
+    M = 1 if m > 1 else 0          # a collective over "model" runs
+    # one layer's forward, and whether its output is a partial sum (the
+    # next norm site all-reduces it)
+    layer: List[tuple] = []        # (kind, message bytes) a layer
+    partial_out = fam != "ssm"
+    if fam == "ssm":
+        layer += [("allreduce", row)] * M
+        layer += [("reducescatter", row // m)] * M
+        layer += [("allgather", row)] * M
+    else:
+        layer += [("allreduce", row)] * M     # the attention's output
+    if fam == "moe" and batch:
+        layer.append(("allgather", dp * cfg.moe.num_experts * 4))
+        if mode == "train":
+            layer.append(("allreduce", cfg.moe.num_experts * 4))
+    if fam == "hybrid" and m > 1:
+        if di_split:
+            layer.append(("allreduce", row))      # the mamba branch
+            layer.append(("allreduce", b * S_ * 2 * N * e))
+        if in_split:
+            layer.append(("allgather", b * S_ * 2 * di * e))
+    gathers = []            # the attention's forward all-gathers' widths
+    if fam != "ssm" and m > 1:
+        kv_split = (Hkv * D) % m == 0
+        layout = ("heads" if Hkv % m == 0 else "gather" if not decode else
                   "seq" if cache_width % m == 0 else "replicated")
-        if layout != "heads":
-            _add(out, "allgather", L, b * Hq * D * e)
-            if kv_split:
-                _add(out, "allgather", 2 * L, b * Hkv * D * e)
+        if decode and layout != "heads":
+            gathers = [Hq * D] + ([Hkv * D] * 2 if kv_split else [])
+        elif layout != "heads":
+            gathers = ([Hkv * D] * 2 if kv_split else []) + \
+                ([Hq * D] if Hq % m else [])
+        for width in gathers:
+            layer.append(("allgather", b * S_ * width * e))
         if layout == "seq":
-            _add(out, "allreduce", L, b * Hq * 4)
-            _add(out, "allreduce", L, b * Hq * (D + 1) * 4)
+            layer.append(("allreduce", b * Hq * 4))
+            layer.append(("allreduce", b * Hq * (D + 1) * 4))
+    for kind, nbytes in layer:
+        _add(out, kind, L, nbytes)
+    # the layers' partial outputs: at the next layer's ln1, the last at
+    # the final norm
+    _add(out, "allreduce", L * M if partial_out else 0, row)
+    embed = 0 if fam == "encoder" else M
+    prefix = cfg.num_prefix_tokens if (fam == "vlm" and not decode) else 0
+    _add(out, "allreduce", embed, b * (S_ - prefix) * h * e)
+    if decode:
+        _add(out, "allgather", M, b * m * e)
+        _add(out, "allgather", M, b * m * 4)
         return out
-    gathers = []
-    if m > 1 and Hkv % m:
-        if kv_split:
-            gathers += [Hkv * D] * 2
-        if Hq % m:
-            gathers.append(Hq * D)
-    for width in gathers:
-        _add(out, "allgather", L, b * S * width * e)
     if mode != "train":
         return out
     if m > 1:
-        s_ce = S if cfg.family == "encoder" else (
-            S - cfg.num_prefix_tokens - 1 if cfg.family == "vlm" else S - 1)
+        s_ce = S if fam == "encoder" else (
+            S - cfg.num_prefix_tokens - 1 if fam == "vlm" else S - 1)
         _add(out, "allreduce", 3, b * s_ce * 4)
         ups = 2 if cfg.activation in ("swiglu", "geglu") else 1
-        _add(out, "allreduce", L * (3 + ups) + 1, b * S * h * e)
+        copies = {"ssm": 6, "moe": 4,
+                  "hybrid": 3 + ups + (1 if in_split else 0)
+                  if fam == "hybrid" else 0}.get(fam, 3 + ups)
+        _add(out, "allreduce", L * copies + 1, row)
         for width in gathers:
             _add(out, "reducescatter", L, b * S * width // m * e)
-        if remat != "none":
-            _add(out, "allreduce", 2 * L - 1, b * S * h * e)
-            for width in gathers:
-                _add(out, "allgather", L, b * S * width * e)
-    if dp > 1 and batch_split:
+        if fam == "moe":
+            _add(out, "allreduce", L, b * S * cfg.moe.top_k * 4)
+        if fam == "ssm":
+            from repro_torch.models.ssm import DECAY_LORA
+            _add(out, "allreduce", L, b * S * DECAY_LORA * e)
+            _add(out, "allgather", L, row)
+            for nbytes in (DECAY_LORA * h * e, h * 4, h * e):
+                _add(out, "allreduce", L, nbytes)
+        if fam == "hybrid" and di_split:
+            _add(out, "reducescatter", L, b * S * 2 * di // m * e)
+            _add(out, "allreduce", L, b * S * 2 * N * e)
+    if remat != "none":
+        for kind, nbytes in layer:
+            _add(out, kind, L, nbytes)
+        _add(out, "allreduce", (L - 1) * M if partial_out else 0, row)
+    if batch:
         _add(out, "allreduce", 1, 4)
         for name, nbytes in (param_bytes or {}).items():
             uses = 2 if (name.startswith("embed") and cfg.tie_embeddings
-                         and cfg.family != "encoder") else 1
+                         and fam != "encoder") else 1
             _add(out, "allreduce", uses, nbytes)
     if m > 1:
         sharded = sum(1 for k in (param_bytes or {}) if k.endswith(":model"))

@@ -18,7 +18,12 @@ import torch
 def wkv6_ref(r, k, v, w, u, state):
     """r, k, v, w: [B,S,H,hs]; u: [H,hs]; state: [B,H,hs,hs].
 
-    Returns (y [B,S,H,hs] in r.dtype, final state [B,H,hs,hs] f32)."""
+    Returns (y [B,S,H,hs] in r.dtype, final state [B,H,hs,hs] f32).  On
+    meta tensors (a dry run: shapes, no values) a sequence longer than
+    one step does not run the loop: the outputs, and in the backward the
+    inputs' gradients, are made at their shapes (``_OnMeta``)."""
+    if r.device.type == "meta" and r.shape[1] > 1:
+        return _OnMeta.apply(r, k, v, w, u, state)
     rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
     uf = u.float()[None, :, :, None]
     s = state.float()
@@ -28,6 +33,22 @@ def wkv6_ref(r, k, v, w, u, state):
         ys.append(torch.einsum("bhi,bhij->bhj", rf[:, t], s + uf * kv))
         s = wf[:, t, :, :, None] * s + kv
     return torch.stack(ys, dim=1).to(r.dtype), s
+
+
+class _OnMeta(torch.autograd.Function):
+    """``wkv6_ref``'s outputs and gradients as empty meta tensors of their
+    shapes and types."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        ctx.like = [(t.shape, t.dtype) for t in (r, k, v, w, u, state)]
+        return (torch.empty(r.shape, dtype=r.dtype, device="meta"),
+                torch.empty(state.shape, dtype=torch.float32, device="meta"))
+
+    @staticmethod
+    def backward(ctx, gy, gs):
+        return tuple(torch.empty(shape, dtype=dtype, device="meta")
+                     for shape, dtype in ctx.like)
 
 
 def wkv6_chunk_ref(r, k, v, w, u, state, chunk: int = 16):

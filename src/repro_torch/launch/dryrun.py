@@ -21,10 +21,11 @@ The records have JAX's keys (``memory_analysis``, ``bytes_per_device``,
 ``cost_analysis``, ``collectives``, ``roofline``) plus ``closed_form`` and
 ``collectives_match``.  ``memory_analysis`` is the eager step's:
 arguments and outputs are the rank's local bytes, ``temp_size_in_bytes``
-the walk's peak of live intermediates.  The families the sharded step
-does not run yet (moe, ssm, hybrid) are recorded as ``not_ported``, as
-are variants whose feature the sharded step raises ``NotImplementedError``
-for (the fused loss, paged serving); any other fault is an error.
+the walk's peak of live intermediates.  Every family runs sharded; a
+variant whose feature the sharded step raises ``NotImplementedError``
+for (the fused loss, paged serving, ``moe_dispatch="local"``) is
+recorded as ``not_ported`` with the step's reason; any other fault is an
+error.
 
 Usage (the CPU is enough):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-8b \\
@@ -50,7 +51,6 @@ ASSIGNED_ARCHS = [
     "deepseek-moe-16b", "hymba-1.5b",
 ]
 SHAPES = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
-SHARDED_FAMILIES = ("dense", "encoder", "vlm")
 
 
 def _record_path(arch: str, shape: str, mesh_name: str) -> str:
@@ -133,11 +133,6 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
            "variant": variant, "status": "skip", "skip_reason": reason}
     if reason is not None:
         return rec
-    if cfg.family not in SHARDED_FAMILIES:
-        rec.update(status="not_ported", skip_reason=(
-            f"the sharded step runs the dense, encoder and vlm families; "
-            f"{cfg.family} is the next slice (ROADMAP A13 part 2b)"))
-        return rec
     if variant.startswith("mesh"):
         d, m = variant[4:].split("-")[0].split("x")
         mesh = make_mesh((int(d), int(m)), ("data", "model"))
@@ -153,17 +148,20 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
         fn, args, arg_bytes, alias_bytes = _step(cfg, shape, dmesh, params)
         grad = torch.enable_grad() if shape.mode == "train" \
             else torch.no_grad()
+        t1 = time.time()
         with grad:
             out, log = step_comm.record(fn, *args)
         out_bytes = _nbytes(tree_flatten(out)[0])
         del out
         # the walk runs the step again on fresh inputs (the optimizer
         # state of the first run is spent)
+        t2 = time.time()
         fn, args, _, _ = _step(cfg, shape, dmesh, params)
         with grad:
             cost = op_cost.count(fn, *args,
                                  kv_rows=shape.seq_len
                                  if shape.mode == "decode" else None)
+        t3 = time.time()
     except NotImplementedError as exc:   # a feature the step does not shard
         if variant == "baseline":
             raise
@@ -188,6 +186,9 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
         "status": "ok",
         "n_chips": n_chips,
         "seconds_to_compile": round(time.time() - t0, 1),
+        # the record of the collectives and the op walk, apart (CPU)
+        "seconds_record": round(t2 - t1, 1),
+        "seconds_walk": round(t3 - t2, 1),
         "memory_analysis": mem,
         "bytes_per_device": arg_bytes + int(cost.peak_bytes),
         "cost_analysis": {"flops": cost.flops, "bytes accessed": cost.bytes,
@@ -306,6 +307,7 @@ def main(argv=None):
         print(json.dumps({k: rec[k] for k in
                           ("arch", "shape", "mesh", "status", "n_chips",
                            "bytes_per_device", "seconds_to_compile",
+                           "seconds_record", "seconds_walk",
                            "collectives_match")}))
         print("memory_analysis:", rec["memory_analysis"])
         print("cost_analysis flops:", rec["cost_analysis"].get("flops"))

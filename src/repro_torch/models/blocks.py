@@ -1,5 +1,6 @@
 """Dense (GQA) transformer block of the port, shared by the dense,
-encoder and vlm families.
+encoder and vlm families; its attention (and, on a sharded step, its
+attention and MLP sites) also serve the moe and hybrid blocks.
 
 Counterpart of ``repro.models.blocks``.  Block API, as the trunk in
 ``transformer.py`` calls it per layer:
@@ -39,7 +40,9 @@ Under a ``DeviceMesh`` (``runtime.meshctx``) the block runs sharded
 (``_dense_block_sharded``): the attention with its out-projection and
 the MLP are sites on the local shards (``sharding.local_site``), each
 leaving a partial sum over "model" for the next norm site to all-reduce,
-the branches above dispatching inside as on one device.
+the branches above dispatching inside as on one device.  The attention
+site takes the attention's query head count (hymba's n_attn of its
+heads), and ``close_sharded`` ends a layer of any family.
 """
 from __future__ import annotations
 
@@ -308,10 +311,18 @@ def _dense_block_sharded(cfg, p, x, positions, cache, pos, build_cache_w,
                                       build_cache_w, plain, prefix_len)
     x, xn = layers.add_norm(x, y, p["ln2"], cfg.norm_eps, plain)
     out = _mlp_sharded(p, xn, cfg.activation)
+    return close_sharded(x, out, carry), cache_out
+
+
+def close_sharded(x, out, carry: bool):
+    """A sharded layer's end: the carried pair (out, x), or x + out, out
+    all-reduced over "model" first where it is a partial sum."""
     if carry:
-        return (out, x), cache_out
-    return sh.local_site(lambda x, o: x + sh.reduce_model(o), x.placements,
-                         x, out), cache_out
+        return out, x
+    if sh.is_partial_model(out):
+        return sh.local_site(lambda x, o: x + sh.reduce_model(o),
+                             x.placements, x, out)
+    return sh.local_site(lambda x, o: x + o, x.placements, x, out)
 
 
 def _mlp_sharded(p, xn, activation: str):
@@ -334,10 +345,11 @@ def _mlp_sharded(p, xn, activation: str):
 
 
 def _attention_sharded(cfg, p, xn, positions, cache, pos, build_cache_w,
-                       plain, prefix_len):
+                       plain, prefix_len, num_heads=None):
     """The attention site of a sharded step, the out-projection included
-    -> (y [B, S, h], a partial sum over "model"; the cache).  By
-    ``kv_layout``:
+    -> (y [B, S, h], a partial sum over "model"; the cache).
+    ``num_heads`` is the attention's query head count (the config's by
+    default; hymba's ``n_attn``).  By ``kv_layout``:
 
       * "heads": each rank runs its own query heads against its own KV
         heads (its cache shard), no collective;
@@ -355,6 +367,7 @@ def _attention_sharded(cfg, p, xn, positions, cache, pos, build_cache_w,
     plain versions run inside, as on one device."""
     from torch.distributed.tensor import Shard
     m = sh.axis_size("model")
+    Hq = cfg.num_heads if num_heads is None else num_heads
     width = cache["k"].shape[1] if cache is not None else build_cache_w
     layout = kv_layout(cfg, m, width)
     act = xn.placements
@@ -363,12 +376,13 @@ def _attention_sharded(cfg, p, xn, positions, cache, pos, build_cache_w,
         raise NotImplementedError("a sharded attention needs Hq·D to "
                                   "divide the model axis")
     if layout == "heads":
-        fn = _heads_local(cfg, m, pos, build_cache_w, plain, prefix_len)
+        fn = _heads_local(cfg, m, Hq, pos, build_cache_w, plain,
+                          prefix_len)
     elif cache is None:
-        fn = _gather_local(cfg, m, build_cache_w, layout, plain,
+        fn = _gather_local(cfg, m, Hq, build_cache_w, layout, plain,
                            prefix_len, sh.model_sharded(p["wk"]))
     else:
-        fn = _gather_decode_local(cfg, m, pos, layout, plain,
+        fn = _gather_decode_local(cfg, m, Hq, pos, layout, plain,
                                   sh.model_sharded(p["wk"]))
     y_pl = sh.partial_model(act)
     if cache is not None:
@@ -387,10 +401,10 @@ def _attention_sharded(cfg, p, xn, positions, cache, pos, build_cache_w,
     return y, {"k": ck, "v": cv}
 
 
-def _heads_local(cfg, m, pos, build_cache_w, plain, prefix_len):
+def _heads_local(cfg, m, Hq, pos, build_cache_w, plain, prefix_len):
     """The "heads" layout's local function: ``attention_apply``'s branches
     on the rank's Hq/m query and Hkv/m KV heads."""
-    Hq, Hkv = cfg.num_heads // m, cfg.num_kv_heads // m
+    Hq, Hkv = Hq // m, cfg.num_kv_heads // m
 
     def local(xn, wq, wk, wv, wo, positions, *kv):
         B, S, _ = xn.shape
@@ -407,15 +421,18 @@ def _heads_local(cfg, m, pos, build_cache_w, plain, prefix_len):
     return local
 
 
-def _wo_span(cfg, m: int, cols: int):
+def _wo_span(cfg, Hq: int, cols: int):
     """The rank's columns of the attention output (its wo rows): [c0,
-    c0 + cols), the heads [h_lo, h_hi) that cover them and the KV heads
-    [k_lo, k_hi) those read."""
-    D, G = cfg.head_dim, cfg.num_heads // cfg.num_kv_heads
+    c0 + cols), the heads [h_lo, h_hi) of Hq that cover them and the KV
+    heads [k_lo, k_hi) those read."""
+    D, G = cfg.head_dim, Hq // cfg.num_kv_heads
     c0 = sh.model_rank() * cols
     h_lo, h_hi = c0 // D, -(-(c0 + cols) // D)
     k_lo, k_hi = h_lo // G, (h_hi - 1) // G + 1
-    if (h_hi - h_lo) % (k_hi - k_lo):
+    g = (h_hi - h_lo) // (k_hi - k_lo)
+    # the span's grouping must send each head to its own KV head
+    if (h_hi - h_lo) % (k_hi - k_lo) or any(
+            (h_lo + i) // G - k_lo != i // g for i in range(h_hi - h_lo)):
         raise NotImplementedError(
             f"query heads [{h_lo}, {h_hi}) do not group over KV heads "
             f"[{k_lo}, {k_hi})")
@@ -428,7 +445,7 @@ def _gather_posts(names):
     return {name: (lambda t: sh.gather_model(t, -1)) for name in names}
 
 
-def _gather_local(cfg, m, build_cache_w, layout, plain, prefix_len,
+def _gather_local(cfg, m, Hq, build_cache_w, layout, plain, prefix_len,
                   k_sharded):
     """The local function of a full-sequence pass whose KV heads do not
     divide "model": each rank runs the heads its wo rows read against the
@@ -438,12 +455,12 @@ def _gather_local(cfg, m, build_cache_w, layout, plain, prefix_len,
     def local(xn, wq, wk, wv, wo, positions):
         B, S, _ = xn.shape
         cols = wo.shape[0]
-        c0, h_lo, h_hi, k_lo, k_hi = _wo_span(cfg, m, cols)
+        c0, h_lo, h_hi, k_lo, k_hi = _wo_span(cfg, Hq, cols)
         # every KV head; q of heads [h_lo, h_hi), gathered first where the
         # query heads do not divide "model" either
         D = cfg.head_dim
         post = _gather_posts(("wk", "wv") if k_sharded else ())
-        if cfg.num_heads % m:
+        if Hq % m:
             post["wq"] = lambda t: sh.gather_model(t, -1)[
                 ..., h_lo * D:h_hi * D]
         q, k, v = _qkv(cfg, {"wq": wq, "wk": wk, "wv": wv}, xn, positions,
@@ -466,7 +483,7 @@ def _gather_local(cfg, m, build_cache_w, layout, plain, prefix_len,
     return local
 
 
-def _gather_decode_local(cfg, m, pos, layout, plain, k_sharded):
+def _gather_decode_local(cfg, m, Hq, pos, layout, plain, k_sharded):
     """The local function of a decode step whose KV heads do not divide
     "model" ("seq" or "replicated" cache): q, K and V of the new token
     all-gathered, every head attended, the rank's wo columns kept."""
@@ -477,7 +494,7 @@ def _gather_decode_local(cfg, m, pos, layout, plain, k_sharded):
         c0 = sh.model_rank() * cols
         post = _gather_posts(("wq", "wk", "wv") if k_sharded else ("wq",))
         q, k, v = _qkv(cfg, {"wq": wq, "wk": wk, "wv": wv}, xn, positions,
-                       cfg.num_heads, cfg.num_kv_heads, post=post)
+                       Hq, cfg.num_kv_heads, post=post)
         if layout == "replicated":
             out, _ = _attend(cfg, q, k, v, {"k": ck, "v": cv}, pos, None,
                              plain, 0)

@@ -19,6 +19,11 @@ model's type, and the JAX package's type promotion is kept (a bf16
 product plus the f32 bias is f32).  The per-layer cache is the ring KV
 cache plus the f32 state [B, d_inner, N]; a decode step updates both in
 place.
+
+Under a ``DeviceMesh`` in ``runtime.meshctx`` the layer is one sharded
+step (``_hybrid_block_sharded``): the dense block's attention site on
+the n_attn heads beside a mamba site, each branch all-reduced before its
+norm.
 """
 from __future__ import annotations
 
@@ -26,9 +31,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.models import layers
+from repro_torch.models import blocks, layers
 from repro_torch.models.blocks import attention_apply
 from repro_torch.models.layers import dense_init
+from repro_torch.runtime import meshctx
+from repro_torch.runtime import sharding as sh
 
 F32_PARAMS = ("b_dt", "A_log", "D")     # kept in f32 whatever the model's type
 
@@ -190,7 +197,11 @@ def hybrid_block_apply(cfg: ModelConfig, p, x, positions, cache=None,
     """One hybrid layer.  With ``cache`` (one layer's {k, v, ssm_state})
     the cache is updated in place and returned; with ``build_cache_w`` a
     new one (the ring KV cache of width W and the final state) is
-    returned; else None.  ``carry`` as in ``blocks.dense_block_apply``."""
+    returned; else None.  ``carry`` as in ``blocks.dense_block_apply``.
+    Under a DeviceMesh the layer runs sharded (``_hybrid_block_sharded``)."""
+    if meshctx.get_device_mesh() is not None:
+        return _hybrid_block_sharded(cfg, p, x, positions, cache, pos,
+                                     build_cache_w, plain, carry)
     h_in, x = x if carry else (None, x)
     n_attn, _ = head_split(cfg)
     x, xn = layers.add_norm(x, h_in, p["ln1"], cfg.norm_eps, plain)
@@ -216,3 +227,118 @@ def hybrid_block_apply(cfg: ModelConfig, p, x, positions, cache=None,
         return out, {"k": attn_cache_out["k"], "v": attn_cache_out["v"],
                      "ssm_state": new_state}
     return out, None
+
+
+# ---------------------------------------------------------------------------
+# the sharded step (a DeviceMesh in ``runtime.meshctx``)
+# ---------------------------------------------------------------------------
+
+_MAMBA = ("in_proj", "w_dt", "b_dt", "w_B", "w_C", "A_log", "D", "ssm_out")
+
+
+def _hybrid_block_sharded(cfg, p, x, positions, cache, pos, build_cache_w,
+                          plain, carry):
+    """``hybrid_block_apply`` on DTensors: ln1, then the attention site of
+    the dense block on the n_attn attention heads (``blocks``) and the
+    mamba site (``_mamba_sharded``) side by side; each branch's output,
+    a partial sum over "model" where its last product is row-parallel, is
+    all-reduced before its branch norm (a norm of a partial sum is not
+    the norm of the sum), so their mean reaches ln2 whole; then the MLP
+    site."""
+    n_attn, _ = head_split(cfg)
+    eps = cfg.norm_eps
+    h_in, x = x if carry else (None, x)
+    x, xn = layers.add_norm(x, h_in, p["ln1"], eps, plain)
+    attn_cache = None if cache is None else {"k": cache["k"],
+                                             "v": cache["v"]}
+    y_attn, attn_cache_out = blocks._attention_sharded(
+        cfg, p, xn, positions, attn_cache, pos, build_cache_w, plain, 0,
+        num_heads=n_attn)
+    y_ssm, new_state = _mamba_sharded(
+        cfg, p, xn, None if cache is None else cache["ssm_state"],
+        build=build_cache_w is not None)
+    a = layers.add_norm(sh.reduce_branch(y_attn), None, p["ln_attn"], eps,
+                        plain)[1]
+    b = layers.add_norm(sh.reduce_branch(y_ssm), None, p["ln_ssm"], eps,
+                        plain)[1]
+    y = sh.local_site(lambda a, b: 0.5 * (a + b), a.placements, a, b)
+    x, xn = layers.add_norm(x, y, p["ln2"], eps, plain)
+    out = blocks.close_sharded(x, blocks._mlp_sharded(p, xn, cfg.activation),
+                               carry)
+    if cache is not None:
+        return out, cache
+    if build_cache_w is not None:
+        return out, {"k": attn_cache_out["k"], "v": attn_cache_out["v"],
+                     "ssm_state": new_state}
+    return out, None
+
+
+def _mamba_sharded(cfg, p, xn, state, build: bool):
+    """The mamba branch of a sharded step, one site on the local shards ->
+    (out [B, S, h]; the new state [B, di, N] when ``build``, else None;
+    ``state``, a decode step's, is updated in place).  The leaves split by
+    divisibility, so three layouts:
+
+      * d_inner split (its leaves and the state on the rank's di/m
+        channels): in_proj's column blocks of [xm | z] do not line up with
+        the channels, so xz is all-gathered over "model" (each rank's
+        w_dt columns read every channel of xm anyway); dt of the rank's
+        channels, B and C from row-parallel w_B / w_C (one all-reduce of
+        their partial sums, side by side), the scan on the rank's
+        channels, ssm_out row-parallel: the output is a partial sum;
+      * in_proj split alone: xz all-gathered, the rest on every rank, the
+        output whole;
+      * nothing split: every rank the whole branch, the output whole."""
+    from torch.distributed.tensor import Shard
+    _, n_ssm = head_split(cfg)
+    di, N = n_ssm * cfg.head_dim, cfg.ssm.state_size
+    in_split = sh.model_sharded(p["in_proj"])
+    di_split = all(sh.model_sharded(p[n]) for n in _MAMBA[1:])
+    if not di_split and any(sh.model_sharded(p[n]) for n in _MAMBA[1:]):
+        raise NotImplementedError("the mamba branch's d_inner leaves split "
+                                  "apart")
+    m, r = sh.axis_size("model"), sh.model_rank()
+    dl = di // m if di_split else di
+    c0 = r * dl if di_split else 0
+
+    def local(xn, in_proj, w_dt, b_dt, w_B, w_C, A_log, D, ssm_out, *st):
+        if st:
+            state = st[0]
+        else:
+            state = xn.new_zeros((xn.shape[0], dl, N), dtype=torch.float32)
+        xz = (sh.copy_to_model(xn) if in_split else xn) @ in_proj
+        if in_split:
+            gather = sh.gather_model if di_split else sh.gather_replicated
+            xz = gather(xz, -1)
+        xm = xz[..., :di]
+        xm_l, z = xm[..., c0:c0 + dl], xz[..., di + c0:di + c0 + dl]
+        dt = softplus(xm @ w_dt + b_dt)                     # f32
+        bc = torch.cat([xm_l @ w_B, xm_l @ w_C], dim=-1)
+        if di_split:
+            bc = sh.reduce_model_shared(bc)
+        Bm, Cm = bc[..., :N], bc[..., N:]
+        A = -torch.exp(A_log)
+        S = xn.shape[1]
+        if (cfg.ssm.scan_impl == "chunked" and S > 1
+                and S % cfg.ssm.scan_chunk == 0):
+            y, new_state = selective_scan_chunked(
+                xm_l, dt, Bm, Cm, A, D, state, chunk=cfg.ssm.scan_chunk)
+        else:
+            y, new_state = selective_scan(xm_l, dt, Bm, Cm, A, D, state)
+        out = (y * F.silu(z)) @ ssm_out
+        if st:
+            state.copy_(new_state)
+            return out
+        return (out, new_state) if build else out
+
+    act = xn.placements
+    out_pl = sh.partial_model(act) if di_split else act
+    args = [xn] + [p[n] for n in _MAMBA]
+    weights = tuple(range(1, len(args)))
+    if state is not None:
+        return sh.local_site(local, out_pl, *args, state,
+                             weights=weights), None
+    if not build:
+        return sh.local_site(local, out_pl, *args, weights=weights), None
+    st_pl = sh.with_model(act, Shard(1)) if di_split else act
+    return sh.local_site(local, (out_pl, st_pl), *args, weights=weights)

@@ -39,6 +39,12 @@ split), and the ranks' partial outputs meet in one logged all-reduce a
 layer.  ``moe_block_apply`` takes it exactly where JAX's does: with
 ``cfg.moe_dispatch == "local"`` and a mesh with a ``model`` axis set in
 ``runtime.meshctx``.
+
+Under a ``DeviceMesh`` in ``runtime.meshctx`` the layer is one sharded
+step (``_moe_block_sharded``): the dense block's attention and norm
+sites, then ``_moe_ffn_sharded``, the GSPMD path's values (the dispatch
+over the global token set) from each rank's own experts and data shard.
+The local dispatch is not sharded there and raises.
 """
 from __future__ import annotations
 
@@ -48,10 +54,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.models import layers
+from repro_torch.models import blocks, layers
 from repro_torch.models.blocks import attention_apply
 from repro_torch.models.layers import dense_init, mlp_apply
 from repro_torch.runtime import meshctx
+from repro_torch.runtime import sharding as sh
 
 F32_PARAMS = ("router",)     # kept in f32 whatever the model's type
 
@@ -118,26 +125,40 @@ def moe_ffn(cfg: ModelConfig, p, x):
     return y.reshape(B, S, h), aux
 
 
-def dispatch_plan(top_i, num_experts: int, cap: int):
+def dispatch_plan(top_i, num_experts: int, cap: int, before=None,
+                  experts=None):
     """The sorted dispatch of the choices top_i [T, K] (each row in
     ascending expert id): (order [T*K], the (token, choice) pairs stably
     sorted by expert; counts [E] and offsets [E] of each expert's run in
     that order; keep [T, K], whether a choice fits its expert's ``cap``
-    rows; slot [T, K], its row e·cap + position in the [E·cap + 1, h]
-    buffer, E·cap (the overflow row) when dropped)."""
+    rows and its expert is in ``experts``; slot [T, K], its row
+    (e - e0)·rows + position in the [(e1 - e0)·rows + 1, h] buffer,
+    rows = min(cap, T·K), the last row (the overflow row) when dropped).
+
+    ``before`` [E] counts each expert's pairs in the tokens ahead of these
+    (the earlier data shards' on a sharded step, where the T tokens are
+    one shard's): a pair's place in its expert's queue, which decides
+    whether it fits, is its place here plus those.  ``experts`` (e0, e1)
+    are the experts whose rows the buffer holds (a model rank's; all by
+    default)."""
     T, K = top_i.shape
     dev = top_i.device
+    e0, e1 = (0, num_experts) if experts is None else experts
+    rows = min(cap, T * K)
     flat_e = top_i.reshape(-1)                                # [T*K]
-    counts = (flat_e[:, None] == torch.arange(num_experts,
-                                              device=dev)).sum(0)
+    counts = _counts(top_i, num_experts)
     offsets = torch.cumsum(counts, 0) - counts
     order = torch.argsort(flat_e, stable=True)
     # pair j = t*K + k sits at sorted position rank[j]
     rank = torch.empty_like(order).scatter_(
         0, order, torch.arange(T * K, device=dev))
     pos_in_e = rank - offsets[flat_e]
-    keep = pos_in_e < cap
-    slot = torch.where(keep, flat_e * cap + pos_in_e, num_experts * cap)
+    queued = pos_in_e if before is None else pos_in_e + before[flat_e]
+    keep = queued < cap
+    if experts is not None:
+        keep = keep & (flat_e >= e0) & (flat_e < e1)
+    slot = torch.where(keep, (flat_e - e0) * rows + pos_in_e,
+                       (e1 - e0) * rows)
     return order, counts, offsets, keep.reshape(T, K), slot.reshape(T, K)
 
 
@@ -148,30 +169,49 @@ def _moe_compute(cfg: ModelConfig, p, xf, cap: int):
     return _experts(cfg, p, plan), aux
 
 
+def _routed(cfg: ModelConfig, router, xf):
+    """``route``'s (top_p, top_i, probs) with each token's choices in
+    ascending expert id: the stable sort by expert orders a token's pairs
+    the same way either way (one expert holds a token at most once), and
+    the combine sums them so."""
+    top_p, top_i, probs = route(cfg, router, xf)
+    top_i, perm = torch.sort(top_i, dim=-1)
+    return top_p.gather(-1, perm), top_i, probs
+
+
 def _dispatch(cfg: ModelConfig, router, xf, cap: int):
     """Route tokens xf [T, h] and fill the dense [E, cap, h] buffer ->
     (plan, aux): the plan is what ``_experts`` needs (the buffer xe, each
     token's K buffer rows and weights, in ascending expert id)."""
     moe = cfg.moe
     E, K = moe.num_experts, moe.top_k
-    T, h = xf.shape
-
-    top_p, top_i, probs = route(cfg, router, xf)
-    # each token's choices in ascending expert id: the stable sort by
-    # expert orders a token's pairs the same way either way (one expert
-    # holds a token at most once), and the combine sums them so
-    top_i, perm = torch.sort(top_i, dim=-1)
-    top_p = top_p.gather(-1, perm)
-    order, counts, offsets, keep, slot = dispatch_plan(top_i, E, cap)
+    T = xf.shape[0]
+    top_p, top_i, probs = _routed(cfg, router, xf)
+    plan, counts = _fill(cfg, xf, top_p, top_i, cap)
     frac_tok = counts.float() / (T * K)
     aux = E * torch.sum(probs.mean(dim=0) * frac_tok) * moe.router_aux_coef
+    return plan, aux
 
-    # dispatch: buffer row (e, c) <- the token of sorted pair offsets[e] + c
-    c_idx = torch.arange(cap, device=xf.device)
-    filled = c_idx[None, :] < counts[:, None]                 # [E, cap]
-    src = torch.where(filled, offsets[:, None] + c_idx[None, :], 0)
+
+def _fill(cfg: ModelConfig, xf, top_p, top_i, cap: int, before=None,
+          experts=None):
+    """The plan of ``_dispatch`` for routed tokens xf [T, h] (``before``
+    and ``experts`` as ``dispatch_plan``'s) and the experts' counts [E]:
+    buffer row (e, c) <- the token of sorted pair offsets[e] + c while
+    that pair fits."""
+    E, K = cfg.moe.num_experts, cfg.moe.top_k
+    e0, e1 = (0, E) if experts is None else experts
+    shard = () if before is None and experts is None else (before, experts)
+    order, counts, offsets, keep, slot = dispatch_plan(top_i, E, cap, *shard)
+    rows = min(cap, top_i.numel())
+    c_idx = torch.arange(rows, device=xf.device)
+    fits = counts[e0:e1]
+    if before is not None:
+        fits = torch.minimum(fits, (cap - before[e0:e1]).clamp(min=0))
+    filled = c_idx[None, :] < fits[:, None]                   # [E', rows]
+    src = torch.where(filled, offsets[e0:e1, None] + c_idx[None, :], 0)
     xe = torch.where(filled[..., None], xf[order[src] // K], 0)
-    return {"xe": xe, "slot": slot, "keep": keep, "top_p": top_p}, aux
+    return {"xe": xe, "slot": slot, "keep": keep, "top_p": top_p}, counts
 
 
 def _experts(cfg: ModelConfig, p, plan):
@@ -295,9 +335,13 @@ def moe_block_apply(cfg: ModelConfig, p, x, positions, cache=None, pos=None,
                     carry: bool = False, aux_out=None):
     """One MoE layer: GQA attention, then the routed (and shared) experts
     in place of the MLP (on the expert-TP path when ``cfg.moe_dispatch``
-    is "local" and ``meshctx`` holds a mesh with a ``model`` axis).  ``carry``, ``cache`` and ``build_cache_w`` as in
-    ``blocks.dense_block_apply``; the layer's aux loss is appended to
-    ``aux_out`` when it is a list."""
+    is "local" and ``meshctx`` holds a mesh with a ``model`` axis; as one
+    sharded step under a DeviceMesh, ``_moe_block_sharded``).  ``carry``,
+    ``cache`` and ``build_cache_w`` as in ``blocks.dense_block_apply``;
+    the layer's aux loss is appended to ``aux_out`` when it is a list."""
+    if meshctx.get_device_mesh() is not None:
+        return _moe_block_sharded(cfg, p, x, positions, cache, pos,
+                                  build_cache_w, plain, carry, aux_out)
     h_in, x = x if carry else (None, x)
     x, xn = layers.add_norm(x, h_in, p["ln1"], cfg.norm_eps, plain)
     attn_out, cache_out = attention_apply(
@@ -315,3 +359,121 @@ def moe_block_apply(cfg: ModelConfig, p, x, positions, cache=None, pos=None,
     if aux_out is not None:
         aux_out.append(aux)
     return ((y, x) if carry else x + y), cache_out
+
+
+# ---------------------------------------------------------------------------
+# the sharded step (a DeviceMesh in ``runtime.meshctx``)
+# ---------------------------------------------------------------------------
+
+
+def _moe_block_sharded(cfg, p, x, positions, cache, pos, build_cache_w,
+                       plain, carry, aux_out):
+    """``moe_block_apply`` on DTensors: the dense block's norm sites and
+    attention site (``blocks``), then the routed and shared experts as one
+    site whose output is a partial sum over "model"."""
+    if cfg.moe_dispatch == "local":
+        raise NotImplementedError(
+            "moe_dispatch='local' (the expert-TP dispatch of each data "
+            "shard's own tokens) runs on a core.comm.VirtualMesh, not as a "
+            "sharded step on a DeviceMesh")
+    h_in, x = x if carry else (None, x)
+    x, xn = layers.add_norm(x, h_in, p["ln1"], cfg.norm_eps, plain)
+    y, cache_out = blocks._attention_sharded(cfg, p, xn, positions, cache,
+                                             pos, build_cache_w, plain, 0)
+    x, xn = layers.add_norm(x, y, p["ln2"], cfg.norm_eps, plain)
+    out, aux = _moe_ffn_sharded(cfg, p, xn, with_aux=aux_out is not None)
+    if aux_out is not None:
+        aux_out.append(aux)
+    return blocks.close_sharded(x, out, carry), cache_out
+
+
+def _moe_ffn_sharded(cfg: ModelConfig, p, xn, with_aux: bool):
+    """The routed (and shared) experts of a sharded step, one site on the
+    local shards: xn [B, S, h] (split over the batch axes, whole over
+    "model") -> (y, a partial sum over "model"; aux, replicated, or None
+    when ``with_aux`` is False).  The values are ``moe_ffn``'s, whose
+    dispatch runs over the global token set:
+
+      * every model rank routes its data shard's tokens (the router is
+        replicated), then runs the pairs of its own experts (the stacks
+        split on the expert axis) or its f block of every expert (split
+        on f, where the experts do not divide "model"), into a buffer of
+        min(cap, its pairs) rows an expert, and scatters them back
+        weighted: a partial sum, to which the shared experts' column /
+        row-parallel GLU adds its own;
+      * the capacity is the global call's (``moe_capacity`` of B·S), and
+        a pair's place in its expert's queue counts the pairs of the data
+        shards ahead of it: the experts' counts of every shard arrive by
+        one all-gather over the batch axes (none where the batch is not
+        split over them);
+      * the aux loss takes mean_prob over every token (one all-reduce of
+        the probabilities' sum over the batch axes) and frac_tok from the
+        gathered counts.
+
+    In the backward, the tokens' and the routing weights' gradients are
+    all-reduced over "model" (``copy_to_model``: each rank's pairs give a
+    part of them)."""
+    moe = cfg.moe
+    E, K = moe.num_experts, moe.top_k
+    B, S, h = xn.shape
+    T = B * S
+    cap = moe_capacity(T, cfg)
+    stacks = ("we1", "we2", "we3")
+    shared = tuple(n for n in ("sw1", "sw2", "sw3") if n in p)
+    if any(sh.split_over_batch(p[n]) for n in stacks):
+        raise NotImplementedError("expert stacks split over the batch axes "
+                                  "(moe_fsdp) are not sharded")
+    # one layer's [E, h, f] / [E, f, h] stacks: split on E, or on f
+    dims = tuple(sh.model_dim(p[n]) for n in stacks)
+    if dims == (0, 0, 0):
+        m, r = sh.axis_size("model"), sh.model_rank()
+        experts = (r * E // m, (r + 1) * E // m)
+    elif dims == (2, 1, 2):
+        experts = None
+    else:
+        raise NotImplementedError("a sharded MoE needs the experts or their "
+                                  "d_ff to divide the model axis")
+    if not all(sh.model_sharded(p[n]) for n in shared):
+        raise NotImplementedError("a sharded MoE needs the shared experts' "
+                                  "d_ff to divide the model axis")
+    split = sh.batch_sharded(xn)
+    names = ("router",) + stacks + shared
+
+    def local(xn, *ws):
+        w = dict(zip(names, ws))
+        xf = xn.reshape(-1, h)
+        top_p, top_i, probs = _routed(cfg, w["router"], xf)
+        before = None
+        if split:
+            every = sh.gather_batch_values(_counts(top_i, E).to(torch.int32))
+            before = every[:sh.batch_index()].sum(0)
+        xc = sh.copy_to_model(xf)
+        plan, counts = _fill(cfg, xc, sh.copy_to_model(top_p), top_i, cap,
+                             before, experts)
+        y = _experts(cfg, w, plan)
+        if shared:
+            y = y + mlp_apply({"w1": w["sw1"], "w2": w["sw2"],
+                               "w3": w.get("sw3")}, xc, cfg.activation)
+        y = y.reshape(xn.shape)
+        if not with_aux:
+            return y
+        if split:
+            mean_prob = sh.reduce_batch(probs.sum(0)) / T
+            total = every.sum(0)
+        else:
+            mean_prob, total = probs.mean(dim=0), counts
+        frac_tok = total.float() / (T * K)
+        return y, E * torch.sum(mean_prob * frac_tok) * moe.router_aux_coef
+
+    from torch.distributed.tensor import Replicate
+    y_pl = sh.partial_model(xn.placements)
+    out_pl = (y_pl, [Replicate()] * len(y_pl)) if with_aux else y_pl
+    out = sh.local_site(local, out_pl, xn, *(p[n] for n in names),
+                        weights=tuple(range(1, len(names) + 1)))
+    return out if with_aux else (out, None)
+
+
+def _counts(top_i, num_experts: int):
+    """The pairs each expert takes among the choices top_i [T, K]: [E]."""
+    return (top_i.reshape(-1)[:, None]
+            == torch.arange(num_experts, device=top_i.device)).sum(0)

@@ -14,11 +14,13 @@ JAX package scanned it), and caches are updated in place (the JAX package
 donated them).  The loop carries the residual stream as a pair (h, x), so
 every residual add runs inside the norm after it (``blocks`` module doc);
 the values are the JAX package's chain, add then norm.  With a
-``DeviceMesh`` set in ``runtime.meshctx``, the dense, encoder and vlm
-families run each entry point below but ``paged_step`` as one sharded
-step on DTensors (``runtime.sharding``): the vocab-parallel embedding
-and head, the blocks' sites (``blocks``), the logits left vocab-sharded
-and ``greedy_tokens``' argmax over them.
+``DeviceMesh`` set in ``runtime.meshctx``, every family runs each entry
+point below but ``paged_step`` as one sharded step on DTensors
+(``runtime.sharding``): the vocab-parallel embedding and head, the
+blocks' sites (the attention and MLP of ``blocks``, the routed experts
+of ``moe``, RWKV-6's time and channel mixes of ``ssm``, hymba's mamba
+branch of ``hybrid``), the logits left vocab-sharded and
+``greedy_tokens``' argmax over them.
 
 Entry points:
   forward(params, tokens, prefix_emb=None, features=None, remat=None,
@@ -361,9 +363,10 @@ class Model:
         every position in place of the logits (the fused loss projects it
         a vocab chunk at a time).
 
-        Under a DeviceMesh (``runtime.meshctx``) every family of the dense
-        block runs as one sharded step on DTensors (``blocks`` module doc,
-        ``runtime.sharding``); the logits come out vocab-sharded."""
+        Under a DeviceMesh (``runtime.meshctx``) every family runs as one
+        sharded step on DTensors (module doc, ``runtime.sharding``); the
+        logits come out vocab-sharded, and the MoE aux loss is the global
+        batch's."""
         tokens, prefix_emb, features = self._place_inputs(
             tokens, prefix_emb, features)
         x = self._embed(params, tokens, prefix_emb, features)

@@ -8,9 +8,10 @@ it:
     schedules its own collectives on virtual ranks (the expert-TP MoE path,
     ``models.moe.moe_ffn_local``) asks for;
   * ``set_device_mesh``: a ``torch.distributed`` ``DeviceMesh`` with named
-    axes ("data", "model", or "pod", "data", "model"), under which the
-    dense, encoder and vlm families run as one sharded (GSPMD-style) step
-    on DTensors (``runtime.sharding``).  With none set, the model takes its
+    axes ("data", "model", or "pod", "data", "model"), under which every
+    family runs as one sharded (GSPMD-style) step on DTensors
+    (``runtime.sharding``); the expert-TP path (``moe_dispatch="local"``)
+    is not sharded there and raises.  With none set, the model takes its
     single-device path; the check is the one ``get_device_mesh()`` call.
 """
 from __future__ import annotations

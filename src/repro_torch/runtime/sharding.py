@@ -208,8 +208,14 @@ def shardings_from_specs(device_mesh, specs):
 # all-reduce of its gradient), a row-parallel output leaves the site as a
 # ``Partial`` sum over "model", and the residual add that closes it
 # (``layers.add_norm``, the redistribution point) all-reduces it with
-# ``reduce_model``.  A helper over a group of one device is the identity:
-# it issues nothing, as XLA drops such collectives.
+# ``reduce_model``.  A gradient is each rank's whole gradient where its
+# users run whole on every rank, and a partial sum over "model" where
+# they run on the rank's block; the helpers' backward sums only the
+# latter (``gather_model`` against ``gather_replicated``,
+# ``reduce_model`` against ``reduce_model_shared``), and a replicated
+# weight read in blocks sums its gradient (``reduce_model_grad``).  A
+# helper over a group of one device is the identity: it issues nothing,
+# as XLA drops such collectives.
 
 _BATCH = ("pod", "data")
 
@@ -385,6 +391,29 @@ class _GatherModel(torch.autograd.Function):
         return _reduce_scatter(g, ctx.dim, _group("model")), None
 
 
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        return _all_gather(x, dim, _group("model"))
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = model_rank() * ctx.n
+        return g.narrow(ctx.dim, lo, ctx.n), None
+
+
+class _ScatterModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim = dim
+        return _reduce_scatter(x, dim, _group("model"))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, _group("model")), None
+
+
 class _ReduceGrad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -450,6 +479,62 @@ def gather_model_values(x, dim: int):
     return _all_gather(x, dim, _group("model"))
 
 
+def gather_replicated(x, dim: int):
+    """``gather_model`` for a result every rank then uses whole (so each
+    rank's gradient of it is the whole gradient): the gradient of x is the
+    rank's own block of it, no collective."""
+    if axis_size("model") == 1:
+        return x
+    return _GatherReplicated.apply(x, dim)
+
+
+def scatter_model(x, dim: int):
+    """x, a partial sum over "model", summed over it and split along
+    ``dim``: the rank keeps its block (one reduce-scatter; the gradient
+    is all-gathered back)."""
+    if axis_size("model") == 1:
+        return x
+    return _ScatterModel.apply(x, dim)
+
+
+def reduce_model_shared(x):
+    """The sum of x over "model" (one all-reduce) for a result each rank
+    uses only in part (so each rank's gradient of it is a partial sum):
+    the gradient is all-reduced too."""
+    return copy_to_model(reduce_model(x))
+
+
+def reduce_model_grad(w):
+    """w, whose gradient is summed over "model" (one all-reduce): a
+    replicated weight each rank reads only in part (its block of columns)
+    or only on some ranks."""
+    if axis_size("model") == 1:
+        return w
+    return _ReduceGrad.apply(w, _group("model"))
+
+
+def batch_index() -> int:
+    """This rank's block of a batch split over the batch axes (0 where
+    they hold one device): "pod" outer, "data" inner, as ``data_spec``
+    splits it."""
+    dmesh = device_mesh()
+    index = 0
+    for axis in _BATCH:
+        if axis in dmesh.mesh_dim_names:
+            index = index * axis_size(axis) + dmesh.get_local_rank(axis)
+    return index
+
+
+def gather_batch_values(x):
+    """x of every block of the batch axes, stacked on a new leading dim in
+    block order (one all-gather, no gradient); x[None] where the axes hold
+    one device."""
+    group = _batch_group()
+    if group is None:
+        return x[None]
+    return _all_gather(x[None], 0, group)
+
+
 def with_model(pl, placement):
     """Placements ``pl`` with the "model" axis's entry replaced."""
     names = device_mesh().mesh_dim_names
@@ -468,9 +553,24 @@ def replicate_model(pl):
 
 def model_sharded(w) -> bool:
     """Whether DTensor w is split over "model"."""
+    return model_dim(w) is not None
+
+
+def model_dim(w):
+    """The dim of DTensor w split over "model", or None."""
     from torch.distributed.tensor import Shard
     names = w.device_mesh.mesh_dim_names
-    return isinstance(w.placements[names.index("model")], Shard)
+    p = w.placements[names.index("model")]
+    return p.dim if isinstance(p, Shard) else None
+
+
+def split_over_batch(w) -> bool:
+    """Whether DTensor w is split over a batch axis of more than one
+    device (an expert stack under ``moe_fsdp``)."""
+    from torch.distributed.tensor import Shard
+    return any(isinstance(p, Shard) and axis in _BATCH and axis_size(axis) > 1
+               for axis, p in zip(w.device_mesh.mesh_dim_names,
+                                  w.placements))
 
 
 def is_partial_model(x) -> bool:

@@ -20,7 +20,18 @@ compiled step on a host mesh.
     on the same weights and batch) and to the unsharded step: the loss
     within 1e-5, grad_norm within 1e-5 relative, every gradient leaf
     within 1e-5 + 1e-4·|g| of JAX's, and each leaf's update within 1e-3
-    of the references' (norms).
+    of the references' (norms).  The same spawn runs the moe, ssm and
+    hybrid families (``torch_spmd_ranks.VARIANTS``): deepseek-moe-16b
+    with capacity 1.0 on (2, 2) (pairs drop, across data shards too),
+    mixtral-8x22b with 6 experts on (1, 4) (the stacks split on f),
+    rwkv6-7b per step and chunked on (2, 2), hymba-1.5b on (2, 2) and
+    (1, 4) (in_proj split, d_inner not), and with 2 KV heads and a window
+    of 12 on (1, 4) (partial heads, the "seq" decode on a wrapped ring).
+    rwkv6-7b's train step ("train_plain") holds grad_norm and the update
+    to the port's unsharded step: RWKV-6's gradient is ill-conditioned in
+    f32 (JAX's grad_norm lies 1.6e-5 and the port's unsharded one 5.1e-5
+    off an f64 evaluation of the same step), so no f32 step meets 1e-5
+    against JAX's.
   * ``op_cost``'s per-chip walk: FLOPs within 2% of the per-device module
     JAX compiles (``hlo_cost``'s count, loops expanded: XLA's own
     ``cost_analysis()`` counts a scanned layer's body once, so it is
@@ -100,11 +111,10 @@ def _seq(cfg):
 
 
 def _cfgs(arch, kv=None):
-    jcfg, tcfg = jax_config(arch).reduced(), port_config(arch).reduced()
-    if kv is not None:
-        jcfg = dataclasses.replace(jcfg, num_kv_heads=kv)
-        tcfg = dataclasses.replace(tcfg, num_kv_heads=kv)
-    return jcfg, tcfg
+    """The reduced JAX and port configs, replaced by ``kv``
+    (``torch_spmd_ranks.replaced``: KV heads or a named variant)."""
+    return (torch_spmd_ranks.replaced(jax_config(arch).reduced(), kv),
+            torch_spmd_ranks.replaced(port_config(arch).reduced(), kv))
 
 
 @functools.lru_cache(maxsize=None)
@@ -296,7 +306,15 @@ VALUE_RUNS = [("granite-8b", None, (2, 2), ("decode", "train")),
               ("gemma-7b", None, (2, 2), ("decode",)),
               ("paligemma-3b", None, (2, 2), ("decode",)),
               ("hubert-xlarge", None, (1, 4), ()),
-              ("granite-8b", 2, (1, 4), ("decode", "train"))]
+              ("granite-8b", 2, (1, 4), ("decode", "train")),
+              # the moe, ssm and hybrid families (torch_spmd_ranks.VARIANTS)
+              ("deepseek-moe-16b", "cap1", (2, 2), ("decode", "train")),
+              ("mixtral-8x22b", "e6", (1, 4), ("decode", "train")),
+              ("rwkv6-7b", None, (2, 2), ("decode", "train_plain")),
+              ("rwkv6-7b", "chunked", (2, 2), ("decode",)),
+              ("hymba-1.5b", None, (2, 2), ("decode", "train")),
+              ("hymba-1.5b", None, (1, 4), ("decode", "train")),
+              ("hymba-1.5b", "kv2w12", (1, 4), ("decode",))]
 NEW = 8
 # a leaf's update against the reference's, |Δ - Δ_ref| / |Δ_ref| (norms):
 # 1.0e-4 to 2.8e-4 observed (f32 noise in gradients near Adam's eps); an
@@ -344,7 +362,8 @@ def _jax_reference(arch, kv, checks):
     model = jax_model(jcfg)
     jp = model.init(jax.random.PRNGKey(0))
     inp = _inputs(tcfg)
-    train = _jax_train(model, jp, inp) if "train" in checks else None
+    trains = "train" in checks or "train_plain" in checks
+    train = _jax_train(model, jp, inp) if trains else None
     if jcfg.family == "encoder":
         logits, _ = _jit(lambda p, f: model.forward(p, features=f),
                          jp, jnp.asarray(inp["features"]))
@@ -393,20 +412,26 @@ def value_results(tmp_path_factory):
                               for a, kv, m, _ in VALUE_RUNS])
 def test_sharded_values_on_gloo_ranks(value_results, arch, kv, mesh_shape,
                                       checks):
-    row = value_results[f"{arch}-kv{kv}-{mesh_shape}"]
+    row = value_results[torch_spmd_ranks.case_name(arch, kv, mesh_shape)]
     print(row)
     tol = 1e-4 * max(1.0, row["logit_scale"])
     assert row["logit_err_plain"] <= tol
     assert row["logit_err_jax"] <= tol
     if "decode" in checks:
         assert row["tokens_equal_plain"] and row["tokens_equal_jax"]
-    if "train" in checks:
+    if "train" in checks or "train_plain" in checks:
         for ref in ("loss_plain", "loss_jax"):
             assert abs(row["loss"] - row[ref]) <= 1e-5
-        assert abs(row["grad_norm"] - row["grad_norm_jax"]) <= \
-            1e-5 * row["grad_norm_jax"]
+        # "train_plain": grad_norm and the update held to the port's
+        # unsharded step, not JAX's (RWKV-6's gradient is ill-conditioned
+        # in f32: JAX's grad_norm lies 1.6e-5 and the port's unsharded one
+        # 5.1e-5 off an f64 evaluation of the same step)
+        ref = "grad_norm_plain" if "train_plain" in checks else \
+            "grad_norm_jax"
+        assert abs(row["grad_norm"] - row[ref]) <= 1e-5 * row[ref]
         assert row["grad_excess"] <= 0.0
-        assert row["update_err_jax"] <= UPDATE_TOL
+        if "train" in checks:
+            assert row["update_err_jax"] <= UPDATE_TOL
         assert row["update_err_plain"] <= UPDATE_TOL
 
 
@@ -527,6 +552,6 @@ def test_full_width_dry_run_matches_the_closed_form():
     assert rec["collectives"]["allreduce"]["count"] == 2 * L + 1
     assert rec["collectives"]["allgather"]["count"] == 2 * L
     assert rec["roofline"]["flops_per_chip"] > 0
-    skip = dryrun.run_one("deepseek-moe-16b", "train_4k", False)
+    skip = dryrun.run_one("deepseek-moe-16b", "train_4k", False, "moe_local")
     assert skip["status"] == "not_ported"
     assert os.path.basename(dryrun.RESULTS_DIR) == "dryrun_torch"

@@ -1,16 +1,27 @@
 """The sharded step's kernel path across four cards, against the
 unsharded kernel path.
 
-Reduced granite-8b with 2 KV heads (f32) on a (data, model) = (1, 4)
-mesh of four NCCL ranks, a card each: 2 KV heads do not divide 4, so the
-prefill all-gathers K and V and runs B2 on each rank's query heads, and
-each decode step runs on a sequence-parallel cache of 32 rows, 8 a rank:
-B3's split pass alone on the rank's rows, then one MAX and one SUM
-all-reduce of its partials.  A prefill and 8 decode steps: logits within
-1e-4 (relative past 1) and greedy tokens equal to the unsharded kernel
-path's on the same card; B2 launched once a layer, B3's split pass once a
-layer and step.  Needs four CUDA cards (marker ``gpu``; skipped with
-fewer).  Imports neither JAX nor the JAX package:
+One spawn of four NCCL ranks, a card each, on a (data, model) = (1, 4)
+mesh (``torch_spmd_ranks.kernel_rank``), a prefill of 2 × 16 tokens and 8
+decode steps per case, each reduced and in f32:
+
+  * granite-8b with 2 KV heads: 2 KV heads do not divide 4, so the
+    prefill all-gathers K and V and runs B2 on each rank's query heads,
+    and each decode step runs on a sequence-parallel cache of 32 rows, 8
+    a rank: B3's split pass alone on the rank's rows, then one MAX and one
+    SUM all-reduce of its partials.  Logits within 1e-4 (relative past 1)
+    of the unsharded kernel path's on the same card; B2 launched once a
+    layer, B3's split pass once a layer and step.
+  * rwkv6-7b (4 heads, one a rank): B10 on the rank's head, once a layer
+    and pass; the channel mix's reduce-scatter and all-gather.
+  * hymba-1.5b at head dim 64 (the reduced 66 is no head dim of the
+    attention kernels): 4 attention and 4 KV heads, one a rank, B2 once a
+    layer, B3 once a layer and step on the rank's KV head; the mamba
+    branch on the rank's 16 of its 64 channels, xz all-gathered.
+
+Greedy tokens equal to the unsharded kernel path's; the families' logits
+within 1e-5 (relative past 1).  Needs four CUDA cards (marker ``gpu``;
+skipped with fewer).  Imports neither JAX nor the JAX package:
 
     python -m pytest -q -p no:cacheprovider --noconftest \
         tests/test_torch_spmd_cuda.py
@@ -25,6 +36,7 @@ torch = pytest.importorskip("torch")
 import torch_spmd_ranks  # noqa: E402  (tests/: the ranks' program)
 
 NEW = 8
+CASES = [("granite-8b", 2), ("rwkv6-7b", None), ("hymba-1.5b", "d64")]
 
 
 def _free_port():
@@ -33,20 +45,45 @@ def _free_port():
         return s.getsockname()[1]
 
 
-@pytest.mark.gpu
-def test_sequence_parallel_decode_kernels_on_four_cards(tmp_path):
+@pytest.fixture(scope="module")
+def kernel_rows(tmp_path_factory):
     if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
         pytest.skip("needs four CUDA cards")
     import torch.multiprocessing as mp
-    out = str(tmp_path / "row.json")
+    out = str(tmp_path_factory.mktemp("spmd_cuda") / "rows.json")
     mp.spawn(torch_spmd_ranks.kernel_rank,
-             args=(4, _free_port(), NEW, out), nprocs=4)
+             args=(4, _free_port(), CASES, NEW, out), nprocs=4)
     with open(out) as f:
-        row = json.load(f)
+        return {r["case"]: r for r in json.load(f)}
+
+
+def _row(rows, arch, kv):
+    row = rows[torch_spmd_ranks.case_name(arch, kv, (1, 4))]
     print(row)
+    assert row["tokens_equal"]
+    return row
+
+
+@pytest.mark.gpu
+def test_sequence_parallel_decode_kernels_on_four_cards(kernel_rows):
+    row = _row(kernel_rows, "granite-8b", 2)
     L = row["layers"]
     assert row["layout"] == "seq"
     assert row["logit_err"] <= 1e-4 * max(1.0, row["logit_scale"])
-    assert row["tokens_equal"]
     assert row["launches"]["flash_attention"] == L
     assert row["launches"]["decode_attention"] == L * NEW
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,kv", CASES[1:], ids=[a for a, _ in CASES[1:]])
+def test_family_kernels_on_four_cards(kernel_rows, arch, kv):
+    row = _row(kernel_rows, arch, kv)
+    L = row["layers"]
+    assert row["logit_err"] <= 1e-5 * max(1.0, row["logit_scale"])
+    if arch == "rwkv6-7b":
+        assert row["launches"]["wkv6"] == L * (NEW + 1)
+    else:
+        assert row["layout"] == "heads"
+        assert row["launches"]["flash_attention"] == L
+        assert row["launches"]["decode_attention"] == L * NEW
+        assert row["launches"]["rmsnorm"] == (NEW + 1) * (1 + 2 * L)

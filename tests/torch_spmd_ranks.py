@@ -11,10 +11,47 @@ import numpy as np
 import torch
 
 
+# named replacements of a reduced config (the JAX package's and the
+# port's configs take the same fields)
+VARIANTS = {
+    # capacity 1.0: the reduced 4.0 never drops a pair (cap = T·K at E = 4,
+    # K = 2); this one drops pairs, across data shards too
+    "cap1": {"moe": {"capacity_factor": 1.0}},
+    # 6 experts, which do not divide a model axis of 4: the stacks split
+    # on f, as mixtral-8x22b's 8 on 16
+    "e6": {"moe": {"num_experts": 6}},
+    "chunked": {"ssm": {"scan_impl": "chunked"}},
+    # 2 KV heads (n_attn 2 of hymba's 4) and a window of 12 under a
+    # 16-token prompt plus 8 decode steps: on a model axis of 4 the prefill
+    # gathers K/V over partial heads and decodes on a wrapped "seq" ring
+    "kv2w12": {"num_kv_heads": 2, "sliding_window": 12},
+    # a head dim the attention kernels take (the reduced 66 is none)
+    "d64": {"head_dim": 64},
+}
+
+
+def replaced(cfg, kv):
+    """``cfg`` with ``kv`` KV heads (an int), or the named ``VARIANTS``
+    entry's fields (a str), or as it is (None)."""
+    if kv is None:
+        return cfg
+    if isinstance(kv, int):
+        return dataclasses.replace(cfg, num_kv_heads=kv)
+    fields = {}
+    for name, value in VARIANTS[kv].items():
+        if isinstance(value, dict):
+            value = dataclasses.replace(getattr(cfg, name), **value)
+        fields[name] = value
+    return dataclasses.replace(cfg, **fields)
+
+
+def case_name(arch, kv, mesh_shape):
+    return f"{arch}-kv{kv}-{tuple(mesh_shape)}"
+
+
 def _port_cfg(arch, kv):
     from repro_torch.configs import get_config
-    cfg = get_config(arch).reduced()
-    return cfg if kv is None else dataclasses.replace(cfg, num_kv_heads=kv)
+    return replaced(get_config(arch).reduced(), kv)
 
 
 def values_rank(rank, world, port, runs, refs, new_tokens, out_path):
@@ -63,7 +100,7 @@ def values_rank(rank, world, port, runs, refs, new_tokens, out_path):
                                      mesh_dim_names=("data", "model"))
             _, pspecs = specs.param_sds(tcfg, vm)
             t = {k: torch.from_numpy(v) for k, v in inp.items()}
-            row = {"case": f"{arch}-kv{kv}-{tuple(mesh_shape)}"}
+            row = {"case": case_name(arch, kv, mesh_shape)}
 
             def forward(p):
                 with torch.no_grad():
@@ -97,7 +134,8 @@ def values_rank(rank, world, port, runs, refs, new_tokens, out_path):
             plain = fresh()
             ref_logits = forward(plain)
             ref_tokens = generate(plain) if "decode" in checks else None
-            ref_train = train(fresh()) if "train" in checks else None
+            trains = "train" in checks or "train_plain" in checks
+            ref_train = train(fresh()) if trains else None
             meshctx.set_device_mesh(dmesh)
             try:
                 placed = sh.distribute(fresh(), pspecs, dmesh)
@@ -114,7 +152,7 @@ def values_rank(rank, world, port, runs, refs, new_tokens, out_path):
                         toks, torch.stack(ref_tokens, 1)))
                     row["tokens_equal_jax"] = bool(np.array_equal(
                         toks.numpy(), jax_tokens))
-                if "train" in checks:
+                if trains:
                     p2, met, grads = train(
                         sh.distribute(fresh(), pspecs, dmesh))
                     row.update(_train_row(
@@ -157,6 +195,7 @@ def _train_row(p0, p2, met, grads, ref_train, jax_train, tcfg):
            "loss_jax": jax_train["loss"],
            "grad_norm": float(full(met["grad_norm"])),
            "grad_norm_jax": jax_train["grad_norm"],
+           "grad_norm_plain": float(met_plain["grad_norm"]),
            "grad_excess": -1.0, "update_err_jax": 0.0,
            "update_err_plain": 0.0}
     for k, gj in g_jax.items():
@@ -172,13 +211,16 @@ def _train_row(p0, p2, met, grads, ref_train, jax_train, tcfg):
     return row
 
 
-def kernel_rank(rank, world, port, new_tokens, out_path):
-    """One NCCL rank on card ``rank``: reduced granite-8b with 2 KV heads
-    (f32) on a (1, world) mesh, so a prefill gathers K and V and a decode
-    step runs on a sequence-parallel cache (B3's split pass on the rank's
-    rows, then the MAX and SUM all-reduces), through the kernels, against
-    the unsharded kernel path on the same card.  Rank 0 writes the
-    comparison and the sharded run's launch counts as JSON."""
+def kernel_rank(rank, world, port, cases, new_tokens, out_path):
+    """One NCCL rank on card ``rank``: each case (arch, KV heads or None)
+    reduced, in f32, on a (1, world) mesh, a prefill and ``new_tokens``
+    decode steps through the kernels, against the unsharded kernel path
+    on the same card.  Reduced granite-8b with 2 KV heads gathers K and V
+    in the prefill and decodes on a sequence-parallel cache (B3's split
+    pass on the rank's rows, then the MAX and SUM all-reduces); rwkv6-7b
+    runs B10 on the rank's head; hymba-1.5b at head dim 64 B2 and B3 on
+    its attention head and the mamba branch on its 16 channels.  Rank 0 writes, per case,
+    the comparison and the sharded run's launch counts as JSON."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -194,53 +236,59 @@ def kernel_rank(rank, world, port, new_tokens, out_path):
     torch.cuda.set_device(dev)
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
+    rows = []
     try:
-        cfg = _port_cfg("granite-8b", 2)
-        model = get_model(cfg)
-        params = model.init(seed=0, device=dev)
-        tokens = torch.randint(0, cfg.vocab_size, (2, 16),
-                               generator=torch.Generator().manual_seed(1)
-                               ).to(dev)
-        width = 32
-
-        def generate(p):
-            logits, toks = [], []
-            with torch.no_grad():
-                lg, cache, pos = model.prefill(p, tokens, width)
-                for i in range(new_tokens + 1):
-                    logits.append(lg.full_tensor() if sh.is_dtensor(lg)
-                                  else lg)
-                    toks.append(greedy_tokens(lg))
-                    if i < new_tokens:
-                        lg, cache = model.decode_step(p, cache, toks[-1],
-                                                      pos + i)
-            return logits, [t.full_tensor() if sh.is_dtensor(t) else t
-                            for t in toks]
-
-        want_logits, want_toks = generate(params)
         dmesh = init_device_mesh("cuda", (1, world),
                                  mesh_dim_names=("data", "model"))
-        _, pspecs = specs.param_sds(cfg, make_mesh((1, world),
-                                                   ("data", "model")))
-        placed = sh.distribute(params, pspecs, dmesh)
-        meshctx.set_device_mesh(dmesh)
-        _build.reset_launches()
-        try:
-            logits, toks = generate(placed)
-            torch.cuda.synchronize()
-        finally:
-            meshctx.set_device_mesh(None)
-        row = {"layout": kv_layout(cfg, world, width),
-               "launches": dict(_build.LAUNCHES),
-               "layers": cfg.num_layers,
-               "logit_err": max(float((a - b).abs().max())
-                                for a, b in zip(logits, want_logits)),
-               "logit_scale": max(float(b.abs().max())
-                                  for b in want_logits),
-               "tokens_equal": all(torch.equal(a, b)
-                                   for a, b in zip(toks, want_toks))}
+        for arch, kv in cases:
+            cfg = _port_cfg(arch, kv)
+            model = get_model(cfg)
+            params = model.init(seed=0, device=dev)
+            tokens = torch.randint(0, cfg.vocab_size, (2, 16),
+                                   generator=torch.Generator().manual_seed(1)
+                                   ).to(dev)
+            width = 32
+
+            def generate(p):
+                logits, toks = [], []
+                with torch.no_grad():
+                    lg, cache, pos = model.prefill(p, tokens, width)
+                    for i in range(new_tokens + 1):
+                        logits.append(lg.full_tensor() if sh.is_dtensor(lg)
+                                      else lg)
+                        toks.append(greedy_tokens(lg))
+                        if i < new_tokens:
+                            lg, cache = model.decode_step(p, cache, toks[-1],
+                                                          pos + i)
+                return logits, [t.full_tensor() if sh.is_dtensor(t) else t
+                                for t in toks]
+
+            want_logits, want_toks = generate(params)
+            _, pspecs = specs.param_sds(cfg, make_mesh((1, world),
+                                                       ("data", "model")))
+            placed = sh.distribute(params, pspecs, dmesh)
+            meshctx.set_device_mesh(dmesh)
+            _build.reset_launches()
+            try:
+                logits, toks = generate(placed)
+                torch.cuda.synchronize()
+            finally:
+                meshctx.set_device_mesh(None)
+            rows.append({
+                "case": case_name(arch, kv, (1, world)),
+                "layout": (kv_layout(cfg, world, width)
+                           if cfg.family != "ssm" else None),
+                "launches": dict(_build.LAUNCHES),
+                "layers": cfg.num_layers,
+                "logit_err": max(float((a - b).abs().max())
+                                 for a, b in zip(logits, want_logits)),
+                "logit_scale": max(float(b.abs().max())
+                                   for b in want_logits),
+                "tokens_equal": all(torch.equal(a, b)
+                                    for a, b in zip(toks, want_toks))})
+            del params, placed
     finally:
         dist.destroy_process_group()
     if rank == 0:
         with open(out_path, "w") as f:
-            json.dump(row, f)
+            json.dump(rows, f)
