@@ -206,7 +206,23 @@ Phases:
      the unsharded kernel path, the launches of both runs the unsharded
      formula (ssm L B10 a pass, moe the dense counts, hybrid 2L more B1),
      and no collective over more than one device;
- 15. one JSON line with the kernel table, then the ok line.
+ 15. the repo's entry points on the card (``repro_torch.examples``): the
+     ``run`` of serve_demo (the contiguous Scheduler over a Poisson trace
+     at 4 req/s, its TTFT and TPOT printed beside ``predict_slo``),
+     comm_study's ``--measure`` (``PipelineEngine`` at (t, p) = (1, 2),
+     its transfers equal to ``pp_comm_ops`` at b = 2), quant_demo (TP t =
+     2 int8 teacher-forced against unquantized, held to QUANT_TOLERANCE,
+     each decode's logged collectives to the closed form, its tokens/s
+     and wire bytes printed) and quickstart (forward, one AdamW step,
+     generate) at the full width of llama32-3b on LLAMA_DEPTH layers in
+     bf16 from seed 0; then prefix_demo, chaos_demo and disagg_demo,
+     whose invariant is a token stream identical to a solo or fault-free
+     run, in f32 on as many layers (phase 9 holds those identities in
+     f32); each example's invariants held, each of the kernels it
+     reaches launched; then
+     ``repro_torch.paper.run`` on the card's host, every Fig. 4 row
+     EXACT;
+ 16. one JSON line with the kernel table, then the ok line.
 
 It imports nothing of JAX, exits non-zero with no ok line when there is no
 card or when it is not inside a checkout of the repository, and lets every
@@ -5170,6 +5186,150 @@ def split_pass_check(dev):
         del q, k, v, got, want
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the examples and the paper's tables on the card
+# ---------------------------------------------------------------------------
+
+# the hand-written kernels each example must launch on the card (its
+# other launches are counted too)
+EXAMPLE_KERNELS = {
+    "serve_demo": ("rmsnorm", "add_rms_norm", "flash_attention",
+                   "decode_attention"),
+    "comm_study": ("rmsnorm", "add_rms_norm", "flash_attention",
+                   "decode_attention"),
+    "quant_demo": ("chunk_amax", "chunk_quantize", "dequantize_add_rms_norm",
+                   "decode_attention"),
+    "quickstart": ("rmsnorm", "add_rms_norm", "flash_attention",
+                   "decode_attention"),
+    "prefix_demo": ("flash_attention", "paged_decode_attention"),
+    "disagg_demo": ("flash_attention", "paged_decode_attention"),
+    "chaos_demo": ("flash_attention", "paged_decode_attention"),
+}
+
+
+def example_run(dev, smi, name, totals, fn):
+    """One example's ``run``: its launches counted into ``totals`` (each
+    of EXAMPLE_KERNELS[name] at least once), its seconds logged."""
+    t0 = time.perf_counter()
+    with count_into(totals) as counts:
+        out = fn()
+    wall = time.perf_counter() - t0
+    missing = [k for k in EXAMPLE_KERNELS[name] if counts[k] < 1]
+    log(f"[example {name}] {wall:.2f} s; launches "
+        f"{ {k: n for k, n in counts.items() if n} } ({smi})")
+    if missing:
+        raise AssertionError(f"{name}: {missing} never launched")
+    return out
+
+
+def examples_phase(dev, smi):
+    """Phase 15: the seven examples' ``run`` at the full width of
+    llama32-3b on LLAMA_DEPTH layers (bf16 from seed 0; the three
+    token-identity examples in f32), each held to its own invariants
+    (quant_demo, at t = 2 on these layers, to QUANT_TOLERANCE, which it
+    meets here where phase 5's t = 4 misses it, ROADMAP C6),
+    then ``paper.run`` on the card's host, every Fig. 4 row EXACT."""
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.examples import (chaos_demo, comm_study, disagg_demo,
+                                      prefix_demo, quant_demo, quickstart,
+                                      serve_demo)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.quant_collective import QUANT_TOLERANCE
+    from repro_torch.models.transformer import get_model
+    from repro_torch.paper import run as paper_run
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    totals = {name: 0 for name in _build.LAUNCHES}
+    t_phase = time.perf_counter()
+    cfg = llama_config()
+    params = get_model(cfg).init(seed=0, device=dev)
+
+    out = example_run(dev, smi, "serve_demo", totals,
+                      lambda: serve_demo.run(cfg, params, dev))
+    serve_demo.check(out)
+    s, pred = out["summary"], out["predicted"]
+    log(f"[example serve_demo] {len(out['trace'])} requests at 4 req/s, 4 "
+        f"slots: throughput {s['throughput_tok_s']:.1f} tok/s, mean TTFT "
+        f"{s['ttft_mean_s'] * 1e3:.1f} ms, TPOT {s['tpot_mean_s'] * 1e3:.2f}"
+        f" ms, E2E {s['e2e_mean_s']:.3f} s (smoke reading, not a cell); "
+        f"predict_slo (s_p={out['s_p']}, s_d={out['s_d']}, "
+        f"{cfg.num_layers} layers): {pred.row().strip()} ({smi})")
+
+    out = example_run(dev, smi, "comm_study", totals,
+                      lambda: comm_study.run(cfg, params, dev))
+    comm_study.check(out)
+    log(f"[example comm_study] PipelineEngine (t=1, p=2) b={out['b']}: "
+        f"measured == pp_comm_ops {out['rows']}")
+
+    out = example_run(dev, smi, "quant_demo", totals,
+                      lambda: quant_demo.run(cfg, params, dev))
+    tol = QUANT_TOLERANCE[out["quant"]]
+    quant_demo.check(out, tol["token_match_floor"],
+                     tol["logit_drift_ceiling"])
+    # the closed form's wire: each decode's logged collectives (no
+    # ceiling here: the unquantized logits gather keeps the quantized
+    # step's wire near 0.8 of the full-width one at this width)
+    quant_demo.check_wire(out)
+    log(f"[example quant_demo] t={out['tp']} B={out['batch']} "
+        f"{out['tokens']} tokens {out['quant']}: top-1 match "
+        f"{out['match']:.4f} drift {out['drift']:.4f} (QUANT_TOLERANCE "
+        f"{tol['token_match_floor']} / {tol['logit_drift_ceiling']}); "
+        f"decode wire/step {out['wire_b']:.0f} -> {out['wire_q']:.0f} B, "
+        f"logged == comm_ops_for (b={out['b']}, the "
+        f"logits gather unquantized; per-layer AR ratio "
+        f"{out['ratio']:.4f}); tokens/s {out['tps_b']:.1f} full-width -> "
+        f"{out['tps_q']:.1f} quantized (smoke reading, not a cell) ({smi})")
+
+    # last of the bf16 runs: its AdamW step updates the weights in place
+    out = example_run(dev, smi, "quickstart", totals,
+                      lambda: quickstart.run(cfg, params, dev))
+    quickstart.check(cfg, out)
+    log(f"[example quickstart] logits {tuple(out['logits'].shape)}, train "
+        f"step loss {out['loss']:.4f} grad_norm {out['grad_norm']:.3f}, "
+        f"generated {out['generated'][0].tolist()}")
+    del params, out
+    torch.cuda.empty_cache()
+
+    # the examples whose invariant is a token stream identical to a solo
+    # or fault-free run: f32, as phase 9 holds the same identities
+    # (failure_f32_run, disagg_run's cfg32); bf16 does not (ROADMAP C12)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = get_model(cfg32).init(seed=0, device=dev)
+    for name, mod, kw in (
+            ("prefix_demo", prefix_demo, {}), ("chaos_demo", chaos_demo, {}),
+            ("disagg_demo", disagg_demo,
+             {"planner_cfg": get_config(ARCH)})):
+        out = example_run(dev, smi, name, totals,
+                          lambda mod=mod, kw=kw: mod.run(cfg32, p32, dev,
+                                                         **kw))
+        mod.check(out)
+        log(f"[example {name}] f32 L={cfg32.num_layers}: invariants held "
+            f"(streams identical to the solo / fault-free runs, no page "
+            f"leaked)")
+    del p32
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            paper_run.main()
+    except SystemExit as exc:               # a module of the run failed
+        raise AssertionError("repro_torch.paper.run failed") from exc
+    rows = buf.getvalue().splitlines()
+    fig4 = [r for r in rows if r.startswith("fig4/")]
+    log(f"[paper] repro_torch.paper.run: {len(rows) - 1} rows in "
+        f"{time.perf_counter() - t0:.1f} s on the card's host")
+    for r in fig4:
+        log(f"[paper] {r}")
+    if len(fig4) != 3 or not all(r.endswith("match=EXACT") for r in fig4):
+        raise AssertionError(f"Fig. 4 rows not EXACT: {fig4}")
+    log(f"[examples phase] {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{totals}")
+    return totals
+
+
 def timed(phase, *args):
     """``phase(*args)``, its seconds logged."""
     t0 = time.perf_counter()
@@ -5239,6 +5399,8 @@ def main(argv=None) -> int:
             launches[name] += n
     timed(roofline_phase, smi)
     for name, n in timed(sharded_phase, dev, smi).items():
+        launches[name] += n
+    for name, n in timed(examples_phase, dev, smi).items():
         launches[name] += n
 
     table = []
