@@ -66,7 +66,8 @@ Phases:
      at each boundary of a quantized step); (e) one decode round's time
      breakdown per layout, with the boundary hops' device time;
   8. context parallelism on virtual CP workers, full width of llama32-3b,
-     (t, c, p) = (1, 2, 1), (2, 2, 1) and (1, 2, 2): (a) in phase 2, B2
+     (t, c, p) = (1, 2, 1), (2, 2, 1), (1, 2, 2) and, in (b)-(d),
+     (2, 2, 2) (TP x CP x PP, held to TPModel t = 2): (a) in phase 2, B2
      at the CP shard shapes (a 333-token prompt padded to 334 at c = 2:
      offsets 0 and 167, t = 1 and 2, a window of 64 at offset 167) and
      its time beside SDPA with a boolean [S/c, S] mask; (b) CP prefill +
@@ -181,7 +182,11 @@ Phases:
      internlm2-1.8b decode_32k on (data, model) = (16, 16) (8 KV heads on
      16: K/V gathered, and the sequence-parallel decode), deepseek-moe-16b
      decode_32k (the experts on the expert axis, their counts gathered
-     over "data"), rwkv6-7b prefill_32k (the time mix and the channel
+     over "data"), the same on the local dispatch (``moe_local``: each
+     data shard routes its own tokens, the stacks redistributed from E to
+     f by three all-to-alls a layer), mixtral-8x22b prefill_32k
+     ``moe_local_fsdp`` (stacks on f, gathered over "data" three a
+     layer), rwkv6-7b prefill_32k (the time mix and the channel
      mix's reduce-scatter and all-gather) and hymba-1.5b decode_32k (10
      attention heads over 5 KV heads on 16: the sequence-parallel decode
      on its 1024-row ring, the mamba branch's gathered xz), each record's
@@ -205,7 +210,9 @@ Phases:
      the sharded ``make_serve_step``: logits and tokens bitwise equal to
      the unsharded kernel path, the launches of both runs the unsharded
      formula (ssm L B10 a pass, moe the dense counts, hybrid 2L more B1),
-     and no collective over more than one device;
+     and no collective over more than one device; deepseek-moe-16b once
+     more on the local dispatch (``moe_dispatch="local"``, the same
+     parameters), held the same way;
  15. the repo's entry points on the card (``repro_torch.examples``): the
      ``run`` of serve_demo (the contiguous Scheduler over a Poisson trace
      at 4 req/s, its TTFT and TPOT printed beside ``predict_slo``),
@@ -2586,7 +2593,7 @@ def pp_round_breakdown(dev, smi, cfg, params, kind: str, t: int, p: int,
 # phase 8: context parallelism on virtual CP workers, full width
 # ---------------------------------------------------------------------------
 
-CP_LAYOUTS = ((1, 2, 1), (2, 2, 1), (1, 2, 2))     # (t, c, p)
+CP_LAYOUTS = ((1, 2, 1), (2, 2, 1), (1, 2, 2), (2, 2, 2))    # (t, c, p)
 # (e): (t, c, p, paged) over the smoke trace, 4 slots
 CP_SERVE = ((1, 2, 1, False), (2, 2, 1, True), (1, 2, 2, False))
 CP_TIME_S = 2048        # (f): one prompt of this length at t = 1
@@ -2678,6 +2685,7 @@ def cp_phase(dev, smi, params, prompt, kernel_rows):
     try:
         for t, c, p in CP_LAYOUTS:
             what = f"cp t={t} c={c} p={p}"
+            t_layout = time.perf_counter()
             model, mp = cp_model(cfg, params, t, c, p, dev, shards.get(t))
             ref, ref_params = ((get_model(cfg), params) if t == 1 else
                                (TPModel(cfg, t), shards[t]))
@@ -2755,6 +2763,8 @@ def cp_phase(dev, smi, params, prompt, kernel_rows):
                  f"({'Model' if t == 1 else 'TPModel t=2'})",
                  teacher_forced(model, mp, prompt, False), base,
                  LOGIT_MATCH_FLOOR, LOGIT_DRIFT_CEILING)
+            log(f"[cp parity] {what} in "
+                f"{time.perf_counter() - t_layout:.1f} s")
             del model, mp, ref, ref_params
         if not (rings and all(rings)):
             raise AssertionError("a ring-assembled K/V differs from its "
@@ -2768,7 +2778,7 @@ def cp_phase(dev, smi, params, prompt, kernel_rows):
         p32 = get_model(cfg32).init(seed=3, device=dev)
         x32 = torch.randint(2, cfg.vocab_size, (2, 127),
                             generator=torch.Generator().manual_seed(4)).to(dev)
-        same = {}
+        same, t_f32 = {}, time.perf_counter()
         for t, c, p in CP_LAYOUTS:
             ref, ref_params = pp_reference(cfg32, p32, t)
             want = tp_greedy(ref, ref_params, x32, 256, 32)
@@ -2777,7 +2787,8 @@ def cp_phase(dev, smi, params, prompt, kernel_rows):
                 tp_greedy(model, mp, x32, 256, 32), want))
             del model, mp
         log(f"[compare f32] L=4 full width, 2 prompts of 127 tokens (padded "
-            f"to 128), greedy 32 tokens CP == c = 1 path: {same}")
+            f"to 128), greedy 32 tokens CP == c = 1 path: {same} in "
+            f"{time.perf_counter() - t_f32:.1f} s")
         if not all(same.values()):
             raise AssertionError("f32 CP greedy tokens differ from c = 1")
         del p32
@@ -4929,6 +4940,8 @@ FUSES = {
 SHARDED_DRYRUNS = (("granite-8b", "prefill_32k"),
                    ("internlm2-1.8b", "decode_32k"),
                    ("deepseek-moe-16b", "decode_32k"),
+                   ("deepseek-moe-16b", "decode_32k", "moe_local"),
+                   ("mixtral-8x22b", "prefill_32k", "moe_local_fsdp"),
                    ("rwkv6-7b", "prefill_32k"),
                    ("hymba-1.5b", "decode_32k"))
 SHARDED_PROMPT, SHARDED_NEW = 333, 16
@@ -4975,16 +4988,17 @@ def sharded_phase(dev, smi):
 
     t_phase = time.perf_counter()
     # (a) full width on meta, 256 fake ranks
-    for arch, shape in SHARDED_DRYRUNS:
+    for arch, shape, *variant in SHARDED_DRYRUNS:
         t0 = time.perf_counter()
-        rec = dryrun.run_one(arch, shape, False)
+        rec = dryrun.run_one(arch, shape, False, *variant)
         if rec["status"] != "ok" or not rec["collectives_match"]:
-            raise AssertionError(f"dry run {arch} {shape}: {rec['status']}, "
-                                 f"collectives {rec.get('collectives')} != "
+            raise AssertionError(f"dry run {arch} {shape} {variant}: "
+                                 f"{rec['status']}, collectives "
+                                 f"{rec.get('collectives')} != "
                                  f"{rec.get('closed_form')}")
         seen = {k: [v["count"], v["msg_bytes"]]
                 for k, v in rec["collectives"].items()}
-        log(f"[sharded dry run] {arch} {shape} pod16x16 in "
+        log(f"[sharded dry run] {arch} {shape} {rec['mesh']} in "
             f"{time.perf_counter() - t0:.1f} s: collectives "
             f"{json.dumps(seen)} == closed form; per chip "
             f"{rec['roofline']['flops_per_chip']:.6g} FLOPs, temp "
@@ -5076,7 +5090,8 @@ def sharded_phase(dev, smi):
 
 def sharded_family_run(dev, smi, arch: str, dmesh, totals):
     """Phase 14(d) (module doc): one family at full width on the (1, 1)
-    mesh against its unsharded kernel path."""
+    mesh against its unsharded kernel path (the moe family on both
+    dispatches)."""
     from repro_torch.configs import get_config
     from repro_torch.core import step_comm
     from repro_torch.launch import specs as sp
@@ -5096,7 +5111,7 @@ def sharded_family_run(dev, smi, arch: str, dmesh, totals):
                            ).to(dev)
     max_len = SHARDED_FAMILY_PROMPTS[1] + SHARDED_FAMILY_NEW + 1
 
-    def generate(p):
+    def generate(p, model=model):
         lg, cache, pos = model.prefill(p, prompt, max_len)
         tok = greedy_tokens(lg)
         toks, step = [tok], make_serve_step(model)
@@ -5121,37 +5136,44 @@ def sharded_family_run(dev, smi, arch: str, dmesh, totals):
     want_logits = kept.restore()
     _, pspecs = sp.param_sds(cfg, sh.mesh_shape(dmesh))
     placed = sh.distribute(params, pspecs, dmesh)
-    meshctx.set_device_mesh(dmesh)
-    try:
-        kept = HeadLogits(model)
-        t1 = time.perf_counter()
-        got, log_ = drive_counted(
-            f"{arch} sharded", lambda: step_comm.record(generate, placed),
-            totals, L, grad_mode=torch.no_grad, **expect)
-        wall = time.perf_counter() - t1
-        got_logits = kept.restore()
-    finally:
-        meshctx.set_device_mesh(None)
-    same_tokens = all(torch.equal(a, b) for a, b in zip(got, want))
-    same_logits = len(got_logits) == len(want_logits) and all(
-        torch.equal(a, b) for a, b in zip(got_logits, want_logits))
-    named = sorted({(c.kind, c.group_size) for c in log_})
-    log(f"[sharded] {arch} bf16 on a (1, 1) DeviceMesh over NCCL: "
-        f"{SHARDED_FAMILY_PROMPTS[0]} prompts of "
-        f"{SHARDED_FAMILY_PROMPTS[1]} + {SHARDED_FAMILY_NEW} decode steps "
-        f"in {wall:.3f} s host wall (unsharded {wall_plain:.3f} s); tokens "
-        f"bitwise == unsharded: {same_tokens}, logits "
-        f"({len(got_logits)} rows) bitwise: {same_logits}; collectives "
-        f"read off the step (kind, group size): {named or 'none'}; peak "
-        f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
-        f"GiB; {time.perf_counter() - t0:.1f} s with init ({smi})")
-    if not (same_tokens and same_logits):
-        raise AssertionError(f"{arch}: sharded step != unsharded kernel "
-                             f"path")
-    wide = [c for c in log_ if c.group_size > 1]
-    if wide:
-        raise AssertionError(f"{arch}: collectives over more than one "
-                             f"device on a (1, 1) mesh: {wide}")
+    runs = [(arch, model)]
+    if cfg.family == "moe":     # the local dispatch, the same parameters
+        runs.append((f"{arch} moe_dispatch=local", get_model(
+            dataclasses.replace(cfg, moe_dispatch="local"))))
+    for what, m in runs:
+        meshctx.set_device_mesh(dmesh)
+        try:
+            kept = HeadLogits(m)
+            t1 = time.perf_counter()
+            got, log_ = drive_counted(
+                f"{what} sharded",
+                lambda: step_comm.record(generate, placed, m),
+                totals, L, grad_mode=torch.no_grad, **expect)
+            wall = time.perf_counter() - t1
+            got_logits = kept.restore()
+        finally:
+            meshctx.set_device_mesh(None)
+        same_tokens = all(torch.equal(a, b) for a, b in zip(got, want))
+        same_logits = len(got_logits) == len(want_logits) and all(
+            torch.equal(a, b) for a, b in zip(got_logits, want_logits))
+        named = sorted({(c.kind, c.group_size) for c in log_})
+        log(f"[sharded] {what} bf16 on a (1, 1) DeviceMesh over NCCL: "
+            f"{SHARDED_FAMILY_PROMPTS[0]} prompts of "
+            f"{SHARDED_FAMILY_PROMPTS[1]} + {SHARDED_FAMILY_NEW} decode "
+            f"steps in {wall:.3f} s host wall (unsharded {wall_plain:.3f} "
+            f"s); tokens bitwise == unsharded: {same_tokens}, logits "
+            f"({len(got_logits)} rows) bitwise: {same_logits}; collectives "
+            f"read off the step (kind, group size): {named or 'none'}; "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+            f"{time.perf_counter() - t0:.1f} s with init ({smi})")
+        if not (same_tokens and same_logits):
+            raise AssertionError(f"{what}: sharded step != unsharded "
+                                 f"kernel path")
+        wide = [c for c in log_ if c.group_size > 1]
+        if wide:
+            raise AssertionError(f"{what}: collectives over more than one "
+                                 f"device on a (1, 1) mesh: {wide}")
     del params, placed
     torch.cuda.empty_cache()
 

@@ -177,15 +177,27 @@ def closed_form(cfg, mode: str, mesh_shape: dict, B: int, S: int,
     the "model" axis, dp the batch axes' devices, b = B / dp, e the type's
     bytes, L the layers, row = [b, S, h]·e; a collective over one device
     is none, and one over the batch axes runs only where the batch is
-    split over them.
+    split over them.  ``param_bytes``' keys are leaf names, suffixed
+    ":data" where the leaf is split over a batch axis (``moe_fsdp``'s
+    expert stacks) and then ":model" where it is split over "model"
+    (``local_param_bytes``).
 
       * "prefill" (and a forward): the embedding's all-reduce of row (none
         for the encoder; the vlm's over its text tokens, [b, S - P, h]·e,
         before the P prefix embeddings join), then per layer:
         - dense, encoder, vlm: 2 all-reduces of row (the attention's and
           the MLP's row-parallel outputs, each at the norm after it);
-        - moe: the same 2, and the experts' counts all-gathered over the
-          batch axes, [dp·E] int32 (the capacity cut is global);
+        - moe, GSPMD dispatch: the same 2, and the experts' counts
+          all-gathered over the batch axes, [dp·E] int32 (the capacity
+          cut is global);
+        - moe, local dispatch (``moe_dispatch`` "local" on a mesh with a
+          "model" axis): the same 2 and no counts gather.  With stack =
+          E·h·f/m·e (one layer's expert stack split on f, f its d_ff) and
+          d the "data" axis: where the stacks are stored on the expert
+          axis (``sharding.expert_stack_layout``), 3 all-to-alls over
+          "model" that redistribute them to f, of stack (stack / d under
+          ``moe_fsdp``); under ``moe_fsdp`` (d > 1), 3 all-gathers over
+          "data" of stack, whether or not the batch is split;
         - ssm: 1 all-reduce of row (the time mix), and the channel mix's
           reduce-scatter of its value ([b, S, h/m]·e) and all-gather of
           its output (row);
@@ -205,7 +217,14 @@ def closed_form(cfg, mode: str, mesh_shape: dict, B: int, S: int,
         three all-gathers.
       * "train": the forward's collectives, and the MoE layer's sum of the
         router's probabilities over the batch axes ([E] f32, the aux
-        loss's mean); the cross-entropy's three all-reduces over "model"
+        loss's mean; on the local dispatch instead the aux loss's own f32
+        all-reduce over them, 4 bytes, its ``pmean``); the local
+        dispatch's 3 inverse all-to-alls a layer where the stacks are
+        stored on E and, under ``moe_fsdp`` where the batch is split, 3
+        reduce-scatters over "data" of each gathered stack's gradient,
+        stack / d (where it is not split, every data shard computes the
+        whole gradient and keeps its block: no collective); the
+        cross-entropy's three all-reduces over "model"
         ([b, S'] f32, S' the positions with a target) and its scalar over
         the batch axes; the backward's all-reduce of each
         column-parallel input's gradient: per layer q, k, v and the MLP's
@@ -221,9 +240,11 @@ def closed_form(cfg, mode: str, mesh_shape: dict, B: int, S: int,
         column blocks, all-reduce their gradients over "model" ([64, h]·e,
         [h]·4, [h]·e); one all-reduce over the batch axes of each
         parameter's local gradient (``param_bytes``: its local bytes; the
-        tied embedding twice, once a use) and one scalar all-reduce over
-        "model" of the squared norm of each parameter split over it
-        (``param_bytes``' keys ending in ":model").  Under ``remat``
+        tied embedding twice, once a use), but none of a ":data" leaf's
+        on a mesh without "pod" (its reduce-scatter has summed it); and
+        one scalar all-reduce of the squared norm over "model" for each
+        parameter split over it (keys ending in ":model") and over the
+        batch axes for each ":data" leaf.  Under ``remat``
         ("full" or "dots") the backward recomputes each layer, and with
         it the layer's forward collectives but layer 0's input, which
         arrives reduced."""
@@ -244,8 +265,16 @@ def closed_form(cfg, mode: str, mesh_shape: dict, B: int, S: int,
         from repro_torch.models.hybrid import head_split
         di, N = head_split(cfg)[1] * D, cfg.ssm.state_size
         in_split, di_split = (2 * di) % m == 0, di % m == 0
+    local = fam == "moe" and cfg.moe_dispatch == "local" and \
+        "model" in mesh_shape
+    if local:
+        from repro_torch.runtime.sharding import expert_stack_layout
+        E, d = cfg.moe.num_experts, mesh_shape.get("data", 1)
+        on_e, fsdp = expert_stack_layout(cfg, m, d)
+        stack = E * h * cfg.moe.expert_d_ff // m * e   # a stack, f split
+        moved = stack // (d if fsdp else 1)
     out: Dict[str, dict] = {}
-    if m == 1 and not batch:
+    if m == 1 and not batch and not (local and fsdp):
         return out
     M = 1 if m > 1 else 0          # a collective over "model" runs
     # one layer's forward, and whether its output is a partial sum (the
@@ -258,7 +287,12 @@ def closed_form(cfg, mode: str, mesh_shape: dict, B: int, S: int,
         layer += [("allgather", row)] * M
     else:
         layer += [("allreduce", row)] * M     # the attention's output
-    if fam == "moe" and batch:
+    if local:
+        layer += [("alltoall", moved)] * (3 if on_e else 0)
+        layer += [("allgather", stack)] * (3 if fsdp else 0)
+        if mode == "train" and batch:
+            layer.append(("allreduce", 4))
+    elif fam == "moe" and batch:
         layer.append(("allgather", dp * cfg.moe.num_experts * 4))
         if mode == "train":
             layer.append(("allreduce", cfg.moe.num_experts * 4))
@@ -319,32 +353,44 @@ def closed_form(cfg, mode: str, mesh_shape: dict, B: int, S: int,
         if fam == "hybrid" and di_split:
             _add(out, "reducescatter", L, b * S * 2 * di // m * e)
             _add(out, "allreduce", L, b * S * 2 * N * e)
+    if local:      # the inverse all-to-alls, the gathers' scatters
+        _add(out, "alltoall", 3 * L if on_e else 0, moved)
+        _add(out, "reducescatter", 3 * L if fsdp and batch else 0,
+             stack // d)
     if remat != "none":
         for kind, nbytes in layer:
             _add(out, kind, L, nbytes)
         _add(out, "allreduce", (L - 1) * M if partial_out else 0, row)
     if batch:
         _add(out, "allreduce", 1, 4)
+        pod = mesh_shape.get("pod", 1) > 1
         for name, nbytes in (param_bytes or {}).items():
+            if ":data" in name and not pod:
+                continue
             uses = 2 if (name.startswith("embed") and cfg.tie_embeddings
                          and fam != "encoder") else 1
             _add(out, "allreduce", uses, nbytes)
     if m > 1:
         sharded = sum(1 for k in (param_bytes or {}) if k.endswith(":model"))
         _add(out, "allreduce", sharded, 4)
+    _add(out, "allreduce", sum(1 for k in (param_bytes or {})
+                               if ":data" in k), 4)
     return out
 
 
 def local_param_bytes(params) -> Dict[str, int]:
     """{leaf name: its local bytes} of a DTensor parameter tree, the name
-    suffixed with ":model" where the leaf is split over "model" (the input
-    ``closed_form`` takes for a train step)."""
+    suffixed with ":data" where the leaf is split over a batch axis of
+    more than one device (``moe_fsdp``) and then ":model" where it is
+    split over "model" (the input ``closed_form`` takes for a train
+    step)."""
     from repro_torch.checkpoint.store import flatten
     from repro_torch.runtime import sharding as sh
     out = {}
     for name, p in flatten(params).items():
         local = p.to_local()
-        key = name + (":model" if sh.model_sharded(p) else "")
+        key = name + (":data" if sh.split_over_batch(p) else "") \
+            + (":model" if sh.model_sharded(p) else "")
         out[key] = local.numel() * local.element_size()
     return out
 

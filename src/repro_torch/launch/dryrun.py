@@ -21,11 +21,12 @@ The records have JAX's keys (``memory_analysis``, ``bytes_per_device``,
 ``cost_analysis``, ``collectives``, ``roofline``) plus ``closed_form`` and
 ``collectives_match``.  ``memory_analysis`` is the eager step's:
 arguments and outputs are the rank's local bytes, ``temp_size_in_bytes``
-the walk's peak of live intermediates.  Every family runs sharded; a
-variant whose feature the sharded step raises ``NotImplementedError``
-for (the fused loss, paged serving, ``moe_dispatch="local"``) is
-recorded as ``not_ported`` with the step's reason; any other fault is an
-error.
+the walk's peak of live intermediates.  Every family runs sharded, and
+so do the ``moe_local*`` variants (the local MoE dispatch, with and
+without ``moe_fsdp``); a variant whose feature the sharded step raises
+``NotImplementedError`` for (the fused loss, paged serving, the GSPMD
+dispatch under ``moe_fsdp``) is recorded as ``not_ported`` with the
+step's reason; any other fault is an error.
 
 Usage (the CPU is enough):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-8b \\

@@ -42,9 +42,15 @@ layer.  ``moe_block_apply`` takes it exactly where JAX's does: with
 
 Under a ``DeviceMesh`` in ``runtime.meshctx`` the layer is one sharded
 step (``_moe_block_sharded``): the dense block's attention and norm
-sites, then ``_moe_ffn_sharded``, the GSPMD path's values (the dispatch
-over the global token set) from each rank's own experts and data shard.
-The local dispatch is not sharded there and raises.
+sites, then the experts as one site.  On the GSPMD dispatch that is
+``_moe_ffn_sharded``, the GSPMD path's values (the dispatch over the
+global token set) from each rank's own experts and data shard.  On the
+local dispatch (``cfg.moe_dispatch == "local"``, the mesh with a "model"
+axis) it is ``_moe_ffn_local_sharded``, JAX's shard_map path: each data
+shard routes its own tokens against its own capacity, the expert stacks
+run split on f (redistributed from the expert axis by all-to-alls where
+they are stored there; gathered over "data" under ``moe_fsdp``), and one
+all-reduce over "model" a layer closes them.
 """
 from __future__ import annotations
 
@@ -183,14 +189,19 @@ def _dispatch(cfg: ModelConfig, router, xf, cap: int):
     """Route tokens xf [T, h] and fill the dense [E, cap, h] buffer ->
     (plan, aux): the plan is what ``_experts`` needs (the buffer xe, each
     token's K buffer rows and weights, in ascending expert id)."""
-    moe = cfg.moe
-    E, K = moe.num_experts, moe.top_k
-    T = xf.shape[0]
     top_p, top_i, probs = _routed(cfg, router, xf)
     plan, counts = _fill(cfg, xf, top_p, top_i, cap)
-    frac_tok = counts.float() / (T * K)
-    aux = E * torch.sum(probs.mean(dim=0) * frac_tok) * moe.router_aux_coef
-    return plan, aux
+    return plan, _aux_loss(cfg, probs.mean(dim=0), counts, xf.shape[0])
+
+
+def _aux_loss(cfg: ModelConfig, mean_prob, counts, T: int):
+    """E·Σ(mean_prob·frac_tok)·coef of T tokens' mean routing
+    probabilities mean_prob [E] and the experts' counts [E] of their T·K
+    pairs."""
+    moe = cfg.moe
+    frac_tok = counts.float() / (T * moe.top_k)
+    return (moe.num_experts * torch.sum(mean_prob * frac_tok)
+            * moe.router_aux_coef)
 
 
 def _fill(cfg: ModelConfig, xf, top_p, top_i, cap: int, before=None,
@@ -336,9 +347,10 @@ def moe_block_apply(cfg: ModelConfig, p, x, positions, cache=None, pos=None,
     """One MoE layer: GQA attention, then the routed (and shared) experts
     in place of the MLP (on the expert-TP path when ``cfg.moe_dispatch``
     is "local" and ``meshctx`` holds a mesh with a ``model`` axis; as one
-    sharded step under a DeviceMesh, ``_moe_block_sharded``).  ``carry``,
-    ``cache`` and ``build_cache_w`` as in ``blocks.dense_block_apply``;
-    the layer's aux loss is appended to ``aux_out`` when it is a list."""
+    sharded step under a DeviceMesh, ``_moe_block_sharded``, on either
+    dispatch).  ``carry``, ``cache`` and ``build_cache_w`` as in
+    ``blocks.dense_block_apply``; the layer's aux loss is appended to
+    ``aux_out`` when it is a list."""
     if meshctx.get_device_mesh() is not None:
         return _moe_block_sharded(cfg, p, x, positions, cache, pos,
                                   build_cache_w, plain, carry, aux_out)
@@ -370,21 +382,28 @@ def _moe_block_sharded(cfg, p, x, positions, cache, pos, build_cache_w,
                        plain, carry, aux_out):
     """``moe_block_apply`` on DTensors: the dense block's norm sites and
     attention site (``blocks``), then the routed and shared experts as one
-    site whose output is a partial sum over "model"."""
-    if cfg.moe_dispatch == "local":
-        raise NotImplementedError(
-            "moe_dispatch='local' (the expert-TP dispatch of each data "
-            "shard's own tokens) runs on a core.comm.VirtualMesh, not as a "
-            "sharded step on a DeviceMesh")
+    site whose output is a partial sum over "model": the local dispatch
+    (``_moe_ffn_local_sharded``) where ``cfg.moe_dispatch`` is "local" and
+    the mesh has a "model" axis, as JAX takes its shard_map path, else the
+    GSPMD path's values (``_moe_ffn_sharded``)."""
     h_in, x = x if carry else (None, x)
     x, xn = layers.add_norm(x, h_in, p["ln1"], cfg.norm_eps, plain)
     y, cache_out = blocks._attention_sharded(cfg, p, xn, positions, cache,
                                              pos, build_cache_w, plain, 0)
     x, xn = layers.add_norm(x, y, p["ln2"], cfg.norm_eps, plain)
-    out, aux = _moe_ffn_sharded(cfg, p, xn, with_aux=aux_out is not None)
+    local = (cfg.moe_dispatch == "local"
+             and "model" in sh.device_mesh().mesh_dim_names)
+    ffn = _moe_ffn_local_sharded if local else _moe_ffn_sharded
+    out, aux = ffn(cfg, p, xn, with_aux=aux_out is not None)
     if aux_out is not None:
         aux_out.append(aux)
     return blocks.close_sharded(x, out, carry), cache_out
+
+
+_STACKS = ("we1", "we2", "we3")
+# an expert stack's f axis and h axis in one layer's [E, h, f] / [E, f, h]
+_F_DIM = {"we1": 2, "we2": 1, "we3": 2}
+_H_DIM = {"we1": 1, "we2": 2, "we3": 1}
 
 
 def _moe_ffn_sharded(cfg: ModelConfig, p, xn, with_aux: bool):
@@ -413,18 +432,15 @@ def _moe_ffn_sharded(cfg: ModelConfig, p, xn, with_aux: bool):
     In the backward, the tokens' and the routing weights' gradients are
     all-reduced over "model" (``copy_to_model``: each rank's pairs give a
     part of them)."""
-    moe = cfg.moe
-    E, K = moe.num_experts, moe.top_k
-    B, S, h = xn.shape
+    E = cfg.moe.num_experts
+    B, S, _ = xn.shape
     T = B * S
     cap = moe_capacity(T, cfg)
-    stacks = ("we1", "we2", "we3")
-    shared = tuple(n for n in ("sw1", "sw2", "sw3") if n in p)
-    if any(sh.split_over_batch(p[n]) for n in stacks):
+    if any(sh.split_over_batch(p[n]) for n in _STACKS):
         raise NotImplementedError("expert stacks split over the batch axes "
                                   "(moe_fsdp) are not sharded")
     # one layer's [E, h, f] / [E, f, h] stacks: split on E, or on f
-    dims = tuple(sh.model_dim(p[n]) for n in stacks)
+    dims = tuple(sh.model_dim(p[n]) for n in _STACKS)
     if dims == (0, 0, 0):
         m, r = sh.axis_size("model"), sh.model_rank()
         experts = (r * E // m, (r + 1) * E // m)
@@ -433,20 +449,107 @@ def _moe_ffn_sharded(cfg: ModelConfig, p, xn, with_aux: bool):
     else:
         raise NotImplementedError("a sharded MoE needs the experts or their "
                                   "d_ff to divide the model axis")
+    split = sh.batch_sharded(xn)
+
+    def queue(top_i):
+        if not split:
+            return cap, None, experts, None
+        every = sh.gather_batch_values(_counts(top_i, E).to(torch.int32))
+        return cap, every[:sh.batch_index()].sum(0), experts, every.sum(0)
+
+    def aux_loss(probs, total):
+        mean_prob = (sh.reduce_batch(probs.sum(0)) / T if split
+                     else probs.mean(dim=0))
+        return _aux_loss(cfg, mean_prob, total, T)
+
+    return _experts_site(cfg, p, xn, with_aux, lambda w: w, queue, aux_loss)
+
+
+def _moe_ffn_local_sharded(cfg: ModelConfig, p, xn, with_aux: bool):
+    """The local dispatch of a sharded step, one site on the local shards,
+    following JAX's ``moe_ffn_local`` (its shard_map) step for step: xn
+    [B, S, h] (split over the batch axes where B divides them, else whole
+    on every rank) -> (y, a partial sum over "model"; aux, replicated, or
+    None when ``with_aux`` is False).
+
+      * Tokens stay on their data shard: each rank routes its own b·S
+        tokens against ``moe_capacity(b·S)``, with no collective, so its
+        drops are those of JAX's shard (and of ``moe_ffn_local`` on a
+        ``core.comm.VirtualMesh``).
+      * The experts run split on f over "model" (JAX's in_specs).  Stacks
+        stored on the expert axis (E divides "model") are redistributed
+        to f inside the step, one all-to-all over "model" a stack, as XLA
+        does at the shard_map boundary; stacks stored on f are used as
+        they are.  Under ``moe_fsdp`` (the stacks' h split over "data")
+        each stack is then all-gathered over "data", JAX's three
+        ``all_gather(..., tiled=True)``; where the batch is split over
+        "data" the backward reduce-scatters the data shards' gradients,
+        where it is not each shard keeps its block of the whole gradient
+        it computed (``sharding.gather_data``).
+      * The routed experts' partial and the shared experts' f block make
+        one partial sum over "model", closed by the layer's one
+        all-reduce (``blocks.close_sharded``: JAX's ``psum``).
+      * The aux loss is the shard's own; where the batch is split, it is
+        all-reduced over the batch axes and divided by dp (JAX's
+        ``pmean``).
+      * In the backward, the tokens' and the routing weights' gradients
+        are all-reduced over "model" (``copy_to_model``), so the router's
+        gradient is whole on every model rank."""
+    if cfg.moe.expert_d_ff % sh.axis_size("model"):
+        raise NotImplementedError("the local dispatch needs the experts' "
+                                  "d_ff to divide the model axis")
+    # one layer's stacks: on E (redistributed to f below), or on f
+    dims = tuple(sh.model_dim(p[n]) for n in _STACKS)
+    if dims not in ((0, 0, 0), (2, 1, 2)):
+        raise NotImplementedError(f"expert stacks split on dims {dims}")
+    fsdp = tuple(sh.split_over_batch(p[n]) for n in _STACKS)
+    split = sh.batch_sharded(xn)
+    dp = math.prod(sh.axis_size(a) for a in ("pod", "data"))
+
+    def prepare(w):
+        for n, gather in zip(_STACKS, fsdp):
+            if dims[0] == 0:
+                w[n] = sh.experts_to_f(w[n], _F_DIM[n])
+            if gather:
+                w[n] = sh.gather_data(w[n], _H_DIM[n], split)
+        return w
+
+    def queue(top_i):
+        return moe_capacity(top_i.shape[0], cfg), None, None, None
+
+    def aux_loss(probs, counts):
+        aux = _aux_loss(cfg, probs.mean(dim=0), counts, probs.shape[0])
+        if split:
+            aux = (sh.reduce_batch(aux.reshape(1)) / dp).reshape(())
+        return aux
+
+    return _experts_site(cfg, p, xn, with_aux, prepare, queue, aux_loss)
+
+
+def _experts_site(cfg: ModelConfig, p, xn, with_aux: bool, prepare, queue,
+                  aux_loss):
+    """The routed and shared experts as one site under ``local_site``, the
+    part both sharded dispatches share -> (y, a partial sum over "model";
+    aux, replicated, or None when ``with_aux`` is False).  On the local
+    blocks, ``prepare(w)`` readies the layer's weights (a dict by name)
+    for the experts; the tokens are routed, ``queue(top_i)`` gives
+    ``_fill``'s capacity, queue places ahead and expert range, and the
+    experts' counts the aux loss takes (None: the shard's own);
+    ``aux_loss(probs, counts)`` is the layer's aux loss.  The shared
+    experts' f block is added to the routed partial."""
+    from torch.distributed.tensor import Replicate
+    h = cfg.d_model
+    shared = tuple(n for n in ("sw1", "sw2", "sw3") if n in p)
     if not all(sh.model_sharded(p[n]) for n in shared):
         raise NotImplementedError("a sharded MoE needs the shared experts' "
                                   "d_ff to divide the model axis")
-    split = sh.batch_sharded(xn)
-    names = ("router",) + stacks + shared
+    names = ("router",) + _STACKS + shared
 
     def local(xn, *ws):
-        w = dict(zip(names, ws))
+        w = prepare(dict(zip(names, ws)))
         xf = xn.reshape(-1, h)
         top_p, top_i, probs = _routed(cfg, w["router"], xf)
-        before = None
-        if split:
-            every = sh.gather_batch_values(_counts(top_i, E).to(torch.int32))
-            before = every[:sh.batch_index()].sum(0)
+        cap, before, experts, total = queue(top_i)
         xc = sh.copy_to_model(xf)
         plan, counts = _fill(cfg, xc, sh.copy_to_model(top_p), top_i, cap,
                              before, experts)
@@ -457,15 +560,8 @@ def _moe_ffn_sharded(cfg: ModelConfig, p, xn, with_aux: bool):
         y = y.reshape(xn.shape)
         if not with_aux:
             return y
-        if split:
-            mean_prob = sh.reduce_batch(probs.sum(0)) / T
-            total = every.sum(0)
-        else:
-            mean_prob, total = probs.mean(dim=0), counts
-        frac_tok = total.float() / (T * K)
-        return y, E * torch.sum(mean_prob * frac_tok) * moe.router_aux_coef
+        return y, aux_loss(probs, counts if total is None else total)
 
-    from torch.distributed.tensor import Replicate
     y_pl = sh.partial_model(xn.placements)
     out_pl = (y_pl, [Replicate()] * len(y_pl)) if with_aux else y_pl
     out = sh.local_site(local, out_pl, xn, *(p[n] for n in names),

@@ -19,8 +19,9 @@ On a sharded step (DTensor parameters and gradients on a DeviceMesh,
 ``update`` first sums each gradient over the batch axes
 (``sharding.reduce_grads``, one all-reduce a leaf), then takes the global
 norm as JAX's compiled step does, each leaf split over "model"
-contributing its local sum of squares through one scalar all-reduce, and
-updates every rank's local blocks in place.
+contributing its local sum of squares through one scalar all-reduce (and
+one more over the batch axes for a leaf split over them, ``moe_fsdp``'s
+expert stacks), and updates every rank's local blocks in place.
 """
 from __future__ import annotations
 
@@ -60,10 +61,12 @@ def _pieces(*tensors):
 
 def _local_sq(g):
     """The sum of squares of DTensor g: its local blocks' sum, all-reduced
-    over "model" (one scalar) where g is split over it."""
+    over "model" (one scalar) where g is split over it, and over the batch
+    axes (one more) where g is split over them (``moe_fsdp``)."""
     sq = 0
     for (piece,) in _pieces(g.to_local()):
         sq = sq + torch.sum(torch.square(piece.float()))
+    sq = sh.reduce_split_batch(sq, g)
     return sh.reduce_model(sq) if sh.model_sharded(g) else sq
 
 

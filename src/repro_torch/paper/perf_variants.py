@@ -3,9 +3,9 @@
 --variant``).  Degrades to a single informational row when the
 ``results/dryrun_torch`` archive is absent (fresh checkout).  Counterpart
 of ``benchmarks/perf_variants.py``, with its pairs and its filter: a
-record that is not ``ok`` is left out — the ``moe_local*`` variants
-record ``not_ported`` while the local MoE dispatch does not run on a
-``DeviceMesh``.
+record that is not ``ok`` is left out.  The ``moe_local*`` variants run
+the local MoE dispatch sharded, so mixtral-8x22b's and deepseek-moe-16b's
+variant rows appear once their records are written.
 
     PYTHONPATH=src python -m repro_torch.paper.perf_variants
 """

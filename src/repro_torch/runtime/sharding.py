@@ -103,13 +103,29 @@ def param_specs(cfg: ModelConfig, params_shape, model_axis: str = "model",
         spec = _spec_for_leaf(name, shape, model_axis, axis_size)
         if cfg.moe_fsdp and name in ("we1", "we2", "we3"):
             data_dim = {"we1": 2, "we3": 2, "we2": 3}[name]
-            if spec[data_dim] is None and shape[data_dim] % 16 == 0:
+            if spec[data_dim] is None and _fsdp_splits(shape[data_dim]):
                 parts = list(spec)
                 parts[data_dim] = "data"
                 spec = P(*parts)
         return spec
 
     return walk(params_shape)
+
+
+def _fsdp_splits(h: int) -> bool:
+    """Whether ``moe_fsdp`` splits an expert stack's h over "data"."""
+    return h % 16 == 0
+
+
+def expert_stack_layout(cfg: ModelConfig, m: int, d: int = 1):
+    """(on_e, fsdp): whether ``param_specs`` stores the expert stacks on
+    their expert axis over a "model" axis of m > 1 devices (else on f, or
+    whole), and whether ``moe_fsdp`` splits their h over a "data" axis of
+    d > 1 devices."""
+    E, h, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.expert_d_ff
+    spec = _spec_for_leaf("we1", (1, E, h, f), "model", m)
+    return (m > 1 and spec[1] is not None,
+            d > 1 and cfg.moe_fsdp and _fsdp_splits(h))
 
 
 def batch_axes(mesh) -> Tuple[str, ...]:
@@ -327,12 +343,12 @@ def _group(axis: str):
     return dmesh.get_group(axis)
 
 
-def _batch_group():
-    """The group over the batch axes of more than one device, flattened
-    when there are two (pod and data), or None."""
+def _batch_group(among=_BATCH):
+    """The group over the batch axes (of ``among``) of more than one
+    device, flattened when there are two (pod and data), or None."""
     dmesh = device_mesh()
     axes = tuple(a for a in _BATCH if a in dmesh.mesh_dim_names
-                 and axis_size(a) > 1)
+                 and a in among and axis_size(a) > 1)
     if not axes:
         return None
     if len(axes) == 1:
@@ -350,6 +366,12 @@ def _all_gather(x, dim: int, group):
     gather = getattr(funcol, "all_gather_single", None) \
         or funcol.all_gather_tensor
     return funcol.wait_tensor(gather(x.contiguous(), dim % x.dim(), group))
+
+
+def _all_to_all(x, group):
+    import torch.distributed._functional_collectives as funcol
+    return funcol.wait_tensor(funcol.all_to_all_single(
+        x.contiguous(), None, None, group))
 
 
 def _reduce_scatter(x, dim: int, group):
@@ -380,27 +402,43 @@ class _Reduce(torch.autograd.Function):
         return g, None
 
 
-class _GatherModel(torch.autograd.Function):
+class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim):
-        ctx.dim = dim
-        return _all_gather(x, dim, _group("model"))
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return _all_gather(x, dim, _group(axis))
 
     @staticmethod
     def backward(ctx, g):
-        return _reduce_scatter(g, ctx.dim, _group("model")), None
+        return _reduce_scatter(g, ctx.dim, _group(ctx.axis)), None, None
+
+
+class _ExpertsToF(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, fdim):
+        # block j of each of the rank's experts' f goes to rank j, which
+        # stacks the blocks it receives in rank (expert) order
+        ctx.fdim, m = fdim, axis_size("model")
+        got = _all_to_all(torch.stack(w.chunk(m, dim=fdim)), _group("model"))
+        return got.reshape(-1, *got.shape[2:])
+
+    @staticmethod
+    def backward(ctx, g):
+        m = axis_size("model")
+        got = _all_to_all(g.reshape(m, -1, *g.shape[1:]), _group("model"))
+        return torch.cat(got.unbind(0), dim=ctx.fdim), None
 
 
 class _GatherReplicated(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim):
-        ctx.dim, ctx.n = dim, x.shape[dim]
-        return _all_gather(x, dim, _group("model"))
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.n, ctx.axis = dim, x.shape[dim], axis
+        return _all_gather(x, dim, _group(axis))
 
     @staticmethod
     def backward(ctx, g):
-        lo = model_rank() * ctx.n
-        return g.narrow(ctx.dim, lo, ctx.n), None
+        lo = device_mesh().get_local_rank(ctx.axis) * ctx.n
+        return g.narrow(ctx.dim, lo, ctx.n), None, None
 
 
 class _ScatterModel(torch.autograd.Function):
@@ -448,6 +486,17 @@ def reduce_batch(x):
     return x if group is None else _Reduce.apply(x, group)
 
 
+def reduce_split_batch(x, w):
+    """The sum of x over the batch axes DTensor w is split over (one
+    all-reduce, none where w is split over none of more than one device;
+    no gradient): a leaf's sum of squares under ``moe_fsdp``."""
+    from torch.distributed.tensor import Shard
+    names = w.device_mesh.mesh_dim_names
+    group = _batch_group(tuple(a for a, p in zip(names, w.placements)
+                               if isinstance(p, Shard)))
+    return x if group is None else _all_reduce(x.detach(), "sum", group)
+
+
 def reduce_batch_grad(w):
     """w, whose gradient is summed over the batch axes here (one
     all-reduce of this use's contribution; none where they hold one
@@ -469,7 +518,31 @@ def gather_model(x, dim: int):
     the gradient is reduce-scattered back)."""
     if axis_size("model") == 1:
         return x
-    return _GatherModel.apply(x, dim)
+    return _Gather.apply(x, dim, "model")
+
+
+def gather_data(x, dim: int, split: bool):
+    """x's blocks over "data" concatenated along ``dim`` (one all-gather,
+    none where "data" holds one device).  Where the batch is ``split``
+    over "data", each data shard's gradient is its own tokens' share and
+    is reduce-scattered back; where it is not, every data shard computes
+    the whole gradient and keeps its own block, no collective."""
+    if axis_size("data") == 1:
+        return x
+    if split:
+        return _Gather.apply(x, dim, "data")
+    return _GatherReplicated.apply(x, dim, "data")
+
+
+def experts_to_f(w, fdim: int):
+    """An expert stack's layer split on its expert axis (dim 0) over
+    "model" -> the same stack split on its f axis ``fdim``: the rank's
+    experts [E/m, ...] become every expert's f block [E, ...] by one
+    all-to-all over "model" (none on one device); the gradient goes back
+    by the inverse all-to-all."""
+    if axis_size("model") == 1:
+        return w
+    return _ExpertsToF.apply(w, fdim)
 
 
 def gather_model_values(x, dim: int):
@@ -485,7 +558,7 @@ def gather_replicated(x, dim: int):
     rank's own block of it, no collective."""
     if axis_size("model") == 1:
         return x
-    return _GatherReplicated.apply(x, dim)
+    return _GatherReplicated.apply(x, dim, "model")
 
 
 def scatter_model(x, dim: int):
@@ -568,9 +641,10 @@ def split_over_batch(w) -> bool:
     """Whether DTensor w is split over a batch axis of more than one
     device (an expert stack under ``moe_fsdp``)."""
     from torch.distributed.tensor import Shard
-    return any(isinstance(p, Shard) and axis in _BATCH and axis_size(axis) > 1
-               for axis, p in zip(w.device_mesh.mesh_dim_names,
-                                  w.placements))
+    dmesh = w.device_mesh
+    return any(isinstance(p, Shard) and axis in _BATCH and dmesh.size(i) > 1
+               for i, (axis, p) in enumerate(zip(dmesh.mesh_dim_names,
+                                                 w.placements)))
 
 
 def is_partial_model(x) -> bool:
@@ -599,23 +673,27 @@ def local_site(fn, out_placements, *args, weights=()):
     keep their placements, the outputs take ``out_placements``.  The
     gradient of an argument whose index is in ``weights`` is a partial sum
     over the batch axes when the activations are sharded over them (each
-    data shard's contribution; ``reduce_grads`` sums them); any other
+    data shard's contribution; ``reduce_grads`` sums them), but over an
+    axis the argument itself is split over (an expert stack under
+    ``moe_fsdp``, whose gather's backward has summed it); any other
     argument's gradient takes its own placements, replicated where the
     argument is a partial sum (each rank's gradient is the whole one)."""
     from torch.distributed.tensor import (DTensor, Partial, Placement,
-                                          Replicate)
+                                          Replicate, Shard)
     from torch.distributed.tensor.experimental import local_map
 
     dmesh = device_mesh()
     names = dmesh.mesh_dim_names
-    partial = batch_sharded(*args)
+    partial = batch_sharded(*(a for i, a in enumerate(args)
+                              if i not in weights))
     in_pl, grad_pl = [], []
     for i, a in enumerate(args):
         pl = a.placements if isinstance(a, DTensor) else None
         in_pl.append(pl)
         if pl is not None and partial and i in weights:
             pl = tuple(Partial() if axis in _BATCH and axis_size(axis) > 1
-                       else p for axis, p in zip(names, pl))
+                       and not isinstance(p, Shard) else p
+                       for axis, p in zip(names, pl))
         elif pl is not None:
             pl = tuple(Replicate() if isinstance(p, Partial) else p
                        for p in pl)
@@ -629,9 +707,10 @@ def local_site(fn, out_placements, *args, weights=()):
 
 
 def reduce_grads(grads, params):
-    """The step's gradients summed over the batch axes (one all-reduce of
-    each leaf's local block, none where a leaf's gradient is not a partial
-    sum or the axes hold one device), placed as their parameters."""
+    """The step's gradients summed over the batch axes they are partial
+    sums over (one all-reduce of each leaf's local block, none where a
+    leaf's gradient is not a partial sum or the axes hold one device),
+    placed as their parameters."""
     from torch.distributed.tensor import DTensor, Partial
 
     if isinstance(grads, dict):
@@ -640,7 +719,9 @@ def reduce_grads(grads, params):
     if not any(isinstance(p, Partial) for p in g.placements):
         return g.redistribute(placements=params.placements)
     local = g.to_local()
-    group = _batch_group()
+    names = g.device_mesh.mesh_dim_names
+    group = _batch_group(tuple(a for a, p in zip(names, g.placements)
+                               if isinstance(p, Partial)))
     if group is not None:
         local = _all_reduce(local, "sum", group)
     return DTensor.from_local(local, params.device_mesh, params.placements,

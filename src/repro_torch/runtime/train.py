@@ -44,10 +44,12 @@ def _ce_sharded(logits, targets):
     """``_ce`` of vocab-sharded logits (a sharded step): on each rank's
     vocab columns, one all-reduce over "model" each for the max (MAX), the
     sum of exponentials and the target's logit (SUM), then the sum over
-    the batch axes (one scalar all-reduce) over the token count.  DTensor's
-    own log-softmax would all-gather the logits."""
+    the batch axes (one scalar all-reduce, none where the batch is not
+    split over them: every data shard holds the whole sum) over the token
+    count.  DTensor's own log-softmax would all-gather the logits."""
     r = sh.model_rank()
     n_tokens = targets.numel()
+    split = sh.batch_sharded(logits)
 
     def local(lg, t):
         lf = lg.float()
@@ -58,8 +60,8 @@ def _ce_sharded(logits, targets):
         ok = (ids >= 0) & (ids < n)
         gold = torch.gather(lf, -1, torch.where(ok, ids, 0)[..., None])
         gold = sh.reduce_model(torch.where(ok, gold[..., 0], 0.0))
-        return sh.reduce_batch(torch.sum(mx + torch.log(z) - gold)) \
-            / n_tokens
+        total = torch.sum(mx + torch.log(z) - gold)
+        return (sh.reduce_batch(total) if split else total) / n_tokens
 
     from torch.distributed.tensor import Replicate
     return sh.local_site(local, [Replicate()] * logits.device_mesh.ndim,

@@ -69,7 +69,9 @@ MAX_LEN, PAGE, W = 64, 8, 24
 LAYOUTS = [pytest.param("tp", dict(t=1, c=2), ("gspmd", {}), id="t1c2"),
            pytest.param("tp", dict(t=2, c=2), ("tp", dict(t=2)), id="t2c2"),
            pytest.param("pp", dict(t=1, c=2, p=2), ("pp", dict(t=1, p=2)),
-                        id="t1c2p2")]
+                        id="t1c2p2"),
+           pytest.param("pp", dict(t=2, c=2, p=2), ("pp", dict(t=2, p=2)),
+                        id="t2c2p2")]
 
 
 @functools.lru_cache(maxsize=None)
@@ -228,26 +230,27 @@ def test_cp_prefill_matches_jax(t, S):
 
 
 @needs_mesh
-@pytest.mark.parametrize("S", [7, 11])
-def test_cp_pipeline_prefill_matches_jax(S):
+@pytest.mark.parametrize("t,S", [(1, 7), (1, 11), (2, 11)],
+                         ids=["7", "11", "t2-11"])
+def test_cp_pipeline_prefill_matches_jax(t, S):
     jcfg, jparams, tcfg, tparams = _weights()
     c, p, B = 2, 2, 2
     toks = _pad(_tokens(tcfg, (B, S), seed=S), c)
-    jeng = jpx.PipelineEngine(jcfg, t=1, p=p, c=c)
+    jeng = jpx.PipelineEngine(jcfg, t=t, p=p, c=c)
     jl, jcaches = jeng.prefill_with_cache(jeng.prepare(jparams),
                                           jnp.asarray(toks), cache_w=W,
                                           last=S - 1)
-    eng = PipelineEngine(tcfg, t=1, p=p, c=c, device="cpu")
+    eng = PipelineEngine(tcfg, t=t, p=p, c=c, device="cpu")
     tl, tcaches = eng.prefill_with_cache(eng.prepare(tparams),
                                          torch.from_numpy(toks), W, S - 1)
     _close(tl, jl)
     for mine, theirs in zip(tcaches, jcaches):
         for key in ("k", "v"):
             _close(_cat(mine, key), theirs[key])
-    # two tensors of one worker's [B, S/c, h] per boundary
+    # two tensors of one worker's [B, S/c, h/t] per boundary
     S_pad = toks.shape[1]
     assert eng.transfer_summary("prefill") == {
-        "count": 2, "bytes": 2 * B * (S_pad // c) * tcfg.d_model * 4}
+        "count": 2, "bytes": 2 * B * (S_pad // c) * tcfg.d_model // t * 4}
 
 
 def test_cp_head_row_then_b1_is_bitwise_the_c1_add_norm():
@@ -355,7 +358,7 @@ def test_cp_scheduler_streams_and_comm_log(kind, kw, c1, paged):
     for s, stage in enumerate(eng.stages):
         for phase, n in (("prefill", len(trace)), ("decode", len(dec))):
             want_s = {k: v * n for k, v in cm.hybrid_stage_collectives(
-                tcfg, 1, 2, s, c=2, phase=phase).items()}
+                tcfg, kw["t"], 2, s, c=2, phase=phase).items()}
             assert comm.counts_by_collective(stage.group.summary(phase)) == \
                 want_s
     send = [[o for o in backend.prefill_comm_ops(r.prompt_len)

@@ -26,7 +26,13 @@ compiled step on a host mesh.
     mixtral-8x22b with 6 experts on (1, 4) (the stacks split on f),
     rwkv6-7b per step and chunked on (2, 2), hymba-1.5b on (2, 2) and
     (1, 4) (in_proj split, d_inner not), and with 2 KV heads and a window
-    of 12 on (1, 4) (partial heads, the "seq" decode on a wrapped ring).
+    of 12 on (1, 4) (partial heads, the "seq" decode on a wrapped ring),
+    and deepseek-moe-16b on the local MoE dispatch on (2, 2), with
+    capacity 1.0 and under ``moe_fsdp``: logits and aux within 1e-5 of
+    ``moe_ffn_local`` on a ``VirtualMesh`` of the same shape, each data
+    shard dropping the pairs its shard drops there, and held as the other
+    rows to JAX's shard_map path under its mesh (JAX's meshctx set).
+    Every row's aux loss is within 1e-5 of JAX's.
     rwkv6-7b's train step ("train_plain") holds grad_norm and the update
     to the port's unsharded step: RWKV-6's gradient is ill-conditioned in
     f32 (JAX's grad_norm lies 1.6e-5 and the port's unsharded one 5.1e-5
@@ -46,6 +52,7 @@ The JAX meshes are built here with ``AxisType.Auto`` axes on the
 conftest's 8 host devices (jax 0.9's ``make_mesh`` defaults to explicit
 axes, under which JAX's embedding gather does not lower: ROADMAP C16).
 """
+import contextlib
 import dataclasses
 import functools
 import json
@@ -69,6 +76,7 @@ from repro.launch import specs as jax_specs  # noqa: E402
 from repro.models import layers as jax_layers  # noqa: E402
 from repro.models.transformer import get_model as jax_model  # noqa: E402
 from repro.optim.adamw import AdamW as JAdamW  # noqa: E402
+from repro.runtime import meshctx as jax_meshctx  # noqa: E402
 from repro.runtime.engine import make_serve_step as jax_serve_step  # noqa: E402
 from repro.runtime.train import make_loss_fn as jax_loss_fn  # noqa: E402
 from repro.runtime.train import make_train_step as jax_train_step  # noqa: E402
@@ -117,18 +125,42 @@ def _cfgs(arch, kv=None):
             torch_spmd_ranks.replaced(port_config(arch).reduced(), kv))
 
 
-@functools.lru_cache(maxsize=None)
-def _jax_text(arch, mesh_shape, mode):
-    """The per-device HLO text of JAX's compiled step on a host mesh of
-    ``mesh_shape`` with Auto axes."""
-    jcfg, _ = _cfgs(arch)
-    mesh = jax.make_mesh(mesh_shape, ("data", "model"),
+def _jax_mesh(mesh_shape):
+    return jax.make_mesh(mesh_shape, ("data", "model"),
                          axis_types=(AxisType.Auto,) * 2)
+
+
+@contextlib.contextmanager
+def _jax_local(jcfg, mesh):
+    """Inside ``with mesh``, and with JAX's ``meshctx`` set to it where
+    ``jcfg`` takes the local MoE dispatch (JAX's ``moe_block_apply`` reads
+    the mesh there to take its shard_map path)."""
+    local = jcfg.family == "moe" and jcfg.moe_dispatch == "local"
+    jax_meshctx.set_mesh(mesh if local else None)
+    try:
+        with mesh:
+            yield
+    finally:
+        jax_meshctx.set_mesh(None)
+
+
+@functools.lru_cache(maxsize=None)
+def _batch(kv):
+    """The batch of variant ``kv`` (``torch_spmd_ranks.BATCH``), else B."""
+    return torch_spmd_ranks.BATCH.get(kv, B)
+
+
+def _jax_text(arch, mesh_shape, mode, kv=None, rows=B):
+    """The per-device HLO text of JAX's compiled step on a host mesh of
+    ``mesh_shape`` with Auto axes (``kv`` as ``_cfgs``'; ``rows`` the
+    batch)."""
+    jcfg, _ = _cfgs(arch, kv)
+    mesh = _jax_mesh(mesh_shape)
     model = jax_model(jcfg)
-    with mesh:
+    with _jax_local(jcfg, mesh):
         params, pspecs = jax_specs.param_sds(jcfg, mesh)
         if mode == "prefill":
-            shape = JShape("x", _seq(jcfg), B, "prefill")
+            shape = JShape("x", _seq(jcfg), rows, "prefill")
             batch, _ = jax_specs.batch_specs(jcfg, shape, mesh)
 
             def f(params, **kw):
@@ -141,7 +173,7 @@ def _jax_text(arch, mesh_shape, mode):
             lowered = jax.jit(f).lower(params, **batch)
         elif mode == "decode":
             tok, pos, cache = jax_specs.decode_specs(
-                jcfg, JShape("x", S, B, "decode"), mesh)
+                jcfg, JShape("x", S, rows, "decode"), mesh)
             lowered = jax.jit(jax_serve_step(model), donate_argnums=(1,)
                               ).lower(params, cache, tok, pos)
         else:
@@ -153,16 +185,17 @@ def _jax_text(arch, mesh_shape, mode):
                 jax.eval_shape(opt.init, params), opt_specs,
                 is_leaf=lambda x: isinstance(x, (jax.ShapeDtypeStruct, JP)))
             batch, _ = jax_specs.batch_specs(
-                jcfg, JShape("x", _seq(jcfg), B, "train"), mesh)
+                jcfg, JShape("x", _seq(jcfg), rows, "train"), mesh)
             lowered = jax.jit(jax_train_step(model, opt)).lower(params, o,
                                                                 batch)
         compiled = lowered.compile(_FAST)
     return compiled.as_text(), (compiled.cost_analysis() or {}).get("flops")
 
 
-def _port_step(tcfg, mesh_shape, mode, walk=False):
+def _port_step(tcfg, mesh_shape, mode, walk=False, rows=B):
     """(summary of the collectives, the closed form, the op walk's Cost or
-    None) of the port's step on meta tensors over a fake group."""
+    None) of the port's step on meta tensors over a fake group, at a
+    batch of ``rows``."""
     vm = make_mesh(mesh_shape, ("data", "model"))
     dmesh = sh.fake_device_mesh(vm)
     meshctx.set_device_mesh(dmesh)
@@ -170,7 +203,7 @@ def _port_step(tcfg, mesh_shape, mode, walk=False):
     model = get_model(tcfg, plain=True)
     St = _seq(tcfg)
     if mode == "prefill":
-        batch, _ = specs.batch_specs(tcfg, ShapeConfig("x", St, B,
+        batch, _ = specs.batch_specs(tcfg, ShapeConfig("x", St, rows,
                                                        "prefill"), dmesh)
 
         def fn():
@@ -178,18 +211,18 @@ def _port_step(tcfg, mesh_shape, mode, walk=False):
                 return model.forward(params, features=batch["features"])
             return model.prefill(params, batch["tokens"], St,
                                  prefix_emb=batch.get("prefix_emb"))
-        form = step_comm.closed_form(tcfg, "prefill", vm.shape, B, St)
+        form = step_comm.closed_form(tcfg, "prefill", vm.shape, rows, St)
     elif mode == "decode":
         (tok, _, cache), _ = specs.decode_specs(
-            tcfg, ShapeConfig("x", S, B, "decode"), dmesh)
+            tcfg, ShapeConfig("x", S, rows, "decode"), dmesh)
 
         def fn():
             return make_serve_step(model)(params, cache, tok, S - 1)
-        form = step_comm.closed_form(tcfg, "decode", vm.shape, B, 1,
+        form = step_comm.closed_form(tcfg, "decode", vm.shape, rows, 1,
                                      cache_width=S)
     else:
-        batch, _ = specs.batch_specs(tcfg, ShapeConfig("x", St, B, "train"),
-                                     dmesh)
+        batch, _ = specs.batch_specs(tcfg, ShapeConfig("x", St, rows,
+                                                       "train"), dmesh)
         opt = AdamW()
         state = opt.init(params)
         step = make_train_step(model, opt, device="meta")
@@ -197,7 +230,7 @@ def _port_step(tcfg, mesh_shape, mode, walk=False):
         def fn():
             return step(params, state, batch)
         form = step_comm.closed_form(
-            tcfg, "train", vm.shape, B, St,
+            tcfg, "train", vm.shape, rows, St,
             param_bytes=step_comm.local_param_bytes(params))
     ctx = torch.enable_grad() if mode == "train" else torch.no_grad()
     with ctx:
@@ -314,7 +347,14 @@ VALUE_RUNS = [("granite-8b", None, (2, 2), ("decode", "train")),
               ("rwkv6-7b", "chunked", (2, 2), ("decode",)),
               ("hymba-1.5b", None, (2, 2), ("decode", "train")),
               ("hymba-1.5b", None, (1, 4), ("decode", "train")),
-              ("hymba-1.5b", "kv2w12", (1, 4), ("decode",))]
+              ("hymba-1.5b", "kv2w12", (1, 4), ("decode",)),
+              # the local MoE dispatch, held to moe_ffn_local on a
+              # VirtualMesh and to JAX's shard_map path (values_rank)
+              ("deepseek-moe-16b", "cap1_local", (2, 2), ("decode", "train")),
+              ("deepseek-moe-16b", "local_fsdp", (2, 2), ("decode", "train")),
+              # a batch of one row, not split over "data": the gathered
+              # stacks' gradients are each data shard's own block
+              ("deepseek-moe-16b", "local_fsdp_b1", (2, 2), ("train",))]
 NEW = 8
 # a leaf's update against the reference's, |Δ - Δ_ref| / |Δ_ref| (norms):
 # 1.0e-4 to 2.8e-4 observed (f32 noise in gradients near Adam's eps); an
@@ -322,16 +362,16 @@ NEW = 8
 UPDATE_TOL = 1e-3
 
 
-def _inputs(tcfg):
+def _inputs(tcfg, rows=B):
     rng = np.random.default_rng(1)
-    toks = rng.integers(0, tcfg.vocab_size, (B, S)).astype(np.int32)
+    toks = rng.integers(0, tcfg.vocab_size, (rows, S)).astype(np.int32)
     out = {"tokens": toks}
     if tcfg.family == "vlm":
         out["prefix_emb"] = rng.standard_normal(
-            (B, tcfg.num_prefix_tokens, tcfg.d_model)).astype(np.float32)
+            (rows, tcfg.num_prefix_tokens, tcfg.d_model)).astype(np.float32)
     if tcfg.family == "encoder":
         out = {"features": rng.standard_normal(
-            (B, S, tcfg.d_model)).astype(np.float32),
+            (rows, S, tcfg.d_model)).astype(np.float32),
             "targets": toks % tcfg.vocab_size}
     return out
 
@@ -354,39 +394,43 @@ def _jax_train(model, jp, inp):
             "params": jax.tree.map(np.asarray, params)}
 
 
-def _jax_reference(arch, kv, checks):
+def _jax_reference(arch, kv, mesh_shape, checks):
     """(numpy params, inputs, JAX's logits, JAX's greedy tokens over a
     prefill and NEW decode steps or None for the encoder, JAX's train
-    step or None), jitted."""
+    step or None, JAX's aux loss), jitted; on the local MoE dispatch under
+    a host mesh of ``mesh_shape`` (its shard_map path)."""
     jcfg, tcfg = _cfgs(arch, kv)
     model = jax_model(jcfg)
     jp = model.init(jax.random.PRNGKey(0))
-    inp = _inputs(tcfg)
+    inp = _inputs(tcfg, _batch(kv))
     trains = "train" in checks or "train_plain" in checks
-    train = _jax_train(model, jp, inp) if trains else None
-    if jcfg.family == "encoder":
-        logits, _ = _jit(lambda p, f: model.forward(p, features=f),
-                         jp, jnp.asarray(inp["features"]))
-        return (jax.tree.map(np.asarray, jp), inp, np.asarray(logits), None,
-                train)
-    toks = jnp.asarray(inp["tokens"])
-    pfx = inp.get("prefix_emb")
-    pfx = None if pfx is None else jnp.asarray(pfx)
-    logits, _ = _jit(lambda p, t, x: model.forward(p, t, prefix_emb=x),
-                     jp, toks, pfx)
-    lg, cache, pos = _jit(
-        lambda p, t, x: model.prefill(p, t, max_len=32, prefix_emb=x),
-        jp, toks, pfx)
-    tok = jnp.argmax(lg, -1).astype(jnp.int32)
-    step = jax.jit(model.decode_step).lower(jp, cache, tok, pos).compile(
-        _FAST)
-    out = [np.asarray(tok)]
-    for i in range(NEW):
-        lg, cache = step(jp, cache, tok, pos + i)
+    local = jcfg.family == "moe" and jcfg.moe_dispatch == "local"
+    with (_jax_local(jcfg, _jax_mesh(mesh_shape)) if local
+          else contextlib.nullcontext()):
+        train = _jax_train(model, jp, inp) if trains else None
+        if jcfg.family == "encoder":
+            logits, aux = _jit(lambda p, f: model.forward(p, features=f),
+                               jp, jnp.asarray(inp["features"]))
+            return (jax.tree.map(np.asarray, jp), inp, np.asarray(logits),
+                    None, train, float(aux))
+        toks = jnp.asarray(inp["tokens"])
+        pfx = inp.get("prefix_emb")
+        pfx = None if pfx is None else jnp.asarray(pfx)
+        logits, aux = _jit(lambda p, t, x: model.forward(p, t, prefix_emb=x),
+                           jp, toks, pfx)
+        lg, cache, pos = _jit(
+            lambda p, t, x: model.prefill(p, t, max_len=32, prefix_emb=x),
+            jp, toks, pfx)
         tok = jnp.argmax(lg, -1).astype(jnp.int32)
-        out.append(np.asarray(tok))
+        step = jax.jit(model.decode_step).lower(jp, cache, tok, pos).compile(
+            _FAST)
+        out = [np.asarray(tok)]
+        for i in range(NEW):
+            lg, cache = step(jp, cache, tok, pos + i)
+            tok = jnp.argmax(lg, -1).astype(jnp.int32)
+            out.append(np.asarray(tok))
     return (jax.tree.map(np.asarray, jp), inp, np.asarray(logits),
-            np.stack(out, 1), train)
+            np.stack(out, 1), train, float(aux))
 
 
 def _free_port():
@@ -398,8 +442,8 @@ def _free_port():
 @pytest.fixture(scope="module")
 def value_results(tmp_path_factory):
     import torch.multiprocessing as mp
-    refs = [_jax_reference(arch, kv, checks)
-            for arch, kv, _, checks in VALUE_RUNS]
+    refs = [_jax_reference(arch, kv, mesh_shape, checks)
+            for arch, kv, mesh_shape, checks in VALUE_RUNS]
     out = str(tmp_path_factory.mktemp("spmd") / "values.json")
     mp.spawn(torch_spmd_ranks.values_rank,
              args=(4, _free_port(), VALUE_RUNS, refs, NEW, out), nprocs=4)
@@ -417,6 +461,15 @@ def test_sharded_values_on_gloo_ranks(value_results, arch, kv, mesh_shape,
     tol = 1e-4 * max(1.0, row["logit_scale"])
     assert row["logit_err_plain"] <= tol
     assert row["logit_err_jax"] <= tol
+    assert row["aux_err_jax"] <= 1e-5
+    if "drops" in row:
+        # the local dispatch against moe_ffn_local on a VirtualMesh: logits
+        # and aux within 1e-5, each data shard dropping the pairs its
+        # shard drops there
+        assert row["logit_err_plain"] <= 1e-5 * max(1.0, row["logit_scale"])
+        assert row["aux_err_plain"] <= 1e-5
+        assert row["drops_equal"]
+        assert row["drops"] > 0 or "cap1" not in kv
     if "decode" in checks:
         assert row["tokens_equal_plain"] and row["tokens_equal_jax"]
     if "train" in checks or "train_plain" in checks:
@@ -542,7 +595,8 @@ def test_full_width_dry_run_matches_the_closed_form():
     """granite-8b prefill_32k on (16, 16): 2L + 1 all-reduces and 2L
     all-gathers of K and V (8 KV heads on 16); no tensor but the mesh's
     small index tables (under 1 MiB in all) is made off the meta
-    device."""
+    device.  mixtral-8x22b prefill_32k ``moe_local_fsdp``: the local
+    dispatch's three expert gathers a layer beside K and V's."""
     from repro_torch.launch import dryrun
     with _Allocated() as made:
         rec = dryrun.run_one("granite-8b", "prefill_32k", False)
@@ -552,6 +606,21 @@ def test_full_width_dry_run_matches_the_closed_form():
     assert rec["collectives"]["allreduce"]["count"] == 2 * L + 1
     assert rec["collectives"]["allgather"]["count"] == 2 * L
     assert rec["roofline"]["flops_per_chip"] > 0
-    skip = dryrun.run_one("deepseek-moe-16b", "train_4k", False, "moe_local")
-    assert skip["status"] == "not_ported"
     assert os.path.basename(dryrun.RESULTS_DIR) == "dryrun_torch"
+    # mixtral-8x22b prefill_32k on the local dispatch under moe_fsdp: 8
+    # experts on 16 stored on f (no all-to-all), h over "data": three
+    # gathers a layer of [8, h, f/16] bf16, beside K and V's two
+    local = dryrun.run_one("mixtral-8x22b", "prefill_32k", False,
+                           "moe_local_fsdp")
+    print(local["collectives"], local["seconds_to_compile"])
+    assert local["status"] == "ok" and local["collectives_match"]
+    cfg = port_config("mixtral-8x22b")
+    L = cfg.num_layers
+    stack = cfg.moe.num_experts * cfg.d_model * cfg.moe.expert_d_ff // 16 * 2
+    got = {k: (v["count"], v["msg_bytes"])
+           for k, v in local["collectives"].items()}
+    assert got["allreduce"][0] == 2 * L + 1
+    assert got["allgather"][0] == 5 * L
+    assert got["allgather"][1] == 3 * L * stack + 2 * L * (
+        32 // 16 * 32768 * cfg.num_kv_heads * cfg.head_dim * 2)
+    assert "alltoall" not in got

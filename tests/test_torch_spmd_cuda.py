@@ -18,6 +18,12 @@ decode steps per case, each reduced and in f32:
     attention kernels): 4 attention and 4 KV heads, one a rank, B2 once a
     layer, B3 once a layer and step on the rank's KV head; the mamba
     branch on the rank's 16 of its 64 channels, xz all-gathered.
+  * deepseek-moe-16b on the local dispatch (``moe_dispatch="local"``):
+    its 4 experts, stored one a rank, redistributed to their f blocks by
+    three all-to-alls a layer over NCCL; at dp = 1 the local capacity is
+    the global one, so the values are the unsharded path's.  The
+    launches are the dense formula (B1 once a pass, 2L add_rms_norm, B2
+    once a layer, B3 once a layer and step).
 
 Greedy tokens equal to the unsharded kernel path's; the families' logits
 within 1e-5 (relative past 1).  Needs four CUDA cards (marker ``gpu``;
@@ -36,7 +42,8 @@ torch = pytest.importorskip("torch")
 import torch_spmd_ranks  # noqa: E402  (tests/: the ranks' program)
 
 NEW = 8
-CASES = [("granite-8b", 2), ("rwkv6-7b", None), ("hymba-1.5b", "d64")]
+CASES = [("granite-8b", 2), ("rwkv6-7b", None), ("hymba-1.5b", "d64"),
+         ("deepseek-moe-16b", "local")]
 
 
 def _free_port():
@@ -75,7 +82,7 @@ def test_sequence_parallel_decode_kernels_on_four_cards(kernel_rows):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch,kv", CASES[1:], ids=[a for a, _ in CASES[1:]])
+@pytest.mark.parametrize("arch,kv", CASES[1:3], ids=[a for a, _ in CASES[1:3]])
 def test_family_kernels_on_four_cards(kernel_rows, arch, kv):
     row = _row(kernel_rows, arch, kv)
     L = row["layers"]
@@ -87,3 +94,18 @@ def test_family_kernels_on_four_cards(kernel_rows, arch, kv):
         assert row["launches"]["flash_attention"] == L
         assert row["launches"]["decode_attention"] == L * NEW
         assert row["launches"]["rmsnorm"] == (NEW + 1) * (1 + 2 * L)
+
+
+@pytest.mark.gpu
+def test_local_moe_dispatch_on_four_cards(kernel_rows):
+    row = _row(kernel_rows, "deepseek-moe-16b", "local")
+    L, passes = row["layers"], NEW + 1
+    assert row["layout"] == "heads"
+    assert row["logit_err"] <= 1e-5 * max(1.0, row["logit_scale"])
+    launches = row["launches"]
+    assert launches["flash_attention"] == L
+    assert launches["decode_attention"] == L * NEW
+    assert launches["rmsnorm"] == passes
+    assert launches["add_rms_norm"] == 2 * L * passes
+    # the reshard: three all-to-alls a layer and pass over the 4 cards
+    assert row["collectives"]["alltoall"] == [3 * L * passes, [4]]

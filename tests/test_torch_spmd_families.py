@@ -24,8 +24,18 @@
     ``launch.dryrun.run_one`` (8 experts on 16: the stacks split on f; 8
     KV heads on 16 and a 4096-row window: the "seq" ring decode), equal to
     the closed form.
-  * A ``moe_local`` variant record reads ``not_ported`` with the step's
-    reason (``moe_dispatch="local"`` is not sharded on a DeviceMesh).
+  * The local MoE dispatch (``moe_dispatch="local"``): reduced
+    deepseek-moe-16b on (1, 2) and (2, 2) (4 experts on 2: stacks stored
+    on E, redistributed to f by all-to-alls), with ``moe_fsdp`` on (2, 2)
+    (the stacks' h over "data", gathered just in time), prefill and
+    decode; mixtral-8x22b with 6 experts on (1, 4) (stored on f), prefill;
+    deepseek train on (2, 2), with and without ``moe_fsdp``, and with it
+    at a batch of one row, which "data" does not split.  Each equals
+    the closed form, and its prefill and decode the collectives of JAX's
+    compiled shard_map step (JAX's meshctx set, Auto axes); train's are
+    printed.  At full width, deepseek-moe-16b ``decode_32k``
+    ``moe_local`` runs ``ok`` through ``dryrun.run_one`` (the test's name
+    is from before the local dispatch ran sharded).
 
 The values of these families on gloo ranks are rows of
 ``test_torch_spmd.py``'s one spawn (``VALUE_RUNS``).
@@ -38,8 +48,8 @@ from repro.core import hlo_comm, hlo_cost  # noqa: E402
 from repro_torch.configs import get_config as port_config  # noqa: E402
 from repro_torch.core import step_comm  # noqa: E402
 
-from test_torch_spmd import (_cfgs, _jax_text, _no_mesh_after,  # noqa: E402,F401
-                             _port_step, _rows)
+from test_torch_spmd import (_batch, _cfgs, _jax_text,  # noqa: E402,F401
+                             _no_mesh_after, _port_step, _rows)
 
 ARCHS = ["deepseek-moe-16b", "mixtral-8x22b", "rwkv6-7b", "hymba-1.5b"]
 CASES = ([(a, m, mode) for a in ARCHS for m in [(1, 2), (2, 2)]
@@ -68,6 +78,42 @@ def test_collectives_hold_the_closed_form(arch, mesh_shape, mode):
     assert step_comm.same(got, form), _rows(form)
     if mode != "train":
         assert _msg_bytes(got) <= _msg_bytes(want)
+
+
+# the local MoE dispatch (variants of torch_spmd_ranks.VARIANTS):
+# deepseek's 4 experts on a model axis of 2 are stored on E (the step
+# redistributes them to f), under moe_fsdp also split on h over "data";
+# mixtral's 6 on 4 are stored on f
+LOCAL_CASES = ([("deepseek-moe-16b", "local", m, mode)
+                for m in [(1, 2), (2, 2)] for mode in ("prefill", "decode")]
+               + [("deepseek-moe-16b", "local_fsdp", (2, 2), mode)
+                  for mode in ("prefill", "decode")]
+               + [("mixtral-8x22b", "e6_local", (1, 4), "prefill")]
+               + [("deepseek-moe-16b", kv, (2, 2), "train")
+                  for kv in ("local", "local_fsdp", "local_fsdp_b1")])
+
+
+@pytest.mark.parametrize("arch,kv,mesh_shape,mode", LOCAL_CASES,
+                         ids=[f"{a}-{kv}-{m[0]}x{m[1]}-{mode}"
+                              for a, kv, m, mode in LOCAL_CASES])
+def test_local_dispatch_holds_the_closed_form(arch, kv, mesh_shape, mode):
+    """The local dispatch's collectives equal their closed form; its
+    prefill and decode issue the collectives of JAX's compiled shard_map
+    step (kind, count, message bytes: XLA redistributes E-stored stacks
+    by all-to-alls too), so move no more message bytes."""
+    _, tcfg = _cfgs(arch, kv)
+    got, form, _ = _port_step(tcfg, mesh_shape, mode, rows=_batch(kv))
+    text, _ = _jax_text(arch, mesh_shape, mode, kv, rows=_batch(kv))
+    want = hlo_comm.summarize(hlo_comm.parse_hlo_collectives(text))
+    print(f"{arch} {kv} {mesh_shape} {mode}: port {_rows(got)} "
+          f"({_msg_bytes(got)} B) jax {_rows(want)} ({_msg_bytes(want)} B)")
+    assert step_comm.same(got, form), _rows(form)
+    stored_on_e = tcfg.moe.num_experts % mesh_shape[1] == 0
+    assert ("alltoall" in got) == stored_on_e
+    assert ("allgather" in got) == (tcfg.moe_fsdp or mode == "decode")
+    if mode != "train":
+        assert _msg_bytes(got) <= _msg_bytes(want)
+        assert _rows(got) == _rows(want)
 
 
 @pytest.mark.parametrize("mesh_shape", [(1, 2), (2, 2)], ids=["1x2", "2x2"])
@@ -113,9 +159,23 @@ def test_full_width_mixtral_decode_matches_the_closed_form():
 
 
 def test_moe_local_variant_is_not_ported():
+    """Named when the local dispatch did not run on a DeviceMesh; now
+    deepseek-moe-16b ``decode_32k`` ``moe_local`` on (16, 16) is ``ok``
+    and equal to the closed form: 64 experts on 16 are stored on E and
+    redistributed to f, three all-to-alls a layer; the batch of 128 on 16
+    data shards, each routing its own 8 tokens (no gather of counts); 16
+    KV heads on 16 (no attention gathers)."""
     from repro_torch.launch import dryrun
     rec = dryrun.run_one("deepseek-moe-16b", "decode_32k", False,
                          "moe_local")
-    print(rec)
-    assert rec["status"] == "not_ported"
-    assert "moe_dispatch='local'" in rec["skip_reason"]
+    print(rec["collectives"], rec["seconds_to_compile"])
+    assert rec["status"] == "ok" and rec["collectives_match"]
+    cfg = port_config("deepseek-moe-16b")
+    L, E, h, f = (cfg.num_layers, cfg.moe.num_experts, cfg.d_model,
+                  cfg.moe.expert_d_ff)
+    got = {k: (v["count"], v["msg_bytes"])
+           for k, v in rec["collectives"].items()}
+    # the embedding's and 2 a layer; the argmax's two gathers of [8, 16]
+    assert got["allreduce"][0] == 2 * L + 1
+    assert got["allgather"][0] == 2
+    assert got["alltoall"] == (3 * L, 3 * L * E * h * f // 16 * 2)

@@ -27,7 +27,19 @@ VARIANTS = {
     "kv2w12": {"num_kv_heads": 2, "sliding_window": 12},
     # a head dim the attention kernels take (the reduced 66 is none)
     "d64": {"head_dim": 64},
+    # the local dispatch (JAX's shard_map path): each data shard routes its
+    # own tokens against its own capacity, the experts split on f
+    "local": {"moe_dispatch": "local"},
+    "cap1_local": {"moe": {"capacity_factor": 1.0}, "moe_dispatch": "local"},
+    "local_fsdp": {"moe_dispatch": "local", "moe_fsdp": True},
+    "e6_local": {"moe": {"num_experts": 6}, "moe_dispatch": "local"},
+    # run at the batch BATCH gives it
+    "local_fsdp_b1": {"moe_dispatch": "local", "moe_fsdp": True},
 }
+# a variant's batch where it is not the tests' own: one row, which a data
+# axis of 2 does not split (every data shard computes the whole batch, and
+# moe_fsdp's gathered stacks keep their own block of the whole gradient)
+BATCH = {"local_fsdp_b1": 1}
 
 
 def replaced(cfg, kv):
@@ -54,16 +66,53 @@ def _port_cfg(arch, kv):
     return replaced(get_config(arch).reduced(), kv)
 
 
+class DropLog:
+    """The dropped (token, choice) pairs, [T, K] bool, of every
+    ``moe.dispatch_plan`` call while active."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.lib, self.orig, self.calls = moe, moe.dispatch_plan, []
+
+        def logged(*args):
+            out = self.orig(*args)
+            self.calls.append(~out[3])
+            return out
+        moe.dispatch_plan = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.lib.dispatch_plan = self.orig
+
+
+def _same_drops(got, ref, shard: int) -> bool:
+    """Whether a rank's dispatches (``got``, one a layer and pass, on its
+    data shard ``shard``) dropped the pairs the reference's did: the
+    reference dispatches every data shard of a split batch in turn."""
+    if not got or len(ref) % len(got):
+        return False
+    per = len(ref) // len(got)
+    return all(torch.equal(g, ref[n * per + (shard if per > 1 else 0)])
+               for n, g in enumerate(got))
+
+
 def values_rank(rank, world, port, runs, refs, new_tokens, out_path):
     """One gloo rank.  ``runs``: (arch, KV heads or None, mesh shape,
     checks); ``refs``: per run (numpy JAX params, inputs, JAX's logits,
     JAX's greedy tokens, JAX's train step or None: its loss, grad_norm,
-    gradients and updated parameters, numpy)."""
+    gradients and updated parameters, numpy; JAX's aux loss).  A config on
+    the local MoE dispatch is held to the port's ``moe_ffn_local`` on a
+    ``core.comm.VirtualMesh`` of the mesh's shape (its "plain" reference:
+    the unsharded model with that mesh in ``meshctx``), with the dropped
+    pairs of each rank's data shard, and to JAX's shard_map path."""
+    import contextlib
+
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch import bridge
     from repro_torch.checkpoint.store import flatten
+    from repro_torch.core.comm import VirtualMesh
     from repro_torch.launch import specs
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.transformer import get_model, greedy_tokens
@@ -89,9 +138,20 @@ def values_rank(rank, world, port, runs, refs, new_tokens, out_path):
     results = []
     try:
         for (arch, kv, mesh_shape, checks), ref in zip(runs, refs):
-            np_params, inp, jax_logits, jax_tokens, jax_train = ref
+            np_params, inp, jax_logits, jax_tokens, jax_train, jax_aux = ref
             tcfg = _port_cfg(arch, kv)
             model = get_model(tcfg, plain=True)
+            local = tcfg.family == "moe" and tcfg.moe_dispatch == "local"
+
+            @contextlib.contextmanager
+            def reference_mesh():
+                """The VirtualMesh of a local-dispatch config."""
+                meshctx.set_mesh(VirtualMesh(mesh_shape, ("data", "model"))
+                                 if local else None)
+                try:
+                    yield
+                finally:
+                    meshctx.set_mesh(None)
 
             def fresh():
                 return bridge.params_from_jax(np_params, tcfg, device="cpu")
@@ -105,9 +165,9 @@ def values_rank(rank, world, port, runs, refs, new_tokens, out_path):
             def forward(p):
                 with torch.no_grad():
                     if tcfg.family == "encoder":
-                        return model.forward(p, features=t["features"])[0]
+                        return model.forward(p, features=t["features"])
                     return model.forward(p, t["tokens"],
-                                         prefix_emb=t.get("prefix_emb"))[0]
+                                         prefix_emb=t.get("prefix_emb"))
 
             def generate(p):
                 with torch.no_grad():
@@ -132,22 +192,36 @@ def values_rank(rank, world, port, runs, refs, new_tokens, out_path):
                 return p, met, opt.kept[0]
 
             plain = fresh()
-            ref_logits = forward(plain)
-            ref_tokens = generate(plain) if "decode" in checks else None
             trains = "train" in checks or "train_plain" in checks
-            ref_train = train(fresh()) if trains else None
+            with reference_mesh(), DropLog() as ref_drops:
+                ref_logits, ref_aux = forward(plain)
+                ref_tokens = generate(plain) if "decode" in checks else None
+            with reference_mesh():
+                ref_train = train(fresh()) if trains else None
             meshctx.set_device_mesh(dmesh)
             try:
                 placed = sh.distribute(fresh(), pspecs, dmesh)
-                logits = forward(placed).full_tensor()
+                with DropLog() as drops:
+                    logits, aux = forward(placed)
+                    toks = (torch.stack([x.full_tensor()
+                                         for x in generate(placed)], 1)
+                            if "decode" in checks else None)
+                logits = logits.full_tensor()
+                aux = float(aux.full_tensor() if sh.is_dtensor(aux) else aux)
                 row["logit_err_plain"] = float(
                     (logits - ref_logits).abs().max())
                 row["logit_err_jax"] = float(
                     (logits - torch.from_numpy(jax_logits)).abs().max())
                 row["logit_scale"] = float(ref_logits.abs().max())
+                row["aux_err_plain"] = abs(aux - float(ref_aux))
+                row["aux_err_jax"] = abs(aux - jax_aux)
+                if local:
+                    same = torch.tensor(int(_same_drops(
+                        drops.calls, ref_drops.calls, sh.batch_index())))
+                    dist.all_reduce(same, op=dist.ReduceOp.MIN)
+                    row["drops_equal"] = bool(same)
+                    row["drops"] = int(sum(d.sum() for d in ref_drops.calls))
                 if "decode" in checks:
-                    toks = torch.stack([x.full_tensor()
-                                        for x in generate(placed)], 1)
                     row["tokens_equal_plain"] = bool(torch.equal(
                         toks, torch.stack(ref_tokens, 1)))
                     row["tokens_equal_jax"] = bool(np.array_equal(
@@ -219,11 +293,15 @@ def kernel_rank(rank, world, port, cases, new_tokens, out_path):
     in the prefill and decodes on a sequence-parallel cache (B3's split
     pass on the rank's rows, then the MAX and SUM all-reduces); rwkv6-7b
     runs B10 on the rank's head; hymba-1.5b at head dim 64 B2 and B3 on
-    its attention head and the mamba branch on its 16 channels.  Rank 0 writes, per case,
-    the comparison and the sharded run's launch counts as JSON."""
+    its attention head and the mamba branch on its 16 channels;
+    deepseek-moe-16b on the local dispatch its f block of every expert,
+    the stacks redistributed from E by all-to-alls.  Rank 0 writes, per
+    case, the comparison, the sharded run's launch counts and its
+    collectives (kind: [calls, group sizes]) as JSON."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
+    from repro_torch.core import step_comm
     from repro_torch.kernels import _build
     from repro_torch.launch import specs
     from repro_torch.launch.mesh import make_mesh
@@ -270,15 +348,21 @@ def kernel_rank(rank, world, port, cases, new_tokens, out_path):
             meshctx.set_device_mesh(dmesh)
             _build.reset_launches()
             try:
-                logits, toks = generate(placed)
+                (logits, toks), log_ = step_comm.record(generate, placed)
                 torch.cuda.synchronize()
             finally:
                 meshctx.set_device_mesh(None)
+            colls = {}
+            for c in log_:
+                row = colls.setdefault(c.kind, [0, []])
+                row[0] += 1
+                row[1] = sorted(set(row[1]) | {c.group_size})
             rows.append({
                 "case": case_name(arch, kv, (1, world)),
                 "layout": (kv_layout(cfg, world, width)
                            if cfg.family != "ssm" else None),
                 "launches": dict(_build.LAUNCHES),
+                "collectives": colls,
                 "layers": cfg.num_layers,
                 "logit_err": max(float((a - b).abs().max())
                                  for a, b in zip(logits, want_logits)),
