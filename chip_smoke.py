@@ -41,8 +41,11 @@ Phases:
      tokens at L = 4,
      (d) quantized_psum with kernels == with plain versions, bit for bit
      (run before (c)),
-     (e) every run's launches equal their formula; one TP decode step's
-     time breakdown (unquantized, int8 and int4);
+     (e) every run's launches equal their formula; (f) TPModel at t = 1
+     on a DistGroup of one NCCL rank bit for bit the virtual t = 1 run
+     (the real-rank engines' NCCL start-up; ``rank_launches`` is the
+     per-rank formula tests/test_torch_dist_cuda.py holds four cards to);
+     one TP decode step's time breakdown (unquantized, int8 and int4);
   6. the RWKV-6 path at the full width of rwkv6-7b (random weights from a
      seed, made on the card after llama32-3b's are freed): (a) the engine,
      (b) the contiguous Scheduler over the trace, every logit finite,
@@ -1452,6 +1455,38 @@ def expect_launches(what, counts, L, passes, flash, decode, paged, t=1,
         raise AssertionError(f"{what}: launches {counts} != expected {want}")
 
 
+def rank_launches(L, lo, hi, passes, flash, decode, paged, t=1, quant=None,
+                  quant_steps=0):
+    """The launches of ONE rank of a real TP group of t processes
+    (``core.comm.DistGroup``) that runs the pipeline stage of layers
+    [lo, hi) of L (TP alone: [0, L)): the virtual engine's launches for
+    that rank, ``expect_launches`` cut to one rank and one stage.  The
+    group-once work runs once on every rank: B1 for layer lo's ln1 on
+    the first stage only (no residual add before it), add_rms_norm at
+    every other norm site (2(hi - lo) + 1 on the last stage, the final
+    norm) — or, on an int8/fp8 step (t > 1), dequantize_add_rms_norm at
+    the 2(hi - lo) - 1 (+1 last) sites after an all-reduce and the
+    standalone B9 for the sum a non-last stage ships.  The per-rank work
+    is the rank's own: one B2/B3/B4 per layer of the stage, and per
+    quantized all-reduce one B5 and one B6 (int4: one
+    chunk_quantize_pack, nibble_reduce_requant and
+    nibble_unpack_dequantize)."""
+    n, first, last = hi - lo, int(lo == 0), int(hi == L)
+    q = quant_steps if quant and t > 1 else 0
+    int8, int4 = (0, q) if quant == "int4" else (q, 0)
+    sites = 2 * n - 1 + last           # norm sites that close an all-reduce
+    return {"rmsnorm": passes * first,
+            "add_rms_norm": passes * (2 * n + last - first) - int8 * sites,
+            "dequantize_add_rms_norm": int8 * sites,
+            "flash_attention": n * flash, "decode_attention": n * decode,
+            "paged_decode_attention": n * paged,
+            "chunk_amax": 2 * n * q, "chunk_quantize": 2 * n * int8,
+            "chunk_dequantize": int8 * (1 - last),
+            "chunk_quantize_pack": 2 * n * int4,
+            "nibble_reduce_requant": 2 * n * int4,
+            "nibble_unpack_dequantize": 2 * n * int4, "wkv6": 0}
+
+
 def drive_counted(what, fn, totals, L, grad_mode=torch.inference_mode,
                   **expect):
     """Run one path with the launch counts set to 0 just before and read
@@ -2105,10 +2140,62 @@ def tp_phase(dev, smi, params, prompt, kernel_rows):
                              "single-device path")
     del p32
 
+    one_rank_nccl(dev, cfg, params)
     for quant in (None, "int8", "int4"):
         decode_breakdown(dev, TPModel(cfg, TP, quant=quant), shards, smi,
                          f"t={TP} {quant or 'unquantized'}")
     return totals
+
+
+NCCL_PROMPT, NCCL_NEW = 64, 16
+
+
+def one_rank_nccl(dev, cfg, params):
+    """(f) ``TPModel`` at t = 1 on a ``DistGroup`` of one NCCL rank (a
+    ``HashStore``, no network) against the virtual t = 1 run: a prefill
+    and NCCL_NEW greedy steps, logits and tokens bit for bit, each run's
+    launches its formula (not added to the phase's totals), and one
+    ``SharedClock`` reading, an NCCL broadcast: the NCCL start-up of the
+    real-rank engines on this host."""
+    import torch.distributed as dist
+
+    from repro_torch.core.comm import dist_groups
+    from repro_torch.core.parallel_exec import TPModel, shard_params
+    from repro_torch.runtime.scheduler import SharedClock, WallClock
+
+    t0 = time.perf_counter()
+    L = cfg.num_layers
+    prompt = torch.randint(2, cfg.vocab_size, (1, NCCL_PROMPT),
+                           generator=torch.Generator().manual_seed(30)
+                           ).to(dev)
+    shards = shard_params(cfg, params, 1)
+
+    def greedy(model):
+        logits, cache, S = model.prefill(shards, prompt, 2 * NCCL_PROMPT)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        toks, _ = model.decode_steps(shards, cache, tok, S, NCCL_NEW)
+        return logits, toks
+
+    expect = dict(passes=1 + NCCL_NEW, flash=1, decode=NCCL_NEW, paged=0)
+    want = drive_counted("tp t=1 virtual", lambda: greedy(TPModel(cfg, 1)),
+                         {}, L, **expect)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        place = dist_groups(1, 1, dev)
+        got = drive_counted("tp t=1 on one NCCL rank", lambda: greedy(
+            TPModel(cfg, 1, group=place.group)), {}, L, **expect)
+        now = SharedClock(WallClock(), dev).now()
+    finally:
+        dist.destroy_process_group()
+    same = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    log(f"[tp one NCCL rank] t=1 DistGroup on {place.device}: prefill of "
+        f"{NCCL_PROMPT} + {NCCL_NEW} greedy steps, logits and tokens == the "
+        f"virtual t=1 run bit for bit: {same}; SharedClock read {now:.6f} "
+        f"s; {time.perf_counter() - t0:.1f} s with the NCCL start-up")
+    if not same:
+        raise AssertionError("TPModel on one NCCL rank != virtual t=1")
 
 
 # ---------------------------------------------------------------------------
@@ -2540,9 +2627,9 @@ def pp_round_breakdown(dev, smi, cfg, params, kind: str, t: int, p: int,
     if p > 1:
         send = backend.engine.send_boundary
 
-        def hop(out, s, phase="decode"):
+        def hop(out, s, rows, phase="decode"):
             with record_function(RANGES[0]):
-                return send(out, s, phase)
+                return send(out, s, rows, phase)
         backend.engine.send_boundary = hop
 
     def run(n):

@@ -41,8 +41,15 @@ and one ``VirtualGroup`` per axis (or per tuple of axes, ``group``), all
 sharing one log under the same conventions.  The expert-TP MoE path
 (``models.moe.moe_ffn_local``) runs on it.
 
-A ``torch.distributed``/NCCL group with the same interface, one rank per
-card, waits for a four-card cell (ROADMAP).
+``DistGroup`` is the same interface on real ranks: one process per rank
+of a ``torch.distributed`` group (NCCL on the card, gloo on the CPU).  A
+process holds one rank (``local_ranks`` is ``(rank,)``, where a
+``VirtualGroup``'s is ``range(t)``), so every collective takes a list of
+one tensor and returns what this rank holds, in the shape a
+``VirtualGroup`` returns for one rank.  Every process logs every call, so
+rank 0's log equals the virtual group's record for record.
+``dist_groups(t, p)`` builds a world of t·p processes into p stages of t
+ranks, stage-major (the JAX package's ``devices[s·t:(s+1)·t]``).
 """
 from __future__ import annotations
 
@@ -50,9 +57,11 @@ import collections
 import contextlib
 import dataclasses
 import math
-from typing import Dict, List, Sequence, Tuple
+import os
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.commodel import CommOp
 
@@ -125,6 +134,7 @@ class VirtualGroup:
         if t < 1:
             raise ValueError(f"t must be >= 1, got {t}")
         self.t = int(t)
+        self.local_ranks = range(self.t)
         self.log: List[CommRecord] = [] if log is None else log
         self._phase = "prefill"
         self._muted = False
@@ -163,8 +173,9 @@ class VirtualGroup:
                                    itemsize, self.t))
 
     def _check(self, xs, kind: str) -> None:
-        if len(xs) != self.t:
-            raise ValueError(f"{kind}: {len(xs)} tensors for t={self.t} ranks")
+        if len(xs) != len(self.local_ranks):
+            raise ValueError(f"{kind}: {len(xs)} tensors for "
+                             f"{len(self.local_ranks)} local ranks")
         first = xs[0]
         for x in xs[1:]:
             if x.shape != first.shape or x.dtype != first.dtype:
@@ -255,6 +266,223 @@ class VirtualGroup:
         for r, dst in enumerate(out):
             dst.copy_(xs[r - 1])
         return list(out)
+
+
+# the collectives' current names, where this torch has them
+_ALL_GATHER = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
+
+def _wire(x):
+    """A 1-byte payload as uint8 for the collectives that only move it
+    (fp8 has no type on every backend); others as they are."""
+    return x.view(torch.uint8) if x.element_size() == 1 else x
+
+
+class DistGroup(VirtualGroup):
+    """Rank ``rank`` of a TP group of t processes (``torch.distributed``
+    group ``pg`` over the global ``ranks``; NCCL on the card, gloo on the
+    CPU), with the log and the interface of ``VirtualGroup``.
+
+    Each collective takes [this rank's tensor] and returns what this rank
+    holds.  Semantics against the virtual group:
+
+      * a float all-reduce is the backend's ``all_reduce``: its sum order
+        is NCCL's (or gloo's), not rank order, so the values match the
+        virtual group's within float tolerance, not bit for bit; every
+        rank holds the same result;
+      * the int8 reduce-scatter is the backend's ``reduce_scatter`` of the
+        last-axis blocks (laid along dim 0, which the backend splits): the
+        sum is exact under ``collective_qmax``'s headroom, so it is the
+        virtual one bit for bit;
+      * the fp8 reduce-scatter keeps "adds in f32 in rank order and rounds
+        once to e4m3", which no backend's e4m3 sum does: an
+        ``all_to_all_single`` of the 1-byte blocks (the bytes a
+        reduce-scatter puts on the wire), then the f32 sum in rank order
+        and one rounding here, logged as the schedule's
+        ``reducescatter``;
+      * all-gather, all-to-all (the int4 path's uint8) and the ring step
+        (``batch_isend_irecv``) move bytes and are exact."""
+
+    def __init__(self, t: int, rank: int, pg=None, ranks=None,
+                 log: List[CommRecord] = None):
+        super().__init__(t, log)
+        if not 0 <= rank < self.t:
+            raise ValueError(f"rank {rank} outside a group of t={self.t}")
+        self.rank = int(rank)
+        self.local_ranks = (self.rank,)
+        self.pg = pg
+        self.ranks = list(range(self.t) if ranks is None else ranks)
+
+    def _blocks(self, x):
+        """[..., h] -> [t, ..., h/t]: the last-axis blocks stacked on dim
+        0, contiguous."""
+        h = x.shape[-1]
+        if h % self.t:
+            raise ValueError(f"last axis {h} does not divide over "
+                             f"t={self.t}")
+        return torch.stack(x.chunk(self.t, dim=-1))
+
+    def _exchange(self, x):
+        """all_to_all of the last-axis blocks: row r of the result is rank
+        r's block ``self.rank``."""
+        send = self._blocks(x)
+        recv = torch.empty_like(_wire(send))
+        dist.all_to_all_single(recv, _wire(send), group=self.pg)
+        return recv.view(send.dtype)
+
+    def all_reduce(self, xs, op: str = "sum"):
+        if self.t == 1:
+            return xs[0]
+        self._check(xs, "all_reduce")
+        if op not in ("sum", "max"):
+            raise ValueError(f"all_reduce op must be 'sum' or 'max', "
+                             f"got {op!r}")
+        self._record("allreduce", xs)
+        out = xs[0].clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum"
+                        else dist.ReduceOp.MAX, group=self.pg)
+        return out
+
+    def reduce_scatter(self, xs):
+        if self.t == 1:
+            return [xs[0]]
+        self._check(xs, "reduce_scatter")
+        x = xs[0]
+        if x.dtype == torch.float8_e4m3fn:
+            got = self._exchange(x)
+            total = got[0].float()
+            for b in got[1:]:
+                total = total + b.float()
+            out = total.to(torch.float8_e4m3fn)
+        else:
+            blocks = self._blocks(x)
+            out = x.new_empty(blocks.shape[1:])
+            _REDUCE_SCATTER(out, blocks.flatten(0, 1), op=dist.ReduceOp.SUM,
+                            group=self.pg)
+        self._record("reducescatter", xs)
+        return [out]
+
+    def all_gather(self, xs, values_per_item: int = 1, axis: int = -1):
+        if self.t == 1:
+            return xs[0]
+        self._check(xs, "all_gather")
+        self._record("allgather", xs, values_per_item, axis)
+        x = xs[0].contiguous()
+        out = x.new_empty((self.t * x.shape[0], *x.shape[1:]))
+        _ALL_GATHER(_wire(out), _wire(x), group=self.pg)
+        return torch.cat(out.chunk(self.t), dim=axis)
+
+    def all_to_all(self, xs, values_per_item: int = 1):
+        if self.t == 1:
+            return [xs[0]]
+        self._check(xs, "all_to_all")
+        got = self._exchange(xs[0])
+        self._record("alltoall", xs, values_per_item)
+        return [torch.cat(got.unbind(0), dim=-1)]
+
+    def collective_permute(self, xs, out=None):
+        if self.t == 1:
+            return [xs[0]]
+        self._check(xs, "collective_permute")
+        self._record("collectivepermute", xs)
+        x = xs[0].contiguous()
+        dst = torch.empty_like(x) if out is None else out[0]
+        nxt = self.ranks[(self.rank + 1) % self.t]
+        prv = self.ranks[(self.rank - 1) % self.t]
+        for req in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, _wire(x), nxt, group=self.pg),
+                dist.P2POp(dist.irecv, _wire(dst), prv, group=self.pg)]):
+            req.wait()
+        return [dst]
+
+
+class RankPlace(NamedTuple):
+    """Where this process sits in a world of t·p ranks: its TP ``group``
+    (a ``DistGroup``), its pipeline ``stage``, the global ranks of its
+    peer on the next and the previous stage (the same TP rank; None at
+    the ends), and the device its tensors live on."""
+    group: DistGroup
+    stage: int
+    next: Optional[int]
+    prev: Optional[int]
+    t: int
+    p: int
+    device: torch.device
+
+    @property
+    def last_rank(self) -> int:
+        """The first rank of the last stage: the one that broadcasts the
+        next greedy token."""
+        return (self.p - 1) * self.t
+
+
+def init_world(device) -> torch.device:
+    """Join the world ``torchrun`` describes (``env://``): NCCL, and this
+    process's card ``cuda:{LOCAL_RANK}``, when ``device`` is the card;
+    gloo on the CPU.  Returns the rank's device.  Raises when the card
+    has no NCCL or the host fewer cards than local ranks."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        _check_cards(local + 1)
+        device = torch.device("cuda", local)
+        torch.cuda.set_device(device)
+        dist.init_process_group("nccl", init_method="env://")
+    else:
+        dist.init_process_group("gloo", init_method="env://")
+    return device
+
+
+def _check_cards(need: int) -> None:
+    if not dist.is_nccl_available():
+        raise RuntimeError("ranks on the card need NCCL, which this torch "
+                           "does not have")
+    if torch.cuda.device_count() < need:
+        raise RuntimeError(f"{need} ranks on this host need {need} cards; "
+                           f"it has {torch.cuda.device_count()}")
+
+
+def dist_groups(t: int, p: int = 1, device=None) -> RankPlace:
+    """This process's place in a world of t·p ranks, stage-major: stage s
+    holds the global ranks s·t .. s·t + t - 1.  Builds every stage's TP
+    group on every rank, in the same order (``new_group`` is collective).
+    ``device`` defaults to ``cuda:{LOCAL_RANK}`` under NCCL and the CPU
+    under gloo; a device on the card needs NCCL and a card for every
+    local rank.  Raises when the world is not t·p ranks."""
+    if not dist.is_initialized():
+        raise RuntimeError("dist_groups needs torch.distributed initialised "
+                           "(init_world, or init_process_group)")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if t < 1 or p < 1 or world != t * p:
+        raise ValueError(f"a world of {world} ranks does not hold t={t} x "
+                         f"p={p}")
+    nccl = dist.get_backend() == "nccl"
+    if device is None:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                         rank)))\
+            if nccl else torch.device("cpu")
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not nccl:
+            raise RuntimeError(f"ranks on the card need NCCL; the world "
+                               f"runs {dist.get_backend()}")
+        _check_cards(int(os.environ.get("LOCAL_WORLD_SIZE", world)))
+    elif nccl:
+        raise RuntimeError("an NCCL world keeps its tensors on the card, "
+                           f"not on {device}")
+    stage, tp_rank = divmod(rank, t)
+    pg = None
+    if t > 1:
+        for s in range(p):
+            g = dist.new_group(list(range(s * t, (s + 1) * t)))
+            if s == stage:
+                pg = g
+    group = DistGroup(t, tp_rank, pg, range(stage * t, (stage + 1) * t))
+    return RankPlace(group, stage, rank + t if stage < p - 1 else None,
+                     rank - t if stage > 0 else None, t, p, device)
 
 
 class VirtualMesh:

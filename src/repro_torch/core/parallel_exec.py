@@ -1,5 +1,5 @@
 """Explicit tensor-parallel and pipeline engines of the port, on virtual
-ranks and stages.
+ranks and stages or on real ones.
 
 Counterpart of ``repro.core.parallel_exec``.  The TP half is the paper's
 hand-placed collective schedule (Section III-A) —
@@ -10,10 +10,15 @@ hand-placed collective schedule (Section III-A) —
   * an all-gather of the vocab-sharded logits (the paper's Gather; the
     JAX package all-gathers, ``commodel`` gather_mode="allgather").
 
-The t ranks are virtual: their shards sit on one device and every
-collective goes through a ``core.comm.VirtualGroup``, which logs it.  So
-one card (or the CPU) runs t > 1, and a run's log compares with
-``commodel.comm_ops_for``.  The rank loop:
+By default the t ranks are virtual: their shards sit on one device and
+every collective goes through a ``core.comm.VirtualGroup``, which logs it.
+So one card (or the CPU) runs t > 1, and a run's log compares with
+``commodel.comm_ops_for``.  On a ``core.comm.DistGroup`` (``group=``) the
+same code runs one rank per process and card, its collectives over NCCL
+(gloo on the CPU): every rank loop runs over ``group.local_ranks``, all t
+on a virtual group and this process's one rank on a real one, and the
+parameter and cache lists hold the local ranks' pieces only.  The rank
+loop:
 
   * each rank runs its own shard's projections and attention (kernels B2,
     B3 and B4 at Hq/t query and Hkv/t KV heads) and contributes a partial
@@ -53,7 +58,9 @@ unscaled embeddings (the JAX ``_head`` and ``_embed_tokens`` ignore
 The pipeline half (Section III-B/C) is ``PipelineEngine``: p stages, each
 a ``TPModel`` stage over its own layers and its own t ranks (t = 1: pure
 PP, t > 1: hybrid), with a logged boundary hop between stages.  A TPModel
-pass is the one-stage case of the same stage methods.
+pass is the one-stage case of the same stage methods.  Given a
+``core.comm.RankPlace`` (``place=``) each process runs its own stage on
+its own card, and a hop is an NCCL send/recv to the next stage.
 """
 from __future__ import annotations
 
@@ -64,9 +71,10 @@ import types
 from typing import List, NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.core.comm import VirtualGroup
+from repro_torch.core.comm import DistGroup, VirtualGroup
 from repro_torch.core.commodel import (DEFAULT_QUANT_CHUNK,
                                        stage_layer_partition)
 from repro_torch.kernels.quant_collective import ref as qref
@@ -78,7 +86,7 @@ from repro_torch.models.blocks import attention_apply
 from repro_torch.models.layers import (add_norm, decode_positions, mlp_apply,
                                        torch_dtype)
 from repro_torch.models.transformer import (Model, greedy_decode_loop,
-                                            resolve_device)
+                                            greedy_tokens, resolve_device)
 from repro_torch.runtime.engine import check_params_device
 
 # ---------------------------------------------------------------------------
@@ -114,10 +122,14 @@ def check_tp_config(cfg: ModelConfig, t: int) -> None:
                              f"t={t} ranks")
 
 
-def shard_params(cfg: ModelConfig, params: dict, t: int) -> List[dict]:
+def shard_params(cfg: ModelConfig, params: dict, t: int,
+                 ranks=None) -> List[dict]:
     """Rank r's slice of every parameter, as a contiguous copy of its own:
     what ``NamedSharding(mesh, tp_param_specs(cfg))`` places on device r.
-    Replicated parameters are copied to every rank too."""
+    Replicated parameters are copied to every rank too.  ``ranks`` (default
+    all t) are the ranks whose slices are made: a process of a real group
+    keeps its own rank's only.  A top-level parameter ``params`` lacks (a
+    pipeline stage's) is left out."""
     check_tp_config(cfg, t)
 
     def piece(w, axis, r):
@@ -127,10 +139,10 @@ def shard_params(cfg: ModelConfig, params: dict, t: int) -> List[dict]:
         return w.clone(memory_format=torch.contiguous_format)
 
     return [dict({name: piece(params[name], axis, r)
-                  for name, axis in TOP_SHARD_AXES.items()},
+                  for name, axis in TOP_SHARD_AXES.items() if name in params},
                  blocks={name: piece(w, BLOCK_SHARD_AXES[name], r)
                          for name, w in params["blocks"].items()})
-            for r in range(t)]
+            for r in (range(t) if ranks is None else ranks)]
 
 
 # ---------------------------------------------------------------------------
@@ -144,7 +156,7 @@ def _vocab_parallel_embed(embeds, tokens, group: VirtualGroup):
     vshard = embeds[0].shape[0]
     tokens = tokens.long()
     parts = []
-    for r, table in enumerate(embeds):
+    for r, table in zip(group.local_ranks, embeds):
         local = tokens - r * vshard
         valid = (local >= 0) & (local < vshard)
         x = table[local.clamp(0, vshard - 1)]
@@ -221,8 +233,9 @@ def quantized_psum_gathered(xs, group: VirtualGroup, quant: str = "int8",
       1. per-chunk abs-max on every rank (B5), all-reduced with max; the
          shared scales follow from it (``scales_from_amax`` with
          ``collective_qmax`` headroom) inside the quantize, on every rank,
-         and rank 0's quantize also writes them for the dequantize (on a
-         group of processes each rank would write its own);
+         and the first local rank's quantize also writes them for the
+         dequantize: rank 0 on a virtual group, every process's own rank
+         on a ``DistGroup``;
       2. int8 / fp8: quantize on every rank (B6) onto the shared scales,
          reduce-scatter of the 1-byte payload (the int8 sum is exact by
          the headroom), all-gather of the reduced blocks; the gathered
@@ -230,11 +243,11 @@ def quantized_psum_gathered(xs, group: VirtualGroup, quant: str = "int8",
          dequantizes once (B9) back to the inputs' dtype, or with the
          residual add and the next norm (``GatheredSum.add_norm``);
       3. int4, three fused passes around the two hops: quantize and pack
-         on every rank (B6 + B7; rank 0's writes the shared scales times
-         t), all-to-all of the nibbles; on every rank unpack, an exact
-         int32 sum of the t copies of the rank's block, requantize by t
-         and pack again (B8 + B7); all-gather; unpack and dequantize once
-         (B8 + B9) with the shared scales times t.
+         on every rank (B6 + B7; the first local rank's writes the shared
+         scales times t), all-to-all of the nibbles; on every rank
+         unpack, an exact int32 sum of the t copies of the rank's block,
+         requantize by t and pack again (B8 + B7); all-gather; unpack and
+         dequantize once (B8 + B9) with the shared scales times t.
 
     ``quant=None`` or a group of one rank is the plain all-reduce.
     ``plain=True`` runs the plain versions of the passes in place of the
@@ -256,15 +269,15 @@ def quantized_psum_gathered(xs, group: VirtualGroup, quant: str = "int8",
             raise ValueError(f"int4 packs two values per byte and ships "
                              f"h/t-element blocks: h={h} must divide 2t="
                              f"{2 * t}")
-        out = [ops.quantize_pack_shared(x, amax, qmax, chunk, t, r == 0)
-               for r, x in enumerate(xs)]
+        out = [ops.quantize_pack_shared(x, amax, qmax, chunk, t, i == 0)
+               for i, x in enumerate(xs)]
         received = group.all_to_all([p for p, _ in out], values_per_item=2)
         reduced = [ops.reduce_requant(p, t) for p in received]
         gathered = group.all_gather(reduced, values_per_item=2)
         return ops.unpack_dequantize(gathered, out[0][1], chunk,
                                      xs[0].dtype)
-    out = [ops.quantize_shared(x, amax, qmax, chunk, quant, r == 0)
-           for r, x in enumerate(xs)]
+    out = [ops.quantize_shared(x, amax, qmax, chunk, quant, i == 0)
+           for i, x in enumerate(xs)]
     gathered = group.all_gather(group.reduce_scatter([q for q, _ in out]))
     return GatheredSum(gathered, out[0][1], chunk, plain)
 
@@ -330,7 +343,9 @@ class TPModel:
     caches.  ``quant`` lowers the per-layer all-reduces of the contiguous
     decode step to ``quantized_psum``; ``plain=True`` runs the plain
     attention, RMSNorm and quantization in place of the kernels.  The
-    collectives are logged on ``self.group``.  The layer loop carries the
+    collectives go through ``group`` (default a ``VirtualGroup(t)``; a
+    ``DistGroup`` runs this process's rank only) and are logged on
+    ``self.group``.  The layer loop carries the
     residual stream as (h, x) (``models.blocks``): h is the last all-reduce
     of the previous layer, added inside the next norm.  ``c`` > 1 adds c
     CP workers to the prefill (``cp_prefill``); their ring and all-reduce
@@ -338,10 +353,16 @@ class TPModel:
 
     def __init__(self, cfg: ModelConfig, t: int, quant: str = None,
                  quant_chunk: int = DEFAULT_QUANT_CHUNK, plain: bool = False,
-                 c: int = 1):
+                 c: int = 1, group: VirtualGroup = None):
         check_tp_config(cfg, t)
         if c < 1:
             raise ValueError(f"c must be >= 1, got {c}")
+        if group is not None and group.t != t:
+            raise ValueError(f"a group of {group.t} ranks for t={t}")
+        if isinstance(group, DistGroup) and c > 1:
+            raise NotImplementedError(
+                "context parallelism on real ranks (c > 1 on a DistGroup) "
+                "is A3b part 2 (ROADMAP); run c > 1 on virtual ranks")
         self.cfg = cfg
         self.t = int(t)
         self.c = int(c)
@@ -350,14 +371,16 @@ class TPModel:
         self.plain = bool(plain)
         self.heads_t = cfg.num_heads // t
         self.kv_t = cfg.num_kv_heads // t
-        self.group = VirtualGroup(t)
+        self.group = VirtualGroup(t) if group is None else group
         self.cp_group = VirtualGroup(c, log=self.group.log)
         self._dense = Model(cfg, plain)
 
     # ------------------------------------------------------------- params
     def init(self, seed: int = 0, device=None) -> List[dict]:
-        """Seeded random weights (``Model.init``), sharded over the ranks."""
-        return shard_params(self.cfg, self._dense.init(seed, device), self.t)
+        """Seeded random weights (``Model.init``), sharded over the local
+        ranks."""
+        return shard_params(self.cfg, self._dense.init(seed, device), self.t,
+                            self.group.local_ranks)
 
     def cache_width(self, max_len: int) -> int:
         return self._dense.cache_width(max_len)
@@ -382,7 +405,7 @@ class TPModel:
         shape = (*lead, self.kv_t, self.cfg.head_dim)
         return [{key: torch.zeros(shape, dtype=torch_dtype(self.cfg.dtype),
                                   device=device)
-                 for key in ("k", "v")} for _ in range(self.t)]
+                 for key in ("k", "v")} for _ in self.group.local_ranks]
 
     # ------------------------------------------------------ layer variants
     def _tp_layer_qkv(self, pls, xn, positions, caches=None, **attn_kw):
@@ -554,7 +577,8 @@ class TPModel:
             if cache_w is not None:
                 cache = [{key: x.new_zeros((hi - lo, B, cache_w, self.kv_t,
                                             cfg.head_dim))
-                          for key in ("k", "v")} for _ in range(self.t)]
+                          for key in ("k", "v")}
+                         for _ in self.group.local_ranks]
             for l in range(lo, hi):
                 pls = [_layer_slice(p["blocks"], l - lo) for p in params]
                 if c == 1:
@@ -673,7 +697,7 @@ class TPModel:
 
 
 # ---------------------------------------------------------------------------
-# the pipeline (PP) and hybrid (TP x PP) engine, on virtual stages
+# the pipeline (PP) and hybrid (TP x PP) engine, on virtual or real stages
 # ---------------------------------------------------------------------------
 
 
@@ -718,6 +742,20 @@ class PipelineEngine:
     allocated once), standing in for NCCL send/recv, and each of its two
     tensors is logged as a ``TransferRecord`` in ``self.transfers``.
 
+    ``place`` (a ``core.comm.RankPlace`` of a world of t·p processes)
+    puts the stages on real ranks: this process builds, holds and runs
+    its own stage only (``self.stages`` and the per-stage lists hold None
+    for the others), on its rank's shard and its ``DistGroup``.  A hop is
+    then an ``isend``/``irecv`` of the rank's two [..., h/t] slices to the
+    same TP rank of the next stage, into the receive buffers; the sender
+    logs the ``TransferRecord``s, so the records of the stages' senders
+    add up to Eq. 2 / Eq. 7.  The last stage's logits stay there; the
+    next greedy token reaches every rank by one broadcast of B int32
+    from the last stage's first rank (``next_token``): the one message
+    outside Eq. 2, not logged as a transfer.  The pass methods return the
+    logits on the last stage and None elsewhere.  c > 1 raises
+    (A3b part 2).
+
     ``quant_collectives`` quantizes the contiguous decode step's layer
     all-reduces, as in ``TPModel``; ``plain=True`` runs the plain versions
     of the kernels.  ``c`` > 1 shards each stage's prefill over c CP
@@ -729,7 +767,7 @@ class PipelineEngine:
     def __init__(self, cfg: ModelConfig, t: int = 1, p: int = 2, c: int = 1,
                  quant_collectives: str = None,
                  quant_chunk: int = DEFAULT_QUANT_CHUNK, plain: bool = False,
-                 device=None):
+                 device=None, place=None):
         if cfg.family != "dense":
             raise ValueError(f"PipelineEngine covers the dense family; "
                              f"{cfg.name} is {cfg.family}")
@@ -740,43 +778,57 @@ class PipelineEngine:
         self.cfg, self.t, self.p, self.c = cfg, int(t), int(p), int(c)
         self.quant = _check_quant(quant_collectives)
         self.quant_chunk = int(quant_chunk)
-        self.device = resolve_device(device)
-        self.stages = [TPModel(cfg, t, self.quant, quant_chunk, plain, c)
-                       for _ in range(p)]
+        self.place = place
+        if place is None:
+            self.device = resolve_device(device)
+        else:
+            if (place.t, place.p) != (self.t, self.p):
+                raise ValueError(f"a rank placed at (t, p) = ({place.t}, "
+                                 f"{place.p}) for an engine of ({t}, {p})")
+            self.device = place.device
+            if device is not None and torch.device(device) != self.device:
+                raise ValueError(f"device {device} is not the rank's "
+                                 f"{self.device}")
+        self.stages = [TPModel(cfg, t, self.quant, quant_chunk, plain, c,
+                               group=None if place is None else place.group)
+                       if place is None or place.stage == s else None
+                       for s in range(p)]
         self.ranges = [stage_layer_range(cfg, p, s) for s in range(p)]
         self.transfers: List[TransferRecord] = []
         self._recv: dict = {}
 
     # ------------------------------------------------------------- state
     def prepare(self, params) -> List[List[dict]]:
-        """Per stage, per rank: views of the stage's layers of the rank's
-        shard (``shard_params``); the embedding on stage 0 only, the head
-        and the final norm on the last stage only."""
+        """Per stage, per local rank: the rank's shard (``shard_params``)
+        of the stage's layers; the embedding on stage 0 only, the head and
+        the final norm on the last stage only.  On real ranks only this
+        process's stage and rank (None for the other stages)."""
         check_params_device(params, self.device)
         L = self.cfg.num_layers
-        ranks = shard_params(self.cfg, params, self.t)
         staged = []
-        for lo, hi in self.ranges:
-            stage = []
-            for rank in ranks:
-                part = {"blocks": {k: w[lo:hi]
-                                   for k, w in rank["blocks"].items()}}
-                if lo == 0:
-                    part["embed"] = rank["embed"]
-                if hi == L:
-                    part["lm_head"] = rank["lm_head"]
-                    part["final_norm"] = rank["final_norm"]
-                stage.append(part)
-            staged.append(stage)
+        for m, (lo, hi) in zip(self.stages, self.ranges):
+            if m is None:
+                staged.append(None)
+                continue
+            part = {"blocks": {k: w[lo:hi]
+                               for k, w in params["blocks"].items()}}
+            if lo == 0:
+                part["embed"] = params["embed"]
+            if hi == L:
+                part["lm_head"] = params["lm_head"]
+                part["final_norm"] = params["final_norm"]
+            staged.append(shard_params(self.cfg, part, self.t,
+                                       m.group.local_ranks))
         return staged
 
     def cache_width(self, max_len: int) -> int:
-        return self.stages[0].cache_width(max_len)
+        return next(m for m in self.stages if m).cache_width(max_len)
 
     def init_cache(self, batch: int, max_len: int):
-        """Per stage, the per-rank ring caches [L_s, B, W, Hkv/t, D]."""
+        """Per stage, the per-rank ring caches [L_s, B, W, Hkv/t, D] (None
+        for a stage another process runs)."""
         w = self.cache_width(max_len)
-        return [m._rank_caches((hi - lo, batch, w), self.device)
+        return [m and m._rank_caches((hi - lo, batch, w), self.device)
                 for m, (lo, hi) in zip(self.stages, self.ranges)]
 
     def init_paged_cache(self, num_pages: int, page_size: int):
@@ -787,31 +839,70 @@ class PipelineEngine:
                 "paged KV cache keeps every position (pages, no ring wrap); "
                 f"{self.cfg.name} uses a sliding window — serve it "
                 "contiguous")
-        return [m._rank_caches((hi - lo, num_pages, page_size), self.device)
+        return [m and m._rank_caches((hi - lo, num_pages, page_size),
+                                     self.device)
                 for m, (lo, hi) in zip(self.stages, self.ranges)]
 
     # ---------------------------------------------------------- boundary
     def _receive_buffers(self, s: int, shape, dtype, shard: int = 0):
+        """Stage s + 1's buffers for the pair off stage s: two lists of one
+        [..., h/t] tensor per local rank, allocated once per shape."""
         key = (s, tuple(shape), dtype, shard)
         if key not in self._recv:
+            ranks = self.stages[s + 1].group.local_ranks
             self._recv[key] = tuple(
                 [torch.empty(shape, dtype=dtype, device=self.device)
-                 for _ in range(self.t)] for _ in range(2))
+                 for _ in ranks] for _ in range(2))
         return self._recv[key]
 
     @torch.inference_mode()
-    def send_boundary(self, out, s: int, phase: str = "decode"):
+    def send_boundary(self, out, s: int, rows, phase: str = "decode"):
         """Ship stage s's carried pair (h, x) to stage s + 1: each rank's
         h/t slice of both tensors copied into the next stage's receive
         buffers, one ``TransferRecord`` per tensor.  Returns the received
-        pair as two lists of t rank slices.  A CP prefill's ``out`` is the
-        list of the c shards' pairs: every shard ships its own slices, and
-        the records are one worker's, [B, S/c, h/t]; returns the c
-        received pairs."""
+        pair as two lists of t rank slices.  ``rows`` is the pass's
+        (B, S), the shape a real stage receives into (``rows_of``).  A CP
+        prefill's ``out`` is the list of the c shards' pairs: every shard
+        ships its own slices, and the records are one worker's,
+        [B, S/c, h/t]; returns the c received pairs."""
+        if self.place is not None:
+            return self._ship_ranks(out, s, rows, phase)
         if isinstance(out, list):
             return [self._ship(pair, s, phase, i) for i, pair in
                     enumerate(out)]
         return self._ship(out, s, phase)
+
+    def _ship_ranks(self, out, s: int, rows, phase: str):
+        """The hop off stage s on real ranks: stage s's process sends its
+        rank's two h/t slices to its peer on stage s + 1 and logs them
+        (returns None); stage s + 1's process receives them into its
+        buffers (returns them); any other process does nothing."""
+        place = self.place
+        k = self.cfg.d_model // self.t
+        if place.stage == s:
+            h, x = out
+            if isinstance(h, GatheredSum):
+                h = h.dequantize(x.dtype)
+            r = place.group.rank
+            pieces = [full[..., r * k:(r + 1) * k].contiguous()
+                      for full in (h, x)]
+            for req in dist.batch_isend_irecv(
+                    [dist.P2POp(dist.isend, piece, place.next)
+                     for piece in pieces]):
+                req.wait()
+            for piece in pieces:
+                self.transfers.append(TransferRecord(
+                    phase, 1, tuple(piece.shape), piece.element_size()))
+            return None
+        if place.stage == s + 1:
+            bufs = self._receive_buffers(s, (*rows, k),
+                                         torch_dtype(self.cfg.dtype))
+            for req in dist.batch_isend_irecv(
+                    [dist.P2POp(dist.irecv, ranks[0], place.prev)
+                     for ranks in bufs]):
+                req.wait()
+            return bufs
+        return None
 
     def _ship(self, out, s: int, phase: str, shard: int = 0):
         h, x = out
@@ -833,30 +924,59 @@ class PipelineEngine:
         return torch.as_tensor(tokens, dtype=torch.int32,
                                device=self.device)
 
+    @staticmethod
+    def rows_of(x):
+        """(B, S) of a pass's fed token ids [B, S] (S = 1 for [B])."""
+        return (x.shape[0], x.shape[1] if x.dim() > 1 else 1)
+
+    def next_token(self, logits, batch: int):
+        """The greedy token [batch] int32 of the last stage's logits, on
+        every rank: on real ranks the last stage's argmax, broadcast from
+        its first rank (B int32 a step, outside Eq. 2; ``logits`` is None
+        on the other stages)."""
+        if self.place is None:
+            return greedy_tokens(logits)
+        if logits is not None:
+            tok = greedy_tokens(logits)
+        else:
+            tok = torch.empty(batch, dtype=torch.int32, device=self.device)
+        dist.broadcast(tok, src=self.place.last_rank)
+        return tok
+
+    def _head_out(self, out):
+        """A pass's result: the last stage's logits (None on a process
+        that does not run the last stage)."""
+        return out if self.stages[-1] is not None else None
+
     # ------------------------------------------------------- stage passes
     def decode_stage_fns(self):
         """Per stage fn(params, cache, x, pos) -> (out, cache): one decode
-        step of the stage, drivable on its own by the instruction queue."""
-        return [functools.partial(m.stage_decode, lo=lo, hi=hi)
+        step of the stage, drivable on its own by the instruction queue
+        (None for a stage another process runs)."""
+        return [m and functools.partial(m.stage_decode, lo=lo, hi=hi)
                 for m, (lo, hi) in zip(self.stages, self.ranges)]
 
     def paged_stage_fns(self):
         """Per stage fn(params, cache, x, pos, block_table) -> (out, cache):
-        one paged pass of the stage (a chunk or a decode step)."""
-        return [functools.partial(m.stage_paged, lo=lo, hi=hi)
+        one paged pass of the stage (a chunk or a decode step; None for a
+        stage another process runs)."""
+        return [m and functools.partial(m.stage_paged, lo=lo, hi=hi)
                 for m, (lo, hi) in zip(self.stages, self.ranges)]
 
     # ------------------------------------------------------------ passes
     def _prefill(self, staged, tokens, cache_w, phase: str, last=None):
         check_cp_tokens(tokens, self.c)
         x = self.feed_tokens(tokens)
-        caches = []
+        rows, caches, out = self.rows_of(x), [], None
         for s, (m, (lo, hi)) in enumerate(zip(self.stages, self.ranges)):
-            out, cache = m.stage_prefill(staged[s], x, lo, hi, cache_w, last)
+            cache = None
+            if m is not None:
+                out, cache = m.stage_prefill(staged[s], x, lo, hi, cache_w,
+                                             last)
             caches.append(cache)
             if s < self.p - 1:
-                x = self.send_boundary(out, s, phase)
-        return out, caches
+                x = self.send_boundary(out, s, rows, phase)
+        return self._head_out(out), caches
 
     def forward(self, staged, tokens, phase: str = "prefill",
                 last: int = None):
@@ -878,12 +998,14 @@ class PipelineEngine:
         scalar or [B]; each boundary ships the [B, 1, h/t] pair (the
         decode rows of Table V).  Returns (logits [B, v], caches), the
         caches updated in place."""
-        x = self.feed_tokens(token)
+        x, out = self.feed_tokens(token), None
+        rows = self.rows_of(x)
         for s, fn in enumerate(self.decode_stage_fns()):
-            out, caches[s] = fn(staged[s], caches[s], x, pos)
+            if fn is not None:
+                out, caches[s] = fn(staged[s], caches[s], x, pos)
             if s < self.p - 1:
-                x = self.send_boundary(out, s, "decode")
-        return out, caches
+                x = self.send_boundary(out, s, rows, "decode")
+        return self._head_out(out), caches
 
     def paged_pass(self, staged, caches, tokens, pos, bt,
                    phase: str = "decode"):
@@ -891,21 +1013,25 @@ class PipelineEngine:
         [B, S], phase "prefill") or a decode step (tokens [B, 1]); the
         boundary hops are logged under ``phase``.  Returns (last-position
         logits [B, v], per-stage page pools, updated in place)."""
-        x = self.feed_tokens(tokens)
+        x, out = self.feed_tokens(tokens), None
+        rows = self.rows_of(x)
         for s, fn in enumerate(self.paged_stage_fns()):
-            out, caches[s] = fn(staged[s], caches[s], x, pos, bt)
+            if fn is not None:
+                out, caches[s] = fn(staged[s], caches[s], x, pos, bt)
             if s < self.p - 1:
-                x = self.send_boundary(out, s, phase)
-        return out, caches
+                x = self.send_boundary(out, s, rows, phase)
+        return self._head_out(out), caches
 
     def generate(self, staged, caches, token, pos, num_tokens: int):
         """Greedy generation of ``num_tokens`` through the pipeline:
         (tokens [B, num_tokens] int32, caches).  Logs (p - 1)·2·N decode
         transfers: with the prefill's token, the paper's (p-1)·2·(s_d-1)
         for s_d = N + 1."""
+        token = self.feed_tokens(token)
         return greedy_decode_loop(
             lambda c, tok, p: self.decode_once(staged, c, tok, p),
-            self.feed_tokens(token), caches, pos, num_tokens)
+            token, caches, pos, num_tokens,
+            pick=lambda logits: self.next_token(logits, token.shape[0]))
 
     def transfer_summary(self, phase: str = None) -> dict:
         """The logged transfers (of one ``phase``): count and bytes."""

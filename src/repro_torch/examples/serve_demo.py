@@ -15,6 +15,13 @@ the same layout.
         (the explicit engines run t ranks, c CP workers and p stages as
          virtual ranks on one device; --cp > 1 sequence-shards each
          prefill over the CP workers, DESIGN.md §9)
+    PYTHONPATH=src torchrun --nproc-per-node 4 \\
+        -m repro_torch.examples.serve_demo --backend tp --tp 4
+        (under torchrun each of the t·p ranks is a process on its own
+         card, over NCCL: --backend pp --pp 4, or --backend pp --tp 2
+         --pp 2; every rank serves the trace on rank 0's clock, rank 0
+         prints the report, and the ranks' admissions and streams are
+         checked equal)
 
 Counterpart of ``examples/serve_demo.py`` with the same flags plus
 ``--device`` (default the card; it raises when there is none); the
@@ -23,10 +30,13 @@ the contiguous gspmd backend launches B1, ``add_rms_norm``, B2 on each
 prefill and B3 on each decode step.
 """
 import argparse
+import os
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
+from repro_torch.core import comm
 from repro_torch.core.slo import predict_slo
 from repro_torch.models.transformer import get_model, resolve_device
 from repro_torch.runtime.backends import make_backend
@@ -34,19 +44,28 @@ from repro_torch.runtime.request import make_poisson_trace, Request
 from repro_torch.runtime.scheduler import Scheduler
 
 
+def layout(backend: str, tp: int = None, cp: int = 1, pp: int = 2):
+    """(t, p) of the flags: t defaults to 2 on the tp backend (without
+    CP) and to 1 otherwise; p is 1 off the pp backend."""
+    t = tp if tp is not None else \
+        (2 if backend == "tp" and cp < 2 else 1)
+    return t, pp if backend == "pp" else 1
+
+
 def run(cfg, params, device, backend: str = "gspmd", tp: int = None,
         cp: int = 1, pp: int = 2, requests: int = 8, slots: int = 4,
         rate: float = 4.0, prompt_lens=(8, 40), decode_lens=(4, 16),
-        max_len: int = 96) -> dict:
+        max_len: int = 96, place=None) -> dict:
     """Serve a Poisson trace through the Scheduler on the wall clock, after
     a warm-up run of one 2-token request per distinct prompt length.
     Returns the trace, the report, its summary, the backend's (t, c, p)
-    and ``predict_slo`` at the trace's mean prompt and decode lengths."""
-    t = tp if tp is not None else \
-        (2 if backend == "tp" and cp < 2 else 1)
+    and ``predict_slo`` at the trace's mean prompt and decode lengths.
+    ``place`` (``core.comm.dist_groups``) runs this process's rank of a
+    world of t·p."""
+    t, p = layout(backend, tp, cp, pp)
     be = make_backend(backend, cfg, params, num_slots=slots,
-                      max_len=max_len, t=t, c=cp,
-                      p=pp if backend == "pp" else 1, device=device)
+                      max_len=max_len, t=t, c=cp, p=p, device=device,
+                      place=place)
     trace = make_poisson_trace(requests, rate, cfg.vocab_size,
                                prompt_lens=tuple(prompt_lens),
                                decode_lens=tuple(decode_lens),
@@ -69,10 +88,21 @@ def run(cfg, params, device, backend: str = "gspmd", tp: int = None,
             "predicted": predict_slo(cfg, sp, sd, t=be.t, p=be.p, c=be.c)}
 
 
-def check(out: dict) -> None:
+def check(out: dict, place=None) -> None:
     """Every request of the trace finished by length with its whole
     decode budget (the scheduler itself asserts each step's collectives
-    against commodel.comm_ops_for)."""
+    against commodel.comm_ops_for); on ranks (``place``), every rank
+    admitted the same requests at the same times and made the same
+    streams."""
+    if place is not None:
+        mine = [(m.rid, m.admitted, m.first_token, list(m.tokens))
+                for m in out["report"].metrics]
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+        for r, theirs in enumerate(every):
+            if theirs != every[0]:
+                raise AssertionError(f"rank {r} served the trace otherwise "
+                                     f"than rank 0: {theirs} != {every[0]}")
     by = {m.rid: m for m in out["report"].metrics}
     for r in out["trace"]:
         m = by.get(r.rid)
@@ -109,13 +139,29 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    place = None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:     # under torchrun
+        device = comm.init_world(device)
+        place = comm.dist_groups(*layout(args.backend, args.tp, args.cp,
+                                         args.pp), device)
+    try:
+        return _serve(args, device, place)
+    finally:
+        if place is not None:
+            dist.destroy_process_group()
+
+
+def _serve(args, device, place) -> dict:
     cfg = get_config(args.arch).reduced(num_layers=4)
     params = get_model(cfg).init(seed=0, device=device)
     out = run(cfg, params, device, backend=args.backend, tp=args.tp,
               cp=args.cp, pp=args.pp, requests=args.requests,
               slots=args.slots, rate=args.rate,
               prompt_lens=args.prompt_lens, decode_lens=args.decode_lens,
-              max_len=args.max_len)
+              max_len=args.max_len, place=place)
+    check(out, place)
+    if place is not None and dist.get_rank() > 0:
+        return out
     print(f"{cfg.name}: backend={args.backend} t={out['t']} c={out['c']} "
           f"p={out['p']} slots={args.slots} requests={args.requests} "
           f"rate={args.rate or 'closed'}")
@@ -135,7 +181,11 @@ def main(argv=None) -> dict:
               f"batch={args.slots}")
     print(f"analytical single-request prediction (s_p={out['s_p']}, "
           f"s_d={out['s_d']}): " + out["predicted"].row())
-    check(out)
+    if place is not None:
+        print(f"{dist.get_world_size()} ranks, a process each"
+              f"{' and a card each' if place.device.type == 'cuda' else ''}"
+              f" ({dist.get_backend()}): every rank admitted the same "
+              f"requests at rank 0's times and made the same streams")
     return out
 
 

@@ -127,16 +127,19 @@ def greedy_tokens(logits):
                          logits)
 
 
-def greedy_decode_loop(step_fn, tokens, cache, pos, num_tokens: int):
+def greedy_decode_loop(step_fn, tokens, cache, pos, num_tokens: int,
+                       pick=None):
     """``num_tokens`` greedy steps feeding each argmax back in at the next
     position (the JAX package's fori_loop as a Python loop).
-    ``step_fn(cache, tok [B], pos_i) -> (logits [B, v], cache)``.
+    ``step_fn(cache, tok [B], pos_i) -> (logits [B, v], cache)``; ``pick``
+    (default ``greedy_tokens``) makes the next tokens of the logits.
     Returns (generated [B, num_tokens] int32, cache)."""
+    pick = greedy_tokens if pick is None else pick
     out = []
     tok = tokens
     for i in range(num_tokens):
         logits, cache = step_fn(cache, tok, pos + i)
-        tok = greedy_tokens(logits)
+        tok = pick(logits)
         out.append(tok)
     return torch.stack(out, dim=1), cache
 

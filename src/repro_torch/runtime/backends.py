@@ -42,6 +42,16 @@ as in-place device page copies (``_copy_page``).  ``pool`` / ``owner_base``
 let two backends share one ``KVPool`` under disjoint owner ranges (the
 disaggregated prefill and decode pools); page content crosses between
 their device pools through ``export_page`` / ``import_page``.
+
+Real ranks (``place``, a ``core.comm.RankPlace`` from
+``core.comm.dist_groups(t, p)``): the tp and pp backends run one process
+per rank and card, each keeping only its rank's (and stage's) shard of
+the weights and of the caches or page pools; every process drives the
+same scheduler, whose clock is rank 0's (``runtime.scheduler``).  The
+host-side slot and page bookkeeping is the same on every rank.  A
+backend's ``drain_transfers`` then counts the hops this process sent.
+c > 1 and the page export of the disaggregated pools stay on virtual
+ranks (A3b part 2).
 """
 from __future__ import annotations
 
@@ -49,6 +59,7 @@ from typing import List, Optional, Protocol, Sequence, runtime_checkable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.core.commodel import DEFAULT_QUANT_CHUNK, CommOp, \
@@ -89,6 +100,28 @@ class DecodeBackend(Protocol):
     def drain_transfers(self) -> dict: ...
 
 
+def _check_place(place, t: int, p: int) -> None:
+    """Raise unless ``place`` (None: virtual ranks) is a rank of a world
+    of exactly t·p processes placed at (t, p)."""
+    if place is None:
+        return
+    if (place.t, place.p) != (t, p):
+        raise ValueError(f"a rank placed at (t, p) = ({place.t}, {place.p}) "
+                         f"for a backend of ({t}, {p})")
+    if dist.get_world_size() != t * p:
+        raise ValueError(f"a world of {dist.get_world_size()} ranks for "
+                         f"t·p = {t * p}")
+
+
+def _device_of(place, device):
+    """A backend's device: the rank's own on real ranks."""
+    if place is None:
+        return resolve_device(device)
+    if device is not None and torch.device(device) != place.device:
+        raise ValueError(f"device {device} is not the rank's {place.device}")
+    return place.device
+
+
 def _seed_pages(pools, small, rows) -> None:
     """Scatter one rank's batch-1 contiguous cache {k, v: [L, 1, S, Hkv,
     D]} into its page pools {k, v: [L, P, ps, Hkv, D]} at the physical
@@ -117,7 +150,9 @@ class _BackendBase:
                  quant_collectives: Optional[str] = None,
                  quant_chunk: int = DEFAULT_QUANT_CHUNK,
                  prefix_cache: bool = False,
-                 pool: Optional[KVPool] = None, owner_base: int = 0):
+                 pool: Optional[KVPool] = None, owner_base: int = 0,
+                 place=None):
+        _check_place(place, t, p)
         if not cfg.is_decoder:
             raise ValueError(f"{cfg.name} is encoder-only: no decode")
         if quant_collectives is not None and paged:
@@ -182,6 +217,7 @@ class _BackendBase:
             self._decodable: set = set()
             self._worst: dict = {}      # slot -> worst-case pages committed
         self.prefix_index = PrefixIndex(self.pool) if prefix_cache else None
+        self.place = place
 
     # -- paged bookkeeping --------------------------------------------------
     def _require_paged(self):
@@ -271,6 +307,12 @@ class _BackendBase:
         group of layers: the pieces one exported page is cut into."""
         raise NotImplementedError
 
+    def _require_virtual(self, what: str) -> None:
+        if self.place is not None:
+            raise NotImplementedError(
+                f"{what} across real ranks is A3b part 2 (ROADMAP): each "
+                "process holds only its rank's slice of a page")
+
     def export_page(self, page: int) -> dict:
         """Physical ``page``'s K/V rows as host tensors {k, v: [L, ps, Hkv,
         D]} of the model's dtype — CPU ``torch`` tensors, so bfloat16 rows
@@ -278,6 +320,7 @@ class _BackendBase:
         are concatenated over the head axis, the stages' layers over the
         layer axis: the unit ``commodel.kv_handoff_ops`` prices."""
         self._require_paged()
+        self._require_virtual("a page export")
         with torch.inference_mode():
             out = {}
             for key in ("k", "v"):
@@ -295,6 +338,7 @@ class _BackendBase:
         this backend's device pools, split back over stages and ranks;
         returns the device bytes written."""
         self._require_paged()
+        self._require_virtual("a page import")
         dt = torch_dtype(self.cfg.dtype)
         total = 0
         with torch.inference_mode():
@@ -384,8 +428,7 @@ class _BackendBase:
         chunk = np.asarray(tokens, np.int32)[None, :]
         pos = np.asarray([start], np.int32)
         bt = self.block_tables[slot:slot + 1]
-        logits = self._paged_call(chunk, pos, bt)
-        return int(np.argmax(logits[0]))
+        return int(self._paged_tokens(chunk, pos, bt)[0])
 
     def prefill_whole(self, slot: int, tokens, start: int = 0) -> int:
         """Prefill a whole prompt into the slot's allocated pages: one
@@ -443,10 +486,8 @@ class _BackendBase:
         for slot in range(self.num_slots):
             if slot not in self._decodable:
                 bt[slot] = 0                # scratch page (kvpool.py)
-        logits = self._paged_call(
-            np.asarray(tokens, np.int32)[:, None],
-            np.asarray(pos, np.int32), bt)
-        return np.asarray(np.argmax(logits, -1), np.int32)
+        return self._paged_tokens(np.asarray(tokens, np.int32)[:, None],
+                                  np.asarray(pos, np.int32), bt)
 
     # -- predicted communication --------------------------------------------
     def _itemsize(self) -> int:
@@ -567,6 +608,12 @@ class _BackendBase:
         self._write_slot(small, slot)
         return int(torch.argmax(logits[0]))
 
+    def _paged_tokens(self, tokens, pos, bt) -> np.ndarray:
+        """The greedy tokens [B] int32 of one paged pass's last
+        position."""
+        return np.asarray(np.argmax(self._paged_call(tokens, pos, bt), -1),
+                          np.int32)
+
     @torch.inference_mode()
     def _paged_call(self, tokens, pos, bt) -> np.ndarray:
         """(logits [B, v]) of one paged pass; updates the cache in place."""
@@ -624,7 +671,9 @@ class TPBackend(_BackendBase):
     ``c`` > 1 prefills on c CP workers besides (t = 1: the pure-CP
     layout).  ``quant_collectives`` ("int8" | "fp8" | "int4") quantizes
     the contiguous decode step's layer all-reduces.  ``device`` defaults to
-    the CUDA card."""
+    the CUDA card.  ``place`` puts the t ranks on t processes (the
+    rank's ``DistGroup``, its shard and its cache only; its card is
+    ``place.device``)."""
 
     def __init__(self, cfg: ModelConfig, params, num_slots: int,
                  max_len: int = 256, t: int = 2, paged: bool = False,
@@ -632,17 +681,19 @@ class TPBackend(_BackendBase):
                  c: int = 1, quant_collectives: Optional[str] = None,
                  quant_chunk: int = DEFAULT_QUANT_CHUNK,
                  prefix_cache: bool = False, pool: Optional[KVPool] = None,
-                 owner_base: int = 0, device=None):
-        self.device = resolve_device(device)
+                 owner_base: int = 0, device=None, place=None):
+        self.device = _device_of(place, device)
         super().__init__(cfg, num_slots, max_len, t=t, p=1, paged=paged,
                          page_size=page_size, num_pages=num_pages, c=c,
                          quant_collectives=quant_collectives,
                          quant_chunk=quant_chunk, prefix_cache=prefix_cache,
-                         pool=pool, owner_base=owner_base)
+                         pool=pool, owner_base=owner_base, place=place)
         check_params_device(params, self.device)
         self.model = TPModel(cfg, t, quant=self.quant,
-                             quant_chunk=self.quant_chunk, c=c)
-        self.params = shard_params(cfg, params, t)
+                             quant_chunk=self.quant_chunk, c=c,
+                             group=None if place is None else place.group)
+        self.params = shard_params(cfg, params, t,
+                                   self.model.group.local_ranks)
         self._init_device_cache()
 
     def _write_slot(self, small, slot: int) -> None:
@@ -678,7 +729,12 @@ class PPBackend(_BackendBase):
     ``send_boundary``.  ``quant_collectives`` quantizes the contiguous
     decode step's layer all-reduces.  ``c`` > 1 shards each prefill over
     c CP workers per stage.  ``params`` are the single-device weights;
-    ``device`` defaults to the CUDA card."""
+    ``device`` defaults to the CUDA card.  ``place`` puts the t·p ranks on
+    as many processes: each keeps its own stage's shard and caches
+    (``self.staged``, ``self.caches`` and ``gcaches[g]`` hold None for the
+    other stages), runs only its stage's instructions, and takes each
+    round's tokens from the last stage's broadcast; at ``inflight`` > 1
+    the stages' processes then work on different groups at once."""
 
     def __init__(self, cfg: ModelConfig, params, num_slots: int,
                  max_len: int = 256, t: int = 1, p: int = 2,
@@ -688,15 +744,15 @@ class PPBackend(_BackendBase):
                  quant_collectives: Optional[str] = None,
                  quant_chunk: int = DEFAULT_QUANT_CHUNK,
                  prefix_cache: bool = False, pool: Optional[KVPool] = None,
-                 owner_base: int = 0, device=None):
+                 owner_base: int = 0, device=None, place=None):
         if p < 2:
             raise ValueError(f"pp backend needs p >= 2, got p={p}")
-        self.device = resolve_device(device)
+        self.device = _device_of(place, device)
         super().__init__(cfg, num_slots, max_len, t=t, p=p, paged=paged,
                          page_size=page_size, num_pages=num_pages, c=c,
                          quant_collectives=quant_collectives,
                          quant_chunk=quant_chunk, prefix_cache=prefix_cache,
-                         pool=pool, owner_base=owner_base)
+                         pool=pool, owner_base=owner_base, place=place)
         if inflight < 1 or num_slots % inflight:
             raise ValueError(
                 f"inflight must divide num_slots: got inflight={inflight}, "
@@ -705,7 +761,7 @@ class PPBackend(_BackendBase):
         self.group_size = self.num_slots // self.inflight
         self.engine = PipelineEngine(
             cfg, t=t, p=p, c=c, quant_collectives=self.quant,
-            quant_chunk=self.quant_chunk, device=self.device)
+            quant_chunk=self.quant_chunk, device=self.device, place=place)
         self.staged = self.engine.prepare(params)
         self._decode_fns = self.engine.decode_stage_fns()
         self._paged_fns = self.engine.paged_stage_fns()
@@ -719,8 +775,10 @@ class PPBackend(_BackendBase):
                             for _ in range(self.inflight)]
         self._drained = 0              # transfer-log cursor
 
-    def _first_token(self, logits) -> np.ndarray:
-        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+    def _first_token(self, logits, batch: int) -> np.ndarray:
+        """The greedy tokens [batch] of the last stage's logits, on every
+        rank (``PipelineEngine.next_token``)."""
+        return self.engine.next_token(logits, batch).cpu().numpy()
 
     def _cp_prefill(self, padded, last: int, cache_w: int):
         return self.engine.prefill_with_cache(self.staged, padded, cache_w,
@@ -734,7 +792,8 @@ class PPBackend(_BackendBase):
     def _page_pools(self):
         # stage s holds layers [lo, hi) of every page, split over its ranks
         return [(lo, rank) for stage, (lo, _) in
-                zip(self.caches, self.engine.ranges) for rank in stage]
+                zip(self.caches, self.engine.ranges) if stage is not None
+                for rank in stage]
 
     @torch.inference_mode()
     def _prefill_slot(self, prompt, slot: int) -> int:
@@ -746,18 +805,30 @@ class PPBackend(_BackendBase):
                 self.staged, self._tensor(prompt)[None, :], self.cache_w)
         g, row = divmod(slot, self.group_size)
         for stage, part in zip(self.gcaches[g], small):
+            if stage is None:
+                continue
             for rank, piece in zip(stage, part):
                 for key in ("k", "v"):
                     rank[key][:, row] = piece[key][:, 0]
-        return int(torch.argmax(logits[0]))
+        return int(self._first_token(logits, 1)[0])
 
-    @torch.inference_mode()
-    def _paged_call(self, tokens, pos, bt) -> np.ndarray:
+    def _paged_pass(self, tokens, pos, bt):
+        """The last stage's logits [B, v] of one paged pass (None on a
+        rank of another stage)."""
         phase = "decode" if np.shape(tokens)[1] == 1 else "prefill"
         logits, self.caches = self.engine.paged_pass(
             self.staged, self.caches, self._tensor(tokens), self._tensor(pos),
             self._tensor(bt), phase)
-        return logits.float().cpu().numpy()
+        return logits
+
+    @torch.inference_mode()
+    def _paged_call(self, tokens, pos, bt) -> np.ndarray:
+        return self._paged_pass(tokens, pos, bt).float().cpu().numpy()
+
+    @torch.inference_mode()
+    def _paged_tokens(self, tokens, pos, bt) -> np.ndarray:
+        return self._first_token(self._paged_pass(tokens, pos, bt),
+                                 len(tokens))
 
     @torch.inference_mode()
     def decode_step(self, tokens, pos) -> np.ndarray:
@@ -772,7 +843,7 @@ class PPBackend(_BackendBase):
             logits, self.gcaches[g] = self.engine.decode_once(
                 self.staged, self.gcaches[g], self._tensor(tokens[lo:lo + G]),
                 self._tensor(pos[lo:lo + G]))
-            out[lo:lo + G] = self._first_token(logits)
+            out[lo:lo + G] = self._first_token(logits, G)
         return out
 
     # -- the instruction queue's surface (runtime/schedule.py) --------------
@@ -804,7 +875,10 @@ class PPBackend(_BackendBase):
     @torch.inference_mode()
     def run_stage(self, g: int, s: int, x, pos, bt=None):
         """One ``StageForward``: stage s against group g's caches
-        (contiguous) or the stage's page pool (paged)."""
+        (contiguous) or the stage's page pool (paged); nothing, on real
+        ranks, for a stage another process runs."""
+        if self.staged[s] is None:
+            return None
         if self.paged:
             out, self.caches[s] = self._paged_fns[s](
                 self.staged[s], self.caches[s], x, pos, bt)
@@ -816,7 +890,8 @@ class PPBackend(_BackendBase):
     def send_boundary(self, out, s: int):
         """One ``BoundarySend``/``BoundaryRecv`` pair: stage s's boundary to
         stage s + 1, logged as decode transfers."""
-        return self.engine.send_boundary(out, s, phase="decode")
+        return self.engine.send_boundary(out, s, (self.group_size, 1),
+                                         phase="decode")
 
     def drain_transfers(self) -> dict:
         recs = self.engine.transfers[self._drained:]
@@ -834,7 +909,7 @@ def make_backend(kind: str, cfg: ModelConfig, params, num_slots: int,
                  quant_chunk: int = DEFAULT_QUANT_CHUNK,
                  prefix_cache: bool = False,
                  pool: Optional[KVPool] = None, owner_base: int = 0,
-                 device=None) -> DecodeBackend:
+                 device=None, place=None) -> DecodeBackend:
     """Backend factory keyed by engine kind: "gspmd" is the single-device
     engine (t = p = 1), "tp" the explicit TP engine on t >= 2 virtual
     ranks or c >= 2 CP workers (t = 1, c > 1: the pure-CP layout), "pp"
@@ -846,7 +921,9 @@ def make_backend(kind: str, cfg: ModelConfig, params, num_slots: int,
     hand-placed all-reduces; the single-device engine rejects it.
     ``prefix_cache`` attaches a ``PrefixIndex`` (paged, c = 1);
     ``pool`` / ``owner_base`` share another backend's ``KVPool`` under a
-    disjoint owner range (the disaggregated prefill and decode pools)."""
+    disjoint owner range (the disaggregated prefill and decode pools).
+    ``place`` (``core.comm.dist_groups(t, p)``) runs the tp or pp backend
+    on real ranks, one process each."""
     kw = dict(paged=paged, page_size=page_size, num_pages=num_pages,
               prefix_cache=prefix_cache, pool=pool, owner_base=owner_base,
               device=device)
@@ -866,6 +943,9 @@ def make_backend(kind: str, cfg: ModelConfig, params, num_slots: int,
             raise ValueError(
                 "quantized collectives need the explicit engines' "
                 "hand-placed all-reduces; use the tp backend")
+        if place is not None:
+            raise ValueError("the gspmd backend is one device: it takes no "
+                             "ranks")
         return ModelBackend(cfg, params, num_slots, max_len, **kw)
     qkw = dict(quant_collectives=quant_collectives, quant_chunk=quant_chunk)
     if kind == "tp":
@@ -873,8 +953,8 @@ def make_backend(kind: str, cfg: ModelConfig, params, num_slots: int,
             raise ValueError(
                 f"tp backend needs t >= 2 or c >= 2, got t={t} c={c}")
         return TPBackend(cfg, params, num_slots, max_len, t=t, c=c, **qkw,
-                         **kw)
+                         place=place, **kw)
     if kind == "pp":
         return PPBackend(cfg, params, num_slots, max_len, t=t, p=p, c=c,
-                         inflight=inflight, **qkw, **kw)
+                         inflight=inflight, place=place, **qkw, **kw)
     raise ValueError(f"unknown backend kind: {kind!r}")

@@ -227,7 +227,7 @@ class DynamicPPQueue:
         results = []
         for r, logits in finished:
             self._rounds.remove(r)
-            toks = self.backend._first_token(logits)
+            toks = self.backend._first_token(logits, len(r.slots))
             self.log.append(SampleToken(mb=r.mb))
             results.append(self._result(r, toks))
         return results

@@ -54,6 +54,12 @@ full blocks ship page by page to the second (``export_page`` /
 ``commodel.kv_handoff_ops``), and the decode pool admits them through its
 prefix index.
 
+On real ranks (a backend with a ``place``) every process runs its own
+scheduler over the same trace; they stay in step because every one of
+their decisions reads rank 0's clock (``SharedClock``) and the same
+greedy tokens, so they admit the same requests and issue the same
+collectives in the same order.
+
 Per-step communication is recorded as ``StepRecord``s with the collective
 counts ``commodel.comm_ops_for`` predicts; the paper's claim that these
 counts do not depend on the batch is asserted at construction.  A c > 1
@@ -68,6 +74,8 @@ import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.core.commodel import kv_handoff_ops, kv_handoff_pages
 from repro_torch.models.layers import torch_dtype
@@ -95,6 +103,31 @@ class WallClock:
         delta = t - self.now()
         if delta > 0:
             time.sleep(delta)
+
+
+class SharedClock:
+    """Rank 0's clock on every rank of a ``torch.distributed`` world: each
+    ``now()`` broadcasts rank 0's reading of ``base`` (one f64, on
+    ``device``), so processes whose own clocks differ admit and shed
+    alike, as vLLM's rank-0 worker decides for the others.  Only rank 0
+    waits in ``wait_until``: the others return at once and block in the
+    next ``now()`` (or collective) until rank 0 reaches it, so a rank
+    whose own clock reads behind rank 0's never holds the world past
+    rank 0's deadline."""
+
+    def __init__(self, base, device):
+        self.base = base
+        self.device = torch.device(device)
+
+    def now(self) -> float:
+        t = torch.tensor([self.base.now()], dtype=torch.float64,
+                         device=self.device)
+        dist.broadcast(t, src=0)
+        return float(t.item())
+
+    def wait_until(self, t: float) -> None:
+        if dist.get_rank() == 0:
+            self.base.wait_until(t)
 
 
 class VirtualClock:
@@ -297,6 +330,9 @@ class Scheduler:
                  retry_backoff: float = 0.05):
         self.backend = backend
         self.clock = clock if clock is not None else WallClock()
+        place = getattr(backend, "place", None)
+        if place is not None:
+            self.clock = SharedClock(self.clock, place.device)
         self.num_slots = backend.num_slots
         self.queue: List[Request] = []     # sorted by arrival, FIFO in ties
         self.free: List[int] = list(range(self.num_slots))
