@@ -1456,7 +1456,7 @@ def expect_launches(what, counts, L, passes, flash, decode, paged, t=1,
 
 
 def rank_launches(L, lo, hi, passes, flash, decode, paged, t=1, quant=None,
-                  quant_steps=0):
+                  quant_steps=0, cp=0):
     """The launches of ONE rank of a real TP group of t processes
     (``core.comm.DistGroup``) that runs the pipeline stage of layers
     [lo, hi) of L (TP alone: [0, L)): the virtual engine's launches for
@@ -1470,15 +1470,23 @@ def rank_launches(L, lo, hi, passes, flash, decode, paged, t=1, quant=None,
     is the rank's own: one B2/B3/B4 per layer of the stage, and per
     quantized all-reduce one B5 and one B6 (int4: one
     chunk_quantize_pack, nibble_reduce_requant and
-    nibble_unpack_dequantize)."""
+    nibble_unpack_dequantize).  Each of ``cp`` context-parallel prefill
+    passes (not in ``passes``) runs the rank's one shard: one B2 per
+    layer of the stage, B1 for layer lo's ln1 on the first stage and
+    again at the head on the last (on the row the CP all-reduce hands
+    it), add_rms_norm at the shard's other 2(hi - lo) - 1 (first stage)
+    or 2(hi - lo) norm sites: at [0, L), L B2, 2 B1 and 2L - 1
+    add_rms_norm a pass."""
     n, first, last = hi - lo, int(lo == 0), int(hi == L)
     q = quant_steps if quant and t > 1 else 0
     int8, int4 = (0, q) if quant == "int4" else (q, 0)
     sites = 2 * n - 1 + last           # norm sites that close an all-reduce
-    return {"rmsnorm": passes * first,
-            "add_rms_norm": passes * (2 * n + last - first) - int8 * sites,
+    return {"rmsnorm": passes * first + cp * (first + last),
+            "add_rms_norm": passes * (2 * n + last - first) - int8 * sites
+            + cp * (2 * n - first),
             "dequantize_add_rms_norm": int8 * sites,
-            "flash_attention": n * flash, "decode_attention": n * decode,
+            "flash_attention": n * (flash + cp),
+            "decode_attention": n * decode,
             "paged_decode_attention": n * paged,
             "chunk_amax": 2 * n * q, "chunk_quantize": 2 * n * int8,
             "chunk_dequantize": int8 * (1 - last),
@@ -2627,9 +2635,9 @@ def pp_round_breakdown(dev, smi, cfg, params, kind: str, t: int, p: int,
     if p > 1:
         send = backend.engine.send_boundary
 
-        def hop(out, s, rows, phase="decode"):
+        def hop(*args, **kw):
             with record_function(RANGES[0]):
-                return send(out, s, rows, phase)
+                return send(*args, **kw)
         backend.engine.send_boundary = hop
 
     def run(n):

@@ -48,8 +48,12 @@ process holds one rank (``local_ranks`` is ``(rank,)``, where a
 one tensor and returns what this rank holds, in the shape a
 ``VirtualGroup`` returns for one rank.  Every process logs every call, so
 rank 0's log equals the virtual group's record for record.
-``dist_groups(t, p)`` builds a world of t·p processes into p stages of t
-ranks, stage-major (the JAX package's ``devices[s·t:(s+1)·t]``).
+``dist_groups(t, p, c=c)`` builds a world of t·c·p processes into p
+stages of t·c ranks, stage-major, each stage a (t, c) plane in the JAX
+package's order (``devices[s·t·c:(s+1)·t·c].reshape(t, c)``): a TP group
+of the t ranks that share a CP index and a CP group of the c ranks that
+share a TP index, the CP group logging into the TP group's log, as on a
+virtual (t, c) mesh.
 """
 from __future__ import annotations
 
@@ -384,26 +388,35 @@ class DistGroup(VirtualGroup):
         return [torch.cat(got.unbind(0), dim=-1)]
 
     def collective_permute(self, xs, out=None):
+        """The ring step; a receive buffer the backend cannot write in
+        place (a strided view, such as the ring's block of an assembled
+        [B, S, ...] tensor) takes the bytes through a contiguous copy."""
         if self.t == 1:
             return [xs[0]]
         self._check(xs, "collective_permute")
         self._record("collectivepermute", xs)
         x = xs[0].contiguous()
-        dst = torch.empty_like(x) if out is None else out[0]
+        dst = out[0] if out is not None and out[0].is_contiguous() \
+            else torch.empty_like(x)
         nxt = self.ranks[(self.rank + 1) % self.t]
         prv = self.ranks[(self.rank - 1) % self.t]
         for req in dist.batch_isend_irecv([
                 dist.P2POp(dist.isend, _wire(x), nxt, group=self.pg),
                 dist.P2POp(dist.irecv, _wire(dst), prv, group=self.pg)]):
             req.wait()
+        if out is not None and dst is not out[0]:
+            out[0].copy_(dst)
+            dst = out[0]
         return [dst]
 
 
 class RankPlace(NamedTuple):
-    """Where this process sits in a world of t·p ranks: its TP ``group``
-    (a ``DistGroup``), its pipeline ``stage``, the global ranks of its
-    peer on the next and the previous stage (the same TP rank; None at
-    the ends), and the device its tensors live on."""
+    """Where this process sits in a world of t·c·p ranks: its TP ``group``
+    (a ``DistGroup`` of the stage's t ranks at its CP index), its pipeline
+    ``stage``, the global ranks of its peer on the next and the previous
+    stage (the same TP and CP index; None at the ends), the device its
+    tensors live on, and at c > 1 its CP group (a ``DistGroup`` of the c
+    ranks at its TP index, logging into ``group.log``; None at c = 1)."""
     group: DistGroup
     stage: int
     next: Optional[int]
@@ -411,12 +424,14 @@ class RankPlace(NamedTuple):
     t: int
     p: int
     device: torch.device
+    c: int = 1
+    cp_group: Optional[DistGroup] = None
 
     @property
     def last_rank(self) -> int:
         """The first rank of the last stage: the one that broadcasts the
         next greedy token."""
-        return (self.p - 1) * self.t
+        return (self.p - 1) * self.t * self.c
 
 
 def init_world(device) -> torch.device:
@@ -445,20 +460,23 @@ def _check_cards(need: int) -> None:
                            f"it has {torch.cuda.device_count()}")
 
 
-def dist_groups(t: int, p: int = 1, device=None) -> RankPlace:
-    """This process's place in a world of t·p ranks, stage-major: stage s
-    holds the global ranks s·t .. s·t + t - 1.  Builds every stage's TP
-    group on every rank, in the same order (``new_group`` is collective).
-    ``device`` defaults to ``cuda:{LOCAL_RANK}`` under NCCL and the CPU
-    under gloo; a device on the card needs NCCL and a card for every
-    local rank.  Raises when the world is not t·p ranks."""
+def dist_groups(t: int, p: int = 1, device=None, c: int = 1) -> RankPlace:
+    """This process's place in a world of t·c·p ranks, stage-major: stage
+    s holds the global ranks s·t·c .. (s + 1)·t·c - 1, as a (t, c) plane,
+    rank = s·t·c + tp·c + cp (at c = 1, s·t + tp).  Builds every stage's
+    TP groups (the t ranks of one CP index) and then its CP groups (the c
+    ranks of one TP index) on every rank, in the same order
+    (``new_group`` is collective).  ``device`` defaults to
+    ``cuda:{LOCAL_RANK}`` under NCCL and the CPU under gloo; a device on
+    the card needs NCCL and a card for every local rank.  Raises when the
+    world is not t·c·p ranks."""
     if not dist.is_initialized():
         raise RuntimeError("dist_groups needs torch.distributed initialised "
                            "(init_world, or init_process_group)")
     world, rank = dist.get_world_size(), dist.get_rank()
-    if t < 1 or p < 1 or world != t * p:
+    if t < 1 or c < 1 or p < 1 or world != t * c * p:
         raise ValueError(f"a world of {world} ranks does not hold t={t} x "
-                         f"p={p}")
+                         f"c={c} x p={p}")
     nccl = dist.get_backend() == "nccl"
     if device is None:
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
@@ -473,16 +491,32 @@ def dist_groups(t: int, p: int = 1, device=None) -> RankPlace:
     elif nccl:
         raise RuntimeError("an NCCL world keeps its tensors on the card, "
                            f"not on {device}")
-    stage, tp_rank = divmod(rank, t)
-    pg = None
-    if t > 1:
-        for s in range(p):
-            g = dist.new_group(list(range(s * t, (s + 1) * t)))
-            if s == stage:
+    plane = t * c
+    stage, within = divmod(rank, plane)
+    tp_rank, cp_rank = divmod(within, c)
+
+    def tp_ranks(s, j):
+        return [s * plane + i * c + j for i in range(t)]
+
+    def cp_ranks(s, i):
+        return [s * plane + i * c + j for j in range(c)]
+
+    pg = cp_pg = None
+    for s in range(p):
+        for j in range(c if t > 1 else 0):
+            g = dist.new_group(tp_ranks(s, j))
+            if (s, j) == (stage, cp_rank):
                 pg = g
-    group = DistGroup(t, tp_rank, pg, range(stage * t, (stage + 1) * t))
-    return RankPlace(group, stage, rank + t if stage < p - 1 else None,
-                     rank - t if stage > 0 else None, t, p, device)
+        for i in range(t if c > 1 else 0):
+            g = dist.new_group(cp_ranks(s, i))
+            if (s, i) == (stage, tp_rank):
+                cp_pg = g
+    group = DistGroup(t, tp_rank, pg, tp_ranks(stage, cp_rank))
+    cp_group = None if c == 1 else DistGroup(
+        c, cp_rank, cp_pg, cp_ranks(stage, tp_rank), log=group.log)
+    return RankPlace(group, stage, rank + plane if stage < p - 1 else None,
+                     rank - plane if stage > 0 else None, t, p, device, c,
+                     cp_group)
 
 
 class VirtualMesh:

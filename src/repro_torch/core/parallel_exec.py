@@ -46,7 +46,10 @@ and one CP all-reduce hands the last position's hidden state to the head.
 The TP collectives of the c shards at one site are logged once, as the
 SPMD program shows them per rank (``core.comm``).  Decode and the paged
 passes are the c = 1 passes at any c: the assembled cache is whole on
-every worker.
+every worker.  On real ranks (``cp_group`` a ``core.comm.DistGroup``)
+each process is one (TP rank, CP worker) of the (t, c) plane: it runs
+its own shard of the prompt, rings its K/V with its CP peers, and decodes
+replicated over cp with its own TP group on its whole cache.
 
 Parameters of a TP model are a list of t per-rank dicts (``shard_params``);
 caches are a list of t per-rank dicts {k, v: [L, B, W, Hkv/t, D]} (ring
@@ -349,20 +352,26 @@ class TPModel:
     residual stream as (h, x) (``models.blocks``): h is the last all-reduce
     of the previous layer, added inside the next norm.  ``c`` > 1 adds c
     CP workers to the prefill (``cp_prefill``); their ring and all-reduce
-    go through ``self.cp_group``, which logs into ``self.group.log``."""
+    go through ``self.cp_group``, which logs into ``self.group.log``: a
+    ``VirtualGroup(c)`` by default, or ``cp_group``, the CP ``DistGroup``
+    of a rank placed by ``core.comm.dist_groups`` (which a ``DistGroup``
+    ``group`` at c > 1 needs), whose process then runs its own worker's
+    shard only."""
 
     def __init__(self, cfg: ModelConfig, t: int, quant: str = None,
                  quant_chunk: int = DEFAULT_QUANT_CHUNK, plain: bool = False,
-                 c: int = 1, group: VirtualGroup = None):
+                 c: int = 1, group: VirtualGroup = None,
+                 cp_group: VirtualGroup = None):
         check_tp_config(cfg, t)
         if c < 1:
             raise ValueError(f"c must be >= 1, got {c}")
         if group is not None and group.t != t:
             raise ValueError(f"a group of {group.t} ranks for t={t}")
-        if isinstance(group, DistGroup) and c > 1:
-            raise NotImplementedError(
-                "context parallelism on real ranks (c > 1 on a DistGroup) "
-                "is A3b part 2 (ROADMAP); run c > 1 on virtual ranks")
+        if cp_group is not None and cp_group.t != c:
+            raise ValueError(f"a CP group of {cp_group.t} workers for c={c}")
+        if c > 1 and isinstance(group, DistGroup) and cp_group is None:
+            raise ValueError("a rank's TP group at c > 1 needs its CP group "
+                             "(core.comm.dist_groups(t, p, c=c).cp_group)")
         self.cfg = cfg
         self.t = int(t)
         self.c = int(c)
@@ -372,7 +381,8 @@ class TPModel:
         self.heads_t = cfg.num_heads // t
         self.kv_t = cfg.num_kv_heads // t
         self.group = VirtualGroup(t) if group is None else group
-        self.cp_group = VirtualGroup(c, log=self.group.log)
+        self.cp_group = VirtualGroup(c, log=self.group.log) \
+            if cp_group is None else cp_group
         self._dense = Model(cfg, plain)
 
     # ------------------------------------------------------------- params
@@ -479,17 +489,20 @@ class TPModel:
 
     def _cp_last_hidden(self, shards, last: int):
         """The carried pair the head reads at absolute position ``last``:
-        the shard that owns it adds its pair on that row (``x + h``, the s
-        of the norm that closes it), every other shard contributes zeros,
-        and one all-reduce over the CP group (the "+1" of
+        the local shard that owns it adds its pair on that row (``x + h``,
+        the s of the norm that closes it), every other shard contributes
+        zeros, and one all-reduce over the CP group (the "+1" of
         ``commodel.cp_comm_ops``) hands the row to every worker; the final
-        norm is then B1 alone."""
+        norm is then B1 alone.  ``shards`` are the local workers' pairs
+        (``cp_group.local_ranks``)."""
         s = shards[0][1].shape[1]
         owner, i = divmod(int(last), s)
-        h, x = shards[owner]
-        row = x[:, i] if h is None else x[:, i] + h[:, i]
-        rows = [row if r == owner else torch.zeros_like(row)
-                for r in range(self.c)]
+        rows = []
+        for r, (h, x) in zip(self.cp_group.local_ranks, shards):
+            if r != owner:
+                rows.append(torch.zeros_like(x[:, 0]))
+            else:
+                rows.append(x[:, i] if h is None else x[:, i] + h[:, i])
         return None, self.cp_group.all_reduce(rows)[:, None]
 
     def _tp_layer_step(self, pls, x, positions, pos, caches):
@@ -553,17 +566,20 @@ class TPModel:
         [hi - lo, B, cache_w, Hkv/t, D], or None without ``cache_w``).
 
         At c > 1 the sequence is sharded over the c CP workers: ``inp`` is
-        the tokens [B, S] (S a multiple of c) on the first stage and the c
-        shards' received pairs on a later one; a stage that is not the last
-        returns the c shards' pairs, and the last one's logits are those of
-        position ``last`` (default S - 1)."""
+        the tokens [B, S] (S a multiple of c) on the first stage and the
+        local workers' received pairs on a later one; each local worker
+        (all c on virtual ranks, this process's one on a real rank) runs
+        its own shard.  A stage that is not the last returns the local
+        shards' pairs, and the last one's logits are those of position
+        ``last`` (default S - 1)."""
         cfg, c = self.cfg, self.c
+        workers = self.cp_group.local_ranks
         with self.group.phase("prefill"):
             if c == 1:
                 inp = [inp]
             elif lo == 0:
                 s = inp.shape[1] // c
-                inp = [inp[:, i * s:(i + 1) * s] for i in range(c)]
+                inp = [inp[:, i * s:(i + 1) * s] for i in workers]
             shards = []
             for i, part in enumerate(inp):
                 with self.group.muted(i > 0):
@@ -572,7 +588,7 @@ class TPModel:
             B, s = x.shape[:2]
             positions = [torch.arange(i * s, (i + 1) * s,
                                       device=x.device).expand(B, s)
-                         for i in range(c)]
+                         for i in workers]
             cache = None
             if cache_w is not None:
                 cache = [{key: x.new_zeros((hi - lo, B, cache_w, self.kv_t,
@@ -742,19 +758,20 @@ class PipelineEngine:
     allocated once), standing in for NCCL send/recv, and each of its two
     tensors is logged as a ``TransferRecord`` in ``self.transfers``.
 
-    ``place`` (a ``core.comm.RankPlace`` of a world of t·p processes)
+    ``place`` (a ``core.comm.RankPlace`` of a world of t·c·p processes)
     puts the stages on real ranks: this process builds, holds and runs
     its own stage only (``self.stages`` and the per-stage lists hold None
-    for the others), on its rank's shard and its ``DistGroup``.  A hop is
-    then an ``isend``/``irecv`` of the rank's two [..., h/t] slices to the
-    same TP rank of the next stage, into the receive buffers; the sender
-    logs the ``TransferRecord``s, so the records of the stages' senders
-    add up to Eq. 2 / Eq. 7.  The last stage's logits stay there; the
-    next greedy token reaches every rank by one broadcast of B int32
-    from the last stage's first rank (``next_token``): the one message
-    outside Eq. 2, not logged as a transfer.  The pass methods return the
-    logits on the last stage and None elsewhere.  c > 1 raises
-    (A3b part 2).
+    for the others), on its rank's shard, its TP ``DistGroup`` and, at
+    c > 1, its CP ``DistGroup``.  A hop is then an ``isend``/``irecv`` of
+    the rank's two [..., h/t] slices (a CP prefill's [B, S/c, h/t]) to the
+    same (TP, CP) rank of the next stage, into the receive buffers; the
+    sender logs the ``TransferRecord``s, so the records of the stages'
+    first ranks add up to Eq. 2 / Eq. 7.  The last stage's logits stay
+    there (on each of its CP workers); the next greedy token reaches every
+    rank by one broadcast of B int32 from the last stage's first rank
+    (``next_token``): the one message outside Eq. 2, not logged as a
+    transfer.  The pass methods return the logits on the last stage and
+    None elsewhere.
 
     ``quant_collectives`` quantizes the contiguous decode step's layer
     all-reduces, as in ``TPModel``; ``plain=True`` runs the plain versions
@@ -782,15 +799,17 @@ class PipelineEngine:
         if place is None:
             self.device = resolve_device(device)
         else:
-            if (place.t, place.p) != (self.t, self.p):
-                raise ValueError(f"a rank placed at (t, p) = ({place.t}, "
-                                 f"{place.p}) for an engine of ({t}, {p})")
+            if (place.t, place.c, place.p) != (self.t, self.c, self.p):
+                raise ValueError(f"a rank placed at (t, c, p) = ({place.t}, "
+                                 f"{place.c}, {place.p}) for an engine of "
+                                 f"({t}, {c}, {p})")
             self.device = place.device
             if device is not None and torch.device(device) != self.device:
                 raise ValueError(f"device {device} is not the rank's "
                                  f"{self.device}")
         self.stages = [TPModel(cfg, t, self.quant, quant_chunk, plain, c,
-                               group=None if place is None else place.group)
+                               group=place and place.group,
+                               cp_group=place and place.cp_group)
                        if place is None or place.stage == s else None
                        for s in range(p)]
         self.ranges = [stage_layer_range(cfg, p, s) for s in range(p)]
@@ -856,31 +875,35 @@ class PipelineEngine:
         return self._recv[key]
 
     @torch.inference_mode()
-    def send_boundary(self, out, s: int, rows, phase: str = "decode"):
+    def send_boundary(self, out, s: int, rows, phase: str = "decode",
+                      sharded: bool = False):
         """Ship stage s's carried pair (h, x) to stage s + 1: each rank's
         h/t slice of both tensors copied into the next stage's receive
         buffers, one ``TransferRecord`` per tensor.  Returns the received
         pair as two lists of t rank slices.  ``rows`` is the pass's
         (B, S), the shape a real stage receives into (``rows_of``).  A CP
-        prefill's ``out`` is the list of the c shards' pairs: every shard
-        ships its own slices, and the records are one worker's,
-        [B, S/c, h/t]; returns the c received pairs."""
+        prefill (``sharded``; ``rows`` then (B, S/c)) ships the list of
+        the local workers' pairs: every worker ships its own slices, the
+        records are one worker's, [B, S/c, h/t], and the list of the
+        received pairs is returned."""
         if self.place is not None:
-            return self._ship_ranks(out, s, rows, phase)
-        if isinstance(out, list):
+            return self._ship_ranks(out, s, rows, phase, sharded)
+        if sharded:
             return [self._ship(pair, s, phase, i) for i, pair in
                     enumerate(out)]
         return self._ship(out, s, phase)
 
-    def _ship_ranks(self, out, s: int, rows, phase: str):
+    def _ship_ranks(self, out, s: int, rows, phase: str, sharded: bool):
         """The hop off stage s on real ranks: stage s's process sends its
-        rank's two h/t slices to its peer on stage s + 1 and logs them
-        (returns None); stage s + 1's process receives them into its
-        buffers (returns them); any other process does nothing."""
+        rank's two h/t slices (of its CP worker's shard, ``sharded``) to
+        its peer on stage s + 1 and logs them (returns None); stage
+        s + 1's process receives them into its buffers (returns them, a
+        list of the one pair when ``sharded``); any other process does
+        nothing."""
         place = self.place
         k = self.cfg.d_model // self.t
         if place.stage == s:
-            h, x = out
+            h, x = out[0] if sharded else out
             if isinstance(h, GatheredSum):
                 h = h.dequantize(x.dtype)
             r = place.group.rank
@@ -901,7 +924,7 @@ class PipelineEngine:
                     [dist.P2POp(dist.irecv, ranks[0], place.prev)
                      for ranks in bufs]):
                 req.wait()
-            return bufs
+            return [bufs] if sharded else bufs
         return None
 
     def _ship(self, out, s: int, phase: str, shard: int = 0):
@@ -967,7 +990,8 @@ class PipelineEngine:
     def _prefill(self, staged, tokens, cache_w, phase: str, last=None):
         check_cp_tokens(tokens, self.c)
         x = self.feed_tokens(tokens)
-        rows, caches, out = self.rows_of(x), [], None
+        (B, S), caches, out = self.rows_of(x), [], None
+        rows, sharded = (B, S // self.c), self.c > 1
         for s, (m, (lo, hi)) in enumerate(zip(self.stages, self.ranges)):
             cache = None
             if m is not None:
@@ -975,7 +999,7 @@ class PipelineEngine:
                                              last)
             caches.append(cache)
             if s < self.p - 1:
-                x = self.send_boundary(out, s, rows, phase)
+                x = self.send_boundary(out, s, rows, phase, sharded)
         return self._head_out(out), caches
 
     def forward(self, staged, tokens, phase: str = "prefill",

@@ -17,11 +17,12 @@ the same layout.
          prefill over the CP workers, DESIGN.md §9)
     PYTHONPATH=src torchrun --nproc-per-node 4 \\
         -m repro_torch.examples.serve_demo --backend tp --tp 4
-        (under torchrun each of the t·p ranks is a process on its own
-         card, over NCCL: --backend pp --pp 4, or --backend pp --tp 2
-         --pp 2; every rank serves the trace on rank 0's clock, rank 0
-         prints the report, and the ranks' admissions and streams are
-         checked equal)
+        (under torchrun each of the t·c·p ranks is a process on its own
+         card, over NCCL: --backend pp --pp 4, --backend pp --tp 2
+         --pp 2, --backend tp --tp 1 --cp 4, --backend tp --tp 2 --cp 2
+         or --backend pp --tp 1 --cp 2 --pp 2; every rank serves the
+         trace on rank 0's clock, rank 0 prints the report, and the
+         ranks' admissions and streams are checked equal)
 
 Counterpart of ``examples/serve_demo.py`` with the same flags plus
 ``--device`` (default the card; it raises when there is none); the
@@ -45,11 +46,11 @@ from repro_torch.runtime.scheduler import Scheduler
 
 
 def layout(backend: str, tp: int = None, cp: int = 1, pp: int = 2):
-    """(t, p) of the flags: t defaults to 2 on the tp backend (without
+    """(t, c, p) of the flags: t defaults to 2 on the tp backend (without
     CP) and to 1 otherwise; p is 1 off the pp backend."""
     t = tp if tp is not None else \
         (2 if backend == "tp" and cp < 2 else 1)
-    return t, pp if backend == "pp" else 1
+    return t, cp, pp if backend == "pp" else 1
 
 
 def run(cfg, params, device, backend: str = "gspmd", tp: int = None,
@@ -61,10 +62,10 @@ def run(cfg, params, device, backend: str = "gspmd", tp: int = None,
     Returns the trace, the report, its summary, the backend's (t, c, p)
     and ``predict_slo`` at the trace's mean prompt and decode lengths.
     ``place`` (``core.comm.dist_groups``) runs this process's rank of a
-    world of t·p."""
-    t, p = layout(backend, tp, cp, pp)
+    world of t·c·p."""
+    t, c, p = layout(backend, tp, cp, pp)
     be = make_backend(backend, cfg, params, num_slots=slots,
-                      max_len=max_len, t=t, c=cp, p=p, device=device,
+                      max_len=max_len, t=t, c=c, p=p, device=device,
                       place=place)
     trace = make_poisson_trace(requests, rate, cfg.vocab_size,
                                prompt_lens=tuple(prompt_lens),
@@ -142,8 +143,8 @@ def main(argv=None) -> dict:
     place = None
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:     # under torchrun
         device = comm.init_world(device)
-        place = comm.dist_groups(*layout(args.backend, args.tp, args.cp,
-                                         args.pp), device)
+        t, c, p = layout(args.backend, args.tp, args.cp, args.pp)
+        place = comm.dist_groups(t, p, device, c=c)
     try:
         return _serve(args, device, place)
     finally:

@@ -134,11 +134,12 @@ def attention_apply(cfg: ModelConfig, p, xn, positions, cache=None,
     ``num_heads``/``num_kv_heads`` are the head counts of the weights in
     ``p`` — a TP rank's shard (Hq/t, Hkv/t) — and default to the config's.
 
-    ``cp_group`` (a ``core.comm.VirtualGroup`` of c CP workers) selects the
-    context-parallel prefill: xn and ``positions`` are then lists of the c
-    sequence shards [B, S/c, h] and their absolute positions, and the
-    result is (the c shards' outputs, the cache built from the assembled
-    K/V or None).
+    ``cp_group`` (the CP group of c workers: a ``core.comm.VirtualGroup``,
+    or a ``DistGroup`` whose process holds one of them) selects the
+    context-parallel prefill: xn and ``positions`` are then lists of the
+    local workers' sequence shards [B, S/c, h] and their absolute
+    positions, and the result is (their outputs, the cache built from the
+    assembled K/V or None).
 
     A full-sequence pass takes the family's mask (``layers.mask_mode``),
     the vlm's over a prefix of ``prefix_len`` positions; decode needs none
@@ -220,12 +221,15 @@ def _attend(cfg: ModelConfig, q, k, v, cache, pos, build_cache_w,
 
 def _cp_attention(cfg: ModelConfig, p, xns, positions, build_cache_w,
                   plain: bool, Hq: int, Hkv: int, group):
-    """The CP branch of ``attention_apply`` (prefill only): each worker's
-    q/k/v of its shard at its absolute positions, K and V ring-assembled
-    over ``group`` (``layers.ring_kv_assemble``), then worker r's queries
-    against its assembled copy at query offset r·S/c: B2, or on the plain
-    path ``gqa_attention`` on the materialised [S/c, S] mask."""
-    c = len(xns)
+    """The CP branch of ``attention_apply`` (prefill only) over the CP
+    ``group`` of c workers: each local worker's q/k/v of its shard at its
+    absolute positions (``xns`` and ``positions`` hold one entry per
+    ``group.local_ranks``), K and V ring-assembled over ``group``
+    (``layers.ring_kv_assemble``), then worker r's queries against its
+    assembled copy at query offset r·S/c: B2, or on the plain path
+    ``gqa_attention`` on the materialised [S/c, S] mask.  The cache is
+    built from the assembled K/V, whole on every worker."""
+    c = group.t
     B, s, _ = xns[0].shape
     S, D = c * s, cfg.head_dim
     dev = xns[0].device
@@ -234,12 +238,12 @@ def _cp_attention(cfg: ModelConfig, p, xns, positions, build_cache_w,
     ks = layers.ring_kv_assemble([k for _, k, _ in qkv], group)
     vs = layers.ring_kv_assemble([v for _, _, v in qkv], group)
     outs = []
-    for r, (q, _, _) in enumerate(qkv):
+    for i, (r, (q, _, _)) in enumerate(zip(group.local_ranks, qkv)):
         if plain:
-            out = gqa_attention(q, ks[r], vs[r], layers.make_mask(
+            out = gqa_attention(q, ks[i], vs[i], layers.make_mask(
                 s, S, q_offset=r * s, window=window, device=dev))
         else:
-            out = flash_attention(q.contiguous(), ks[r], vs[r],
+            out = flash_attention(q.contiguous(), ks[i], vs[i],
                                   _i32(r * s, B, dev), _i32(S, B, dev),
                                   window)
         outs.append(out.reshape(B, s, Hq * D))

@@ -202,32 +202,34 @@ def ring_kv_assemble(blocks, group):
     """Ring all-gather of the c CP workers' K or V blocks, assembled in
     absolute sequence order.
 
-    ``blocks[r]`` [B, S/c, Hkv, D] is worker r's block, the rows
-    [r·S/c, (r+1)·S/c) of the sequence.  Each worker writes its own block
-    at its rows, then c - 1 ``collective_permute`` rounds over ``group``
-    (c workers) each forward the block a worker received last round to its
-    ring successor, which receives it straight into its own buffer at the
-    block's absolute rows (a device copy).  Returns the c workers'
-    assembled [B, S, Hkv, D] tensors, each bitwise the blocks concatenated
-    in order.  Two calls a layer (K and V) give the 2·(c-1) ring rows per
-    layer of ``commodel.cp_comm_ops``; each is logged as one worker's
-    [B, S/c, Hkv·D] block.
+    ``group`` is the CP group of c workers; ``blocks`` holds one block
+    [B, S/c, Hkv, D] for each of its local workers (``group.local_ranks``:
+    all c on a ``VirtualGroup``, this process's one on a ``DistGroup``),
+    worker w's block being the rows [w·S/c, (w+1)·S/c) of the sequence.
+    Each worker writes its own block at its rows, then c - 1
+    ``collective_permute`` rounds each forward the block a worker received
+    last round to its ring successor, which receives it straight into its
+    own buffer at the block's absolute rows.  Returns the local workers'
+    assembled [B, S, Hkv, D] tensors, each bitwise the c blocks
+    concatenated in order.  Two calls a layer (K and V) give the 2·(c-1)
+    ring rows per layer of ``commodel.cp_comm_ops``; each round is logged
+    once, as one worker's [B, S/c, Hkv·D] block.
     """
-    c = len(blocks)
+    c, workers = group.t, list(group.local_ranks)
     B, s, H, D = blocks[0].shape
     full = [b.new_empty((B, c * s, H * D)) for b in blocks]
 
-    def rows(w, src):
-        return full[w][:, src * s:(src + 1) * s]
+    def rows(i, src):
+        return full[i][:, src * s:(src + 1) * s]
 
     cur = []
-    for w, b in enumerate(blocks):
-        cur.append(rows(w, w))
-        cur[w].copy_(b.reshape(B, s, H * D))
+    for i, (w, b) in enumerate(zip(workers, blocks)):
+        cur.append(rows(i, w))
+        cur[i].copy_(b.reshape(B, s, H * D))
     for step in range(1, c):
         # worker w receives the block that started on worker w - step
         cur = group.collective_permute(
-            cur, [rows(w, (w - step) % c) for w in range(c)])
+            cur, [rows(i, (w - step) % c) for i, w in enumerate(workers)])
     return [f.view(B, c * s, H, D) for f in full]
 
 

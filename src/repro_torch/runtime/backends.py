@@ -27,7 +27,7 @@ Context parallelism (``c`` > 1 on the tp and pp backends) changes only how
 a request's prefill runs: the prompt pads to a multiple of c with token 0
 and runs as one CP pass (``TPModel.cp_prefill`` / the pipeline's CP
 stages), whose cache, assembled whole from the ring, lands in the slot's
-row or is scattered into the slot's pages (``_seed_pages``) from a staging
+row or is scattered into the slot's pages (``seed_cp_pages``) from a staging
 cache of the padded width.  The pad rows' K/V sit past the prompt, where
 decode overwrites them.  Decode is the c = 1 step.  CP and chunked prefill
 are alternative long-prompt strategies: a c > 1 backend prefills whole.
@@ -44,14 +44,16 @@ disaggregated prefill and decode pools); page content crosses between
 their device pools through ``export_page`` / ``import_page``.
 
 Real ranks (``place``, a ``core.comm.RankPlace`` from
-``core.comm.dist_groups(t, p)``): the tp and pp backends run one process
-per rank and card, each keeping only its rank's (and stage's) shard of
-the weights and of the caches or page pools; every process drives the
-same scheduler, whose clock is rank 0's (``runtime.scheduler``).  The
-host-side slot and page bookkeeping is the same on every rank.  A
-backend's ``drain_transfers`` then counts the hops this process sent.
-c > 1 and the page export of the disaggregated pools stay on virtual
-ranks (A3b part 2).
+``core.comm.dist_groups(t, p, c=c)``): the tp and pp backends run one
+process per rank and card, each keeping only its rank's (and stage's)
+shard of the weights and of the caches or page pools; every process
+drives the same scheduler, whose clock is rank 0's
+(``runtime.scheduler``).  The host-side slot and page bookkeeping is the
+same on every rank.  At c > 1 each process runs its CP worker's shard of
+a padded prompt and writes or seeds its whole cache, assembled by the
+ring, and decodes replicated over cp.  A backend's ``drain_transfers``
+then counts the hops this process sent.  The page export and import of
+the disaggregated pools stay on virtual ranks.
 """
 from __future__ import annotations
 
@@ -100,17 +102,18 @@ class DecodeBackend(Protocol):
     def drain_transfers(self) -> dict: ...
 
 
-def _check_place(place, t: int, p: int) -> None:
+def _check_place(place, t: int, c: int, p: int) -> None:
     """Raise unless ``place`` (None: virtual ranks) is a rank of a world
-    of exactly t·p processes placed at (t, p)."""
+    of exactly t·c·p processes placed at (t, c, p)."""
     if place is None:
         return
-    if (place.t, place.p) != (t, p):
-        raise ValueError(f"a rank placed at (t, p) = ({place.t}, {place.p}) "
-                         f"for a backend of ({t}, {p})")
-    if dist.get_world_size() != t * p:
+    if (place.t, place.c, place.p) != (t, c, p):
+        raise ValueError(f"a rank placed at (t, c, p) = ({place.t}, "
+                         f"{place.c}, {place.p}) for a backend of "
+                         f"({t}, {c}, {p})")
+    if dist.get_world_size() != t * c * p:
         raise ValueError(f"a world of {dist.get_world_size()} ranks for "
-                         f"t·p = {t * p}")
+                         f"t·c·p = {t * c * p}")
 
 
 def _device_of(place, device):
@@ -122,15 +125,23 @@ def _device_of(place, device):
     return place.device
 
 
-def _seed_pages(pools, small, rows) -> None:
-    """Scatter one rank's batch-1 contiguous cache {k, v: [L, 1, S, Hkv,
-    D]} into its page pools {k, v: [L, P, ps, Hkv, D]} at the physical
-    ``rows`` [S] of positions 0..S-1, in place: the CP prefill's hand-off
-    into a slot's pages."""
-    for key in ("k", "v"):
-        L, P, ps, H, D = pools[key].shape
-        pools[key].view(L, P * ps, H, D).index_copy_(1, rows,
-                                                     small[key][:, 0])
+def seed_cp_pages(stages, parts, table, n: int, page_size: int) -> None:
+    """Scatter a CP prefill's batch-1 caches into one slot's pages, in
+    place: the CP pass's hand-off.  ``parts`` [stage][rank] {k, v: [L, 1,
+    n, Hkv, D]} land in the page pools ``stages`` [stage][rank] {k, v:
+    [L, P, page_size, Hkv, D]} at positions 0..n-1 of the slot's block
+    table row ``table`` [pages] (a tensor).  A stage that another process
+    holds (None) is skipped."""
+    lp = torch.arange(n, device=table.device)
+    rows = table.long()[lp // page_size] * page_size + lp % page_size
+    for stage, part in zip(stages, parts):
+        if stage is None:
+            continue
+        for pools, piece in zip(stage, part):
+            for key in ("k", "v"):
+                L, P, ps, H, D = pools[key].shape
+                pools[key].view(L, P * ps, H, D).index_copy_(
+                    1, rows, piece[key][:, 0])
 
 
 class _BackendBase:
@@ -142,7 +153,7 @@ class _BackendBase:
     (``_write_slot``) and lists its device page pools (``_page_pools``,
     which page copies and the handoff walk); a c > 1 one runs its CP pass
     (``_cp_prefill``) and seeds a slot's pages from it
-    (``_seed_slot_pages``)."""
+    (``_page_stages``, ``seed_cp_pages``)."""
 
     def __init__(self, cfg: ModelConfig, num_slots: int, max_len: int,
                  t: int, p: int, paged: bool = False, page_size: int = 16,
@@ -152,7 +163,7 @@ class _BackendBase:
                  prefix_cache: bool = False,
                  pool: Optional[KVPool] = None, owner_base: int = 0,
                  place=None):
-        _check_place(place, t, p)
+        _check_place(place, t, c, p)
         if not cfg.is_decoder:
             raise ValueError(f"{cfg.name} is encoder-only: no decode")
         if quant_collectives is not None and paged:
@@ -310,7 +321,7 @@ class _BackendBase:
     def _require_virtual(self, what: str) -> None:
         if self.place is not None:
             raise NotImplementedError(
-                f"{what} across real ranks is A3b part 2 (ROADMAP): each "
+                f"{what} across real ranks is not supported: each "
                 "process holds only its rank's slice of a page")
 
     def export_page(self, page: int) -> dict:
@@ -452,12 +463,10 @@ class _BackendBase:
         S = padded.shape[1]
         with torch.inference_mode():
             logits, small = self._cp_prefill(padded, last, S)
-            lp = np.arange(S)
-            table = self.block_tables[slot]
-            rows = self._tensor(table[lp // self.page_size] * self.page_size
-                                + lp % self.page_size).long()
-            self._seed_slot_pages(small, rows)
-        return int(torch.argmax(logits[0]))
+            seed_cp_pages(*self._page_stages(small),
+                          self._tensor(self.block_tables[slot]), S,
+                          self.page_size)
+        return self._token_of(logits)
 
     def finish_prefill(self, slot: int) -> None:
         """Mark a fully prefilled slot decode-eligible."""
@@ -576,8 +585,9 @@ class _BackendBase:
         pass over a padded prompt [1, S]."""
         raise NotImplementedError
 
-    def _seed_slot_pages(self, small, rows) -> None:
-        """Scatter a CP pass's cache into the page ``rows`` of a slot."""
+    def _page_stages(self, small):
+        """(this process's page pools, a CP pass's caches ``small``), each
+        [stage][rank], for ``seed_cp_pages``."""
         raise NotImplementedError
 
     # -- the device side: one self.model pass per step or chunk ---------------
@@ -596,6 +606,10 @@ class _BackendBase:
         """Copy a batch-1 prefill cache into the slot's cache row."""
         raise NotImplementedError
 
+    def _token_of(self, logits) -> int:
+        """The greedy token of a batch-1 prefill's logits [1, v]."""
+        return int(torch.argmax(logits[0]))
+
     @torch.inference_mode()
     def _prefill_slot(self, prompt, slot: int) -> int:
         if self.c > 1:
@@ -606,7 +620,7 @@ class _BackendBase:
             logits, small, _ = self.model.prefill(
                 self.params, self._tensor(prompt)[None, :], self.max_len)
         self._write_slot(small, slot)
-        return int(torch.argmax(logits[0]))
+        return self._token_of(logits)
 
     def _paged_tokens(self, tokens, pos, bt) -> np.ndarray:
         """The greedy tokens [B] int32 of one paged pass's last
@@ -671,9 +685,9 @@ class TPBackend(_BackendBase):
     ``c`` > 1 prefills on c CP workers besides (t = 1: the pure-CP
     layout).  ``quant_collectives`` ("int8" | "fp8" | "int4") quantizes
     the contiguous decode step's layer all-reduces.  ``device`` defaults to
-    the CUDA card.  ``place`` puts the t ranks on t processes (the
-    rank's ``DistGroup``, its shard and its cache only; its card is
-    ``place.device``)."""
+    the CUDA card.  ``place`` puts the t·c ranks on t·c processes (the
+    rank's TP and CP ``DistGroup``s, its shard and its cache only; its
+    card is ``place.device``)."""
 
     def __init__(self, cfg: ModelConfig, params, num_slots: int,
                  max_len: int = 256, t: int = 2, paged: bool = False,
@@ -691,7 +705,8 @@ class TPBackend(_BackendBase):
         check_params_device(params, self.device)
         self.model = TPModel(cfg, t, quant=self.quant,
                              quant_chunk=self.quant_chunk, c=c,
-                             group=None if place is None else place.group)
+                             group=place and place.group,
+                             cp_group=place and place.cp_group)
         self.params = shard_params(cfg, params, t,
                                    self.model.group.local_ranks)
         self._init_device_cache()
@@ -704,9 +719,8 @@ class TPBackend(_BackendBase):
     def _cp_prefill(self, padded, last: int, cache_w: int):
         return self.model.cp_prefill(self.params, padded, last, cache_w)
 
-    def _seed_slot_pages(self, small, rows) -> None:
-        for pools, part in zip(self.cache, small):
-            _seed_pages(pools, part, rows)
+    def _page_stages(self, small):
+        return [self.cache], [small]
 
     def _page_pools(self):
         return [(0, rank) for rank in self.cache]
@@ -729,8 +743,8 @@ class PPBackend(_BackendBase):
     ``send_boundary``.  ``quant_collectives`` quantizes the contiguous
     decode step's layer all-reduces.  ``c`` > 1 shards each prefill over
     c CP workers per stage.  ``params`` are the single-device weights;
-    ``device`` defaults to the CUDA card.  ``place`` puts the t·p ranks on
-    as many processes: each keeps its own stage's shard and caches
+    ``device`` defaults to the CUDA card.  ``place`` puts the t·c·p ranks
+    on as many processes: each keeps its own stage's shard and caches
     (``self.staged``, ``self.caches`` and ``gcaches[g]`` hold None for the
     other stages), runs only its stage's instructions, and takes each
     round's tokens from the last stage's broadcast; at ``inflight`` > 1
@@ -780,14 +794,15 @@ class PPBackend(_BackendBase):
         rank (``PipelineEngine.next_token``)."""
         return self.engine.next_token(logits, batch).cpu().numpy()
 
+    def _token_of(self, logits) -> int:
+        return int(self._first_token(logits, 1)[0])
+
     def _cp_prefill(self, padded, last: int, cache_w: int):
         return self.engine.prefill_with_cache(self.staged, padded, cache_w,
                                               last)
 
-    def _seed_slot_pages(self, small, rows) -> None:
-        for stage, part in zip(self.caches, small):
-            for pools, piece in zip(stage, part):
-                _seed_pages(pools, piece, rows)
+    def _page_stages(self, small):
+        return self.caches, small
 
     def _page_pools(self):
         # stage s holds layers [lo, hi) of every page, split over its ranks
@@ -810,7 +825,7 @@ class PPBackend(_BackendBase):
             for rank, piece in zip(stage, part):
                 for key in ("k", "v"):
                     rank[key][:, row] = piece[key][:, 0]
-        return int(self._first_token(logits, 1)[0])
+        return self._token_of(logits)
 
     def _paged_pass(self, tokens, pos, bt):
         """The last stage's logits [B, v] of one paged pass (None on a
@@ -922,8 +937,8 @@ def make_backend(kind: str, cfg: ModelConfig, params, num_slots: int,
     ``prefix_cache`` attaches a ``PrefixIndex`` (paged, c = 1);
     ``pool`` / ``owner_base`` share another backend's ``KVPool`` under a
     disjoint owner range (the disaggregated prefill and decode pools).
-    ``place`` (``core.comm.dist_groups(t, p)``) runs the tp or pp backend
-    on real ranks, one process each."""
+    ``place`` (``core.comm.dist_groups(t, p, c=c)``) runs the tp or pp
+    backend on real ranks, one process each."""
     kw = dict(paged=paged, page_size=page_size, num_pages=num_pages,
               prefix_cache=prefix_cache, pool=pool, owner_base=owner_base,
               device=device)

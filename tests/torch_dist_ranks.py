@@ -4,9 +4,10 @@
 A module of its own, without JAX, so that each spawned rank imports only
 the port.  ``engine_run`` and ``serve_run`` are the passes both sides run:
 the parent on virtual ranks (``place=None``), each rank on its real one.
-``gloo_rank`` runs every layout, the quantized all-reduces and the
-serving runs on one rank of a world of 4 gloo processes and writes what it
-holds to ``rank{r}.pkl``.  ``card_rank`` is one rank of the four-card
+``gloo_rank`` runs every layout (TP, PP and TP x PP, and the context-
+parallel ones, c > 1), the quantized all-reduces and the serving runs on
+one rank of a world of 4 gloo processes and writes what it holds to
+``rank{r}.pkl``.  ``card_rank`` is one rank of the four-card
 test at the full width of llama32-3b (or, ``small``, its CPU rehearsal
 over gloo).
 """
@@ -18,15 +19,32 @@ import time
 import numpy as np
 import torch
 
-LAYOUTS = ((4, 1, 1), (2, 1, 2), (1, 1, 4))     # (t, c, p): TP, TPxPP, PP
+# (t, c, p): TP, TPxPP, PP, then CP, TPxCP and CPxPP
+LAYOUTS = ((4, 1, 1), (2, 1, 2), (1, 1, 4), (1, 4, 1), (2, 2, 1), (1, 2, 2))
 WORLD = 4
 B, S, W, N = 2, 8, 24, 8                         # batch, prompt, ring, tokens
 PS, PAGES = 4, 9
 BT = np.array([[3, 1, 7, 5], [2, 8, 4, 6]], np.int32)
 QUANT_ROWS = 4
 SKEW_S = 0.05                  # rank r's own clock runs r·SKEW_S off
-SERVE = (("tp", dict(t=4, paged=True, page_size=4)),
-         ("pp", dict(p=4, inflight=2)))
+# (name, backend kind, its layout and options)
+SERVE = (("tp", "tp", dict(t=4, paged=True, page_size=4)),
+         ("pp", "pp", dict(p=4, inflight=2)),
+         ("tp_cp", "tp", dict(t=2, c=2, paged=True, page_size=4)),
+         ("pp_cp", "pp", dict(c=2, p=2)),
+         ("pp_cp_paged", "pp", dict(c=2, p=2, paged=True, page_size=4)))
+
+
+def prompt_len(c: int) -> int:
+    """The prefill's prompt length: S, or at c > 1 the odd S - 1, which
+    pads to a multiple of c."""
+    return S if c == 1 else S - 1
+
+
+def place_of(kw: dict):
+    """This rank's place at a backend's layout keywords."""
+    from repro_torch.core.comm import dist_groups
+    return dist_groups(kw.get("t", 1), kw.get("p", 1), c=kw.get("c", 1))
 
 
 def reduced_config():
@@ -49,8 +67,9 @@ def _records(log):
     return [(r.kind, r.phase, r.shape, r.itemsize, r.t) for r in log]
 
 
-def engine_run(cfg, params, t: int, p: int, place=None) -> dict:
-    """One layout's passes: a prefill with caches of width W, N greedy
+def engine_run(cfg, params, t: int, p: int, place=None, c: int = 1) -> dict:
+    """One layout's passes: a prefill with caches of width W (at c > 1 a
+    CP prefill of the first ``prompt_len(c)`` tokens, padded), N greedy
     tokens, a paged chunk of S tokens and one paged decode step.  Returns
     numpy logits (None where this process holds none) and tokens, each
     stage's comm log as record tuples (None for a stage another process
@@ -58,18 +77,21 @@ def engine_run(cfg, params, t: int, p: int, place=None) -> dict:
     the transfers (phase, count, shape, bytes), their count after the
     tokens."""
     from repro_torch.core.parallel_exec import (PipelineEngine, TPModel,
-                                                shard_params)
+                                                pad_to_multiple, shard_params)
     toks, chunk, step = (torch.from_numpy(a) for a in inputs(cfg))
+    n = prompt_len(c)
+    padded = pad_to_multiple(toks[:, :n], c)
     zeros = torch.zeros(B, dtype=torch.int32)
     bt = torch.from_numpy(BT)
     with torch.inference_mode():
         if p == 1:
-            model = TPModel(cfg, t, group=place and place.group)
+            model = TPModel(cfg, t, c=c, group=place and place.group,
+                            cp_group=place and place.cp_group)
             shards = shard_params(cfg, params, t, model.group.local_ranks)
-            logits, cache = model.tp_prefill(shards, toks, W)
+            logits, cache = model.cp_prefill(shards, padded, n - 1, W)
             marks = [len(model.group.log)]
             tok = torch.argmax(logits, -1).to(torch.int32)
-            gen, _ = model.tp_generate(shards, cache, tok, S, N)
+            gen, _ = model.tp_generate(shards, cache, tok, n, N)
             marks.append(len(model.group.log))
             pools = model.init_paged_cache(PAGES, PS, "cpu")
             lg1, pools = model.tp_paged_step(shards, pools, chunk, zeros, bt)
@@ -77,14 +99,14 @@ def engine_run(cfg, params, t: int, p: int, place=None) -> dict:
                                              bt)
             stages, transfers, sent = [model], [], 0
         else:
-            eng = PipelineEngine(cfg, t, p, device="cpu" if place is None
+            eng = PipelineEngine(cfg, t, p, c=c, device="cpu" if place is None
                                  else None, place=place)
             staged = eng.prepare(params)
-            logits, caches = eng.prefill_with_cache(staged, toks, W)
+            logits, caches = eng.prefill_with_cache(staged, padded, W, n - 1)
             stages = eng.stages
             marks = [len(m.group.log) if m else None for m in stages]
             tok = eng.next_token(logits, B)
-            gen, _ = eng.generate(staged, caches, tok, S, N)
+            gen, _ = eng.generate(staged, caches, tok, n, N)
             marks = [(a, len(m.group.log)) if m else None
                      for a, m in zip(marks, stages)]
             sent = len(eng.transfers)
@@ -171,12 +193,13 @@ def _raises(exc, fn) -> bool:
 
 
 def gloo_rank(rank, world, port, params_np, out_dir):
-    """One gloo rank of the world of ``world`` (= t·p at every layout)."""
+    """One gloo rank of the world of ``world`` (= t·c·p at every
+    layout)."""
     import torch.distributed as dist
 
     from repro_torch import bridge
     from repro_torch.core.comm import VirtualGroup, dist_groups
-    from repro_torch.core.parallel_exec import TPModel, quantized_psum
+    from repro_torch.core.parallel_exec import quantized_psum
     from repro_torch.runtime.backends import make_backend
     from repro_torch.runtime.scheduler import VirtualClock
 
@@ -189,8 +212,8 @@ def gloo_rank(rank, world, port, params_np, out_dir):
         params = bridge.params_from_jax(params_np, cfg, device="cpu")
         out = {"layouts": {}}
         for t, c, p in LAYOUTS:
-            out["layouts"][(t, c, p)] = engine_run(cfg, params, t, p,
-                                                   dist_groups(t, p))
+            out["layouts"][(t, c, p)] = engine_run(
+                cfg, params, t, p, dist_groups(t, p, c=c), c)
         place = dist_groups(4, 1)
         out["quant"] = {}
         for dtype in (torch.float32, torch.bfloat16):
@@ -220,15 +243,13 @@ def gloo_rank(rank, world, port, params_np, out_dir):
         for name, clock in (("serve", ahead), ("serve_behind", lambda:
                                                LaggingClock(rank * SKEW_S))):
             out[name] = {}
-            for kind, kw in SERVE:
-                out[name][kind] = serve_run(
-                    cfg, params, kind, kw, clock(),
-                    dist_groups(kw.get("t", 1), kw.get("p", 1)))
-        hybrid = dist_groups(2, 2)
+            for serve, kind, kw in SERVE:
+                out[name][serve] = serve_run(cfg, params, kind, kw, clock(),
+                                             place_of(kw))
         out["guards"] = {
             "world != t·p": _raises(ValueError, lambda: dist_groups(2, 1)),
-            "c > 1": _raises(NotImplementedError, lambda: TPModel(
-                cfg, 2, c=2, group=hybrid.group)),
+            "world != t·c·p": _raises(ValueError,
+                                      lambda: dist_groups(1, 1, c=2)),
             "gloo on the card": _raises(
                 RuntimeError, lambda: dist_groups(4, 1, device="cuda")),
             "backend (t, p) != place": _raises(
@@ -251,38 +272,64 @@ def gloo_rank(rank, world, port, params_np, out_dir):
 
 # full width: a 333-token prefill and FORCED teacher-forced decode steps
 # (phase 5's 129 positions); TIMED decode steps at SLOTS rows timed and
-# profiled; f32 greedy tokens at L = 4
-CARD = dict(prefill=333, forced=128, timed=16, slots=4, f32_layers=4,
-            f32_prompt=128, f32_new=32, seed=33)
+# profiled; a LONG-token prefill timed at LONG_LAYOUTS; f32 greedy tokens
+# at L = 4
+CARD = dict(prefill=333, forced=128, timed=16, slots=4, long=2048,
+            f32_layers=4, f32_prompt=128, f32_new=32, seed=33)
 # a CPU rehearsal of the same program (gloo, reduced llama32-3b in bf16)
-SMALL = dict(prefill=33, forced=16, timed=4, slots=4, f32_layers=4,
+SMALL = dict(prefill=33, forced=16, timed=4, slots=4, long=64, f32_layers=4,
              f32_prompt=16, f32_new=8, seed=33)
+LONG_LAYOUTS = ((4, 1, 1), (1, 4, 1), (2, 2, 1), (1, 2, 2))
 
 
 class Runner:
     """One layout's engine behind one interface: ``TPModel`` at p = 1,
     ``PipelineEngine`` otherwise, on virtual ranks (``place`` None) on
-    ``dev`` or on this process's rank."""
+    ``dev`` or on this process's rank.  At c > 1 a prefill is a CP
+    prefill of the prompt padded to a multiple of c, and a paged prefill
+    seeds the pages from it, as the backends do."""
 
-    def __init__(self, cfg, params, t, p, place, dev, quant=None):
+    def __init__(self, cfg, params, t, p, place, dev, quant=None, c=1):
         from repro_torch.core.parallel_exec import (PipelineEngine, TPModel,
                                                     shard_params)
-        self.p, self.dev, self.place = p, dev, place
+        self.p, self.c, self.dev, self.place = p, c, dev, place
         if p == 1:
-            self.m = TPModel(cfg, t, quant=quant,
-                             group=place and place.group)
+            self.m = TPModel(cfg, t, quant=quant, c=c,
+                             group=place and place.group,
+                             cp_group=place and place.cp_group)
             self.params = shard_params(cfg, params, t,
                                        self.m.group.local_ranks)
         else:
-            self.m = PipelineEngine(cfg, t, p, quant_collectives=quant,
+            self.m = PipelineEngine(cfg, t, p, c=c, quant_collectives=quant,
                                     device=None if place else dev,
                                     place=place)
             self.params = self.m.prepare(params)
 
     def prefill(self, tokens, width):
+        """(logits of the last prompt position, caches of width at least
+        ``width`` and the padded prompt's length)."""
+        from repro_torch.core.parallel_exec import pad_to_multiple
+        last = tokens.shape[1] - 1
+        tokens = pad_to_multiple(tokens, self.c)
+        width = max(width, tokens.shape[1])
         if self.p == 1:
-            return self.m.tp_prefill(self.params, tokens, width)
-        return self.m.prefill_with_cache(self.params, tokens, width)
+            return self.m.cp_prefill(self.params, tokens, last, width)
+        return self.m.prefill_with_cache(self.params, tokens, width, last)
+
+    def paged_prefill(self, cache, tokens, bt, ps):
+        """A paged prefill of ``tokens`` [1, S] into the pages (of
+        ``ps`` positions) of ``bt``: one chunk at c = 1; at c > 1 a CP
+        prefill whose cache is scattered into the pages
+        (``backends.seed_cp_pages``, as the backends do)."""
+        from repro_torch.runtime.backends import seed_cp_pages
+        if self.c == 1:
+            return self.paged(cache, tokens, torch.zeros(
+                1, dtype=torch.int32, device=self.dev), bt)
+        lg, small = self.prefill(tokens, 0)
+        n = -(-tokens.shape[1] // self.c) * self.c
+        seed_cp_pages(*(([cache], [small]) if self.p == 1
+                        else (cache, small)), bt[0], n, ps)
+        return lg, cache
 
     def decode(self, cache, tok, pos):
         if self.p == 1:
@@ -331,9 +378,7 @@ def forced(run, prompt, n_pre, steps, paged, start=None):
             n = -(-total // ps)
             cache = run.paged_cache(1 + n, ps)
             bt = torch.arange(1, 1 + n, device=dev, dtype=torch.int32)[None]
-            lg, cache = run.paged(cache, prompt[:, :n_pre],
-                                  torch.zeros(1, dtype=torch.int32,
-                                              device=dev), bt)
+            lg, cache = run.paged_prefill(cache, prompt[:, :n_pre], bt, ps)
         else:
             lg, cache = run.prefill(prompt[:, :n_pre], total)
         rows.append(lg)
@@ -522,6 +567,41 @@ def nccl_micro(dev, h, rows, cs, iters=200):
     return out
 
 
+# serve_demo's layouts on the four cards: (name, backend, flags)
+SERVE_DEMO = (("tp", "tp", dict(tp=4)), ("pp", "pp", dict(pp=4)),
+              ("tp_cp4", "tp", dict(tp=1, cp=4)))
+
+
+def long_prefill(run, prompt, layers, cs):
+    """One ``prompt``-long prefill (width + 1): host wall (median of 3
+    after a warm-up, synchronised, no profiler; on ranks each timed pass
+    starts after a barrier), the profiled pass's busy with and without
+    NCCL's kernels, its NCCL kernels by collective, and their SendRecv
+    time over the ``layers`` of this stage: the ring's per layer (at
+    p > 1 the stage hop's one send/recv pair with it)."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if run.dev.type == "cuda" else [])
+    out = {"tokens": prompt.shape[1]}
+    with torch.inference_mode():
+        walls = []
+        for _ in range(4):
+            run.sync()
+            t0 = time.perf_counter()
+            run.prefill(prompt, prompt.shape[1] + 1)
+            run.sync()
+            walls.append(time.perf_counter() - t0)
+        out["wall_ms"] = 1e3 * sorted(walls[1:])[1]
+        with profile(activities=acts) as prof:
+            run.prefill(prompt, prompt.shape[1] + 1)
+            run.sync()
+        out["busy_ms"], out["busy_outside_nccl_ms"] = _busy(prof, cs)
+        out["nccl"] = _nccl_kinds(cs.device_events(prof), 1)
+    calls, us = out["nccl"].get("SendRecv", (0, 0.0))
+    out["sendrecv_ms_per_layer"] = calls * us / 1e3 / layers
+    return out
+
+
 def card_rank(rank, world, port, out_path, small=False, setup=None,
               focus=None):
     """One rank of the four-card test (NCCL, card ``rank``; with ``small``
@@ -530,8 +610,9 @@ def card_rank(rank, world, port, out_path, small=False, setup=None,
     from the virtual prefill and from the ranks' own) with this rank's
     launches and, on the last stage, the top-1 match and drift against
     the virtual engine's logits (computed on card 0 and broadcast); the
-    timings of this rank and (rank 0) of the virtual engine on one card.
-    Then the int8/fp8/int4 all-reduce at [4, h] bf16 against the virtual
+    timings of this rank and (rank 0) of the virtual engine on one card,
+    and at ``LONG_LAYOUTS`` a long prefill's (``long_prefill``).  Then
+    the int8/fp8/int4 all-reduce at [4, h] bf16 against the virtual
     group on the same card, f32 greedy tokens at L = 4 against the
     virtual engine, and serve_demo on ranks against its one-process run.
     ``focus`` ({(t, c, p): (mode, ...)}) reruns only those layouts' modes,
@@ -581,8 +662,10 @@ def card_rank(rank, world, port, out_path, small=False, setup=None,
                                generator=g).to(dev)
         prompts = torch.randint(2, cfg.vocab_size, (opt["slots"], n_pre),
                                 generator=g).to(dev)
+        long_prompt = torch.randint(2, cfg.vocab_size, (1, opt["long"]),
+                                    generator=g).to(dev)
         for t, c, p in LAYOUTS if focus is None else focus:
-            place = dist_groups(t, p, dev)
+            place = dist_groups(t, p, dev, c=c)
             lo, hi = stage_layer_range(cfg, p, place.stage)
             row = {"stage": place.stage, "lo": lo, "hi": hi, "runs": {}}
             # (name, quant, paged, from the virtual prefill): the int8
@@ -592,7 +675,7 @@ def card_rank(rank, world, port, out_path, small=False, setup=None,
             # prefill it is held to the virtual unquantized engine
             modes = [("contiguous", None, False, False),
                      ("paged", None, True, False)]
-            if p == 1 and t > 1:
+            if p == 1 and t > 1 and c == 1:
                 modes += [("int8", "int8", False, True),
                           ("int8_own", "int8", False, False)]
             if focus is not None:
@@ -602,23 +685,24 @@ def card_rank(rank, world, port, out_path, small=False, setup=None,
                 start = vstart = None
                 if from_virtual:
                     with torch.inference_mode():
-                        vrun = Runner(cfg, params, t, p, None, dev)
+                        vrun = Runner(cfg, params, t, p, None, dev, c=c)
                         vstart = vrun.prefill(prompt[:, :n_pre],
                                               n_pre + steps)
                         del vrun
                     start = (vstart[0], [{k: v.clone() for k, v in
                                           vstart[1][rank].items()}])
-                run = Runner(cfg, params, t, p, place, dev, quant)
+                run = Runner(cfg, params, t, p, place, dev, quant, c)
                 _build.reset_launches()
                 got = forced(run, prompt, n_pre, steps, paged, start)
                 run.sync()
                 launches = dict(_build.LAUNCHES)
+                cp = int(c > 1)
                 want = cs.rank_launches(
-                    L, lo, hi, passes=1 + steps - from_virtual,
-                    flash=0 if from_virtual else 1,
+                    L, lo, hi, passes=1 + steps - from_virtual - cp,
+                    flash=0 if from_virtual or cp else 1,
                     decode=0 if paged else steps,
                     paged=steps if paged else 0, t=t, quant=quant,
-                    quant_steps=steps if quant else 0)
+                    quant_steps=steps if quant else 0, cp=cp)
                 del run
                 key = (quant if from_virtual else None, paged)
                 if key not in refs:
@@ -626,7 +710,7 @@ def card_rank(rank, world, port, out_path, small=False, setup=None,
                                       device=dev)
                     if rank == 0:
                         ref = forced(Runner(cfg, params, t, p, None, dev,
-                                            key[0]),
+                                            key[0], c),
                                      prompt, n_pre, steps, paged, vstart)
                     dist.broadcast(ref, src=0)
                     refs[key] = ref
@@ -641,12 +725,20 @@ def card_rank(rank, world, port, out_path, small=False, setup=None,
             del refs
             if focus is None:
                 row["timing"] = timing(Runner(cfg, params, t, p, place,
-                                              dev),
+                                              dev, c=c),
                                        prompts, n_pre, opt["timed"], cs)
                 if rank == 0:
                     row["virtual_timing"] = timing(
-                        Runner(cfg, params, t, p, None, dev), prompts,
+                        Runner(cfg, params, t, p, None, dev, c=c), prompts,
                         n_pre, opt["timed"], cs)
+            if focus is None and (t, c, p) in LONG_LAYOUTS:
+                row["long"] = long_prefill(
+                    Runner(cfg, params, t, p, place, dev, c=c), long_prompt,
+                    hi - lo, cs)
+                if rank == 0:
+                    row["virtual_long"] = long_prefill(
+                        Runner(cfg, params, t, p, None, dev, c=c),
+                        long_prompt, L, cs)
             dist.barrier()
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
@@ -654,6 +746,10 @@ def card_rank(rank, world, port, out_path, small=False, setup=None,
         if focus is not None:
             _gather_rows(rank, world, rows, out_path)
             return
+        if rank == 0:               # the long prefill on one card, c = 1
+            rows["one_card_long"] = long_prefill(
+                Runner(cfg, params, 1, 1, None, dev), long_prompt, L, cs)
+        dist.barrier()
         if dev.type == "cuda":
             rows["nccl"] = nccl_micro(dev, cfg.d_model, opt["slots"], cs)
         # the quantized all-reduces at one decode step's [4, h] bf16
@@ -677,11 +773,11 @@ def card_rank(rank, world, port, out_path, small=False, setup=None,
                                   ).to(dev)
         rows["f32_tokens"] = {}
         for t, c, p in LAYOUTS:
-            place = dist_groups(t, p, dev)
-            got = greedy(Runner(cfg32, p32, t, p, place, dev), prompts32,
-                         opt["f32_new"])
-            want = greedy(Runner(cfg32, p32, t, p, None, dev), prompts32,
-                          opt["f32_new"])
+            place = dist_groups(t, p, dev, c=c)
+            got = greedy(Runner(cfg32, p32, t, p, place, dev, c=c),
+                         prompts32, opt["f32_new"])
+            want = greedy(Runner(cfg32, p32, t, p, None, dev, c=c),
+                          prompts32, opt["f32_new"])
             rows["f32_tokens"]["{}-{}-{}".format(t, c, p)] = \
                 bool(torch.equal(got, want))
         del p32
@@ -689,13 +785,14 @@ def card_rank(rank, world, port, out_path, small=False, setup=None,
         sd_cfg = get_config(cs.ARCH).reduced(num_layers=4)
         sd_params = get_model(sd_cfg).init(seed=0, device=dev)
         rows["serve_demo"] = {}
-        for backend, kw in (("tp", dict(tp=4)), ("pp", dict(pp=4))):
-            place = dist_groups(*serve_demo.layout(backend, **kw), dev)
+        for name, backend, kw in SERVE_DEMO:
+            t, c, p = serve_demo.layout(backend, **kw)
+            place = dist_groups(t, p, dev, c=c)
             out = serve_demo.run(sd_cfg, sd_params, dev, backend,
                                  place=place, **kw)
             serve_demo.check(out, place)
             one = serve_demo.run(sd_cfg, sd_params, dev, backend, **kw)
-            rows["serve_demo"][backend] = {
+            rows["serve_demo"][name] = {
                 "streams_equal": {m.rid: m.tokens for m in
                                   out["report"].metrics}
                 == {m.rid: m.tokens for m in one["report"].metrics},
